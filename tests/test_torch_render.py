@@ -1,0 +1,258 @@
+"""Port parity for the serving path: trase_tpu_torch.renderer.render
+against trase_tpu.renderer.render (Pallas backend in interpret mode) on
+the same gaussian field, deformation deltas, masks and colours; the
+port's render CLI against the root render.py on copies of one model
+directory; and the PCA colouring of the features."""
+import os
+import shutil
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from trase_tpu.models import deform as JD
+from trase_tpu.models import gaussians as JG
+from trase_tpu.models.gaussians_io import save_checkpoint, save_gaussian_ply
+from trase_tpu.ops.rasterize import RasterConfig as JRasterConfig
+from trase_tpu.renderer import make_render_camera as j_camera
+from trase_tpu.renderer import render as j_render
+
+from trase_tpu_torch.models import gaussians as TG
+from trase_tpu_torch.ops.rasterize import RasterConfig as TRasterConfig
+from trase_tpu_torch.renderer import make_render_camera as t_camera
+from trase_tpu_torch.renderer import render as t_render
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+torch.set_num_threads(2)
+
+H, W = 48, 64
+# as tests/test_rasterize_pallas.py::test_matches_dense: same weights,
+# float sums associated differently (pair by pair vs 128-pair windows)
+TOL = {"render": 2e-4, "feats": 5e-4, "depth": 2e-3, "alpha": 2e-4}
+
+
+def field(n=200, seed=0, sh_degree=2):
+    """A trase_tpu field with varied rotations, opacities, SH and dead
+    slots, plus the port's copy of it."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(n, 3)) * 0.6).astype(np.float32)
+    pts[:, 2] += 3.0
+    cols = rng.uniform(size=(n, 3)).astype(np.float32)
+    jp, ja = JG.from_point_cloud(pts, cols, sh_degree=sh_degree,
+                                 dist2=np.full(n, 0.004, np.float32))
+    cap = jp.xyz.shape[0]
+    jp = jp._replace(
+        rotation=jnp.asarray(rng.normal(size=(cap, 4)).astype(np.float32)),
+        opacity=jnp.asarray(rng.normal(1.0, 1.5, size=(cap, 1)).astype(
+            np.float32)),
+        features_rest=jnp.asarray((0.2 * rng.normal(
+            size=jp.features_rest.shape)).astype(np.float32)),
+        scaling=jp.scaling.at[:n].add(jnp.asarray(
+            rng.uniform(-0.5, 0.5, size=(n, 3)).astype(np.float32))))
+    alive = np.asarray(ja.alive).copy()
+    alive[:10] = False  # dead slots inside the live range
+    ja = ja._replace(alive=jnp.asarray(alive))
+    tp, ta = TG.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                  jax.tree_util.tree_map(np.asarray, ja),
+                                  device="cpu")
+    return jp, ja, tp, ta
+
+
+def cameras():
+    R = np.eye(3)
+    T = np.array([0.1, -0.05, 0.0])
+    return (j_camera(R, T, 0.9, 0.7, H, W),
+            t_camera(R, T, 0.9, 0.7, H, W, device="cpu"))
+
+
+def check(ref, got, keys):
+    for k in keys:
+        tk = {"render_gaussian_features": "feats"}.get(k, k)
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   atol=TOL[tk], rtol=0, err_msg=k)
+    np.testing.assert_array_equal(got["visibility_filter"].numpy(),
+                                  np.asarray(ref["visibility_filter"]))
+    np.testing.assert_array_equal(got["radii"].numpy(),
+                                  np.asarray(ref["radii"]))
+    assert float(got["overflow"]) == float(ref["overflow"])
+    assert float(got["overflow_half"]) == float(ref["overflow_half"])
+
+
+def test_render_deform_mask_features():
+    """Deformation deltas, a keep-mask, dead slots and 32 bf16-packed
+    feature channels (RasterConfig's default)."""
+    jp, ja, tp, ta = field()
+    jcam, tcam = cameras()
+    cap = jp.xyz.shape[0]
+    rng = np.random.default_rng(1)
+    d = [(s * rng.normal(size=(cap, k))).astype(np.float32)
+         for s, k in ((0.05, 3), (0.1, 4), (0.005, 3))]
+    mask = rng.uniform(size=cap) < 0.8
+    bg = np.array([0.2, 0.1, 0.4], np.float32)
+    ref = j_render(jcam, jp, ja.alive, jnp.asarray(bg),
+                   *[jnp.asarray(x) for x in d], sh_degree=2,
+                   mask=jnp.asarray(mask),
+                   raster_cfg=JRasterConfig(pairs_per_gaussian=16),
+                   backend="pallas_interpret")
+    got = t_render(tcam, tp, ta.alive, torch.from_numpy(bg),
+                   *[torch.from_numpy(x) for x in d], sh_degree=2,
+                   mask=torch.from_numpy(mask),
+                   raster_cfg=TRasterConfig(pairs_per_gaussian=16))
+    check(ref, got, ("render", "depth", "alpha", "render_gaussian_features"))
+    assert got["render_gaussian_features"].shape == (32, H, W)
+    np.testing.assert_array_equal(
+        got["render_gaussian_features_hwc"].numpy(),
+        got["render_gaussian_features"].permute(1, 2, 0).numpy())
+
+
+def test_render_override_color_6dof():
+    """override_color, scaling_modifier and 6-DoF transforms, no
+    features."""
+    jp, ja, tp, ta = field(seed=2, sh_degree=1)
+    jcam, tcam = cameras()
+    cap = jp.xyz.shape[0]
+    rng = np.random.default_rng(3)
+    tf = np.tile(np.eye(4, dtype=np.float32), (cap, 1, 1))
+    tf[:, :3, 3] = 0.05 * rng.normal(size=(cap, 3))
+    tf[:, :3, :3] += 0.02 * rng.normal(size=(cap, 3, 3))
+    color = rng.uniform(size=(cap, 3)).astype(np.float32)
+    ref = j_render(jcam, jp, ja.alive, jnp.zeros(3), jnp.asarray(tf),
+                   is_6dof=True, scaling_modifier=0.8,
+                   override_color=jnp.asarray(color), with_features=False,
+                   raster_cfg=JRasterConfig(pairs_per_gaussian=16),
+                   backend="pallas_interpret")
+    got = t_render(tcam, tp, ta.alive, torch.zeros(3), torch.from_numpy(tf),
+                   is_6dof=True, scaling_modifier=0.8,
+                   override_color=torch.from_numpy(color),
+                   with_features=False,
+                   raster_cfg=TRasterConfig(pairs_per_gaussian=16))
+    check(ref, got, ("render", "depth", "alpha"))
+    assert "render_gaussian_features" not in got
+
+
+def test_render_under_autograd_raises():
+    """No silent zero gradients: the compositor's backward is not ported."""
+    _, _, tp, ta = field(n=30)
+    _, tcam = cameras()
+    xyz = tp.xyz.clone().requires_grad_(True)
+    out = t_render(tcam, tp._replace(xyz=xyz), ta.alive, torch.zeros(3),
+                   with_features=False)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out["render"].sum().backward()
+
+
+@pytest.mark.parametrize("option", [
+    dict(with_color=False), dict(grad_values_only=True),
+    dict(mean2d_offset=torch.zeros(1, 2)),
+    dict(smooth_map=torch.zeros(1, 16, dtype=torch.long))])
+def test_training_options_not_ported(option):
+    _, _, tp, ta = field(n=30)
+    _, tcam = cameras()
+    with pytest.raises(NotImplementedError):
+        t_render(tcam, tp, ta.alive, torch.zeros(3), **option)
+
+
+def test_feature3d_to_rgb_up_to_sign():
+    """PCA colours agree up to the sign of each component: each port
+    column is an affine image of the JAX column (|correlation| = 1)."""
+    from trase_tpu.viz import feature3d_to_rgb as j_pca
+    from trase_tpu_torch.viz import feature3d_to_rgb as t_pca
+
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(300, 32)) * np.linspace(3, 0.1, 32)).astype(
+        np.float32)
+    a = np.asarray(j_pca(jnp.asarray(x)))
+    b = t_pca(torch.from_numpy(x)).numpy()
+    assert a.shape == b.shape == (300, 3)
+    assert b.min() >= 0.0 and b.max() <= 1.0
+    for c in range(3):
+        r = np.corrcoef(a[:, c], b[:, c])[0, 1]
+        assert abs(abs(r) - 1.0) < 1e-4, (c, r)
+
+
+IT = 77
+
+
+@pytest.fixture(scope="module")
+def model_dir(tmp_path_factory):
+    """A Blender-format dataset plus a model directory as the JAX trainer
+    writes it (tests/test_render_cli.py's fixture plus a deform.pkl)."""
+    from trase_tpu.data.synthetic import write_synthetic_dataset
+    from trase_tpu.utils.sh import rgb_to_sh
+
+    base = tmp_path_factory.mktemp("cli")
+    src, mdl = str(base / "data"), str(base / "model")
+    scene = write_synthetic_dataset(src, n_train=2, n_test=2, image_size=48,
+                                    n_blobs=3, pts_per_blob=32)
+    n = scene["xyz"].shape[0]
+    params = JG.empty_params(capacity=n, sh_degree=1)
+    params = params._replace(
+        xyz=jnp.asarray(scene["xyz"]),
+        features_dc=jnp.asarray(rgb_to_sh(scene["rgb"]))[:, None, :],
+        scaling=jnp.full((n, 3), np.log(scene["scale"])),
+        rotation=jnp.zeros((n, 4)).at[:, 0].set(1.0),
+        opacity=jnp.full((n, 1), 2.0),
+        gaussian_features=jnp.asarray(np.random.default_rng(11).normal(
+            size=(n, JG.FEATURE_DIM)).astype(np.float32)),
+    )
+    save_gaussian_ply(os.path.join(mdl, "point_cloud", f"iteration_{IT}",
+                                   "point_cloud.ply"), params,
+                      np.ones(n, bool))
+    net = JD.make_deform_network("DeformNetwork", is_blender=True)
+    v = jax.tree_util.tree_map(np.asarray,
+                               JD.init_deform(jax.random.PRNGKey(0), net))
+    for head in ("Dense_10", "Dense_11", "Dense_12"):  # small deformations
+        v["params"][head]["kernel"] = v["params"][head]["kernel"] * 0.05
+    save_checkpoint(os.path.join(mdl, "deform", f"iteration_{IT}",
+                                 "deform.pkl"),
+                    {"vars": v, "type": "DeformNetwork"})
+    return src, mdl
+
+
+def _pngs(folder):
+    from PIL import Image
+
+    out = {}
+    for f in sorted(os.listdir(folder)):
+        if f.endswith(".png"):
+            with Image.open(os.path.join(folder, f)) as im:
+                out[f] = np.asarray(im, np.int16)
+    return out
+
+
+def test_cli_matches_root_render_py(model_dir, tmp_path):
+    """Both CLIs on their own copy of one model directory: the renders/
+    and canonical/ PNGs agree within one 8-bit level (float sums that
+    differ in the last bits can round to neighbouring levels).
+    --segment_ids is passed because the root render.py reads
+    args.segment_ids unguarded; without clusters it selects nothing."""
+    import render as j_cli
+    from trase_tpu_torch import render as t_cli
+
+    src, mdl = model_dir
+    outs = {}
+    for name, cli, extra in (("jax", j_cli, []),
+                             ("port", t_cli, ["--device", "cpu"])):
+        copy = str(tmp_path / name)
+        shutil.copytree(mdl, copy)
+        cli.main(["-s", src, "-m", copy, "--iteration", str(IT),
+                  "--skip_train", "--sh_degree", "1", "--is_blender",
+                  "--eval", "--pairs_per_gaussian", "16",
+                  "--segment_ids", "0"] + extra)
+        outs[name] = os.path.join(copy, "test", f"ours_{IT}")
+    for stream, count in (("renders", 2), ("canonical", 1), ("gt", 2)):
+        a = _pngs(os.path.join(outs["jax"], stream))
+        b = _pngs(os.path.join(outs["port"], stream))
+        assert sorted(a) == sorted(b) and len(b) == count, stream
+        for f in a:
+            assert np.abs(a[f] - b[f]).max() <= 1, (stream, f)
+    assert len(_pngs(os.path.join(outs["port"], "rendered_feats"))) == 2
+    feats3d = np.load(os.path.join(outs["port"], "rendered_feats",
+                                   "gaussian_feats3d.npy"))
+    np.testing.assert_array_equal(feats3d, np.load(os.path.join(
+        outs["jax"], "rendered_feats", "gaussian_feats3d.npy")))
