@@ -6,8 +6,7 @@ convention (fields listed in `_shorthand` get a one-letter alias), plus
 `get_combined_args` merging a saved config under model_path. The saved
 format here is JSON (`cfg_args.json`); the reference's eval()-based
 `cfg_args` Namespace repr is also parsed, READ-ONLY and without eval,
-for checkpoint compatibility. The optimisation group comes with the
-training slice.
+for checkpoint compatibility.
 """
 from __future__ import annotations
 
@@ -94,6 +93,57 @@ class PipelineParams:
     @classmethod
     def add_to_parser(cls, parser):
         _add_group(parser, cls, "Pipeline Parameters", set())
+
+    @classmethod
+    def extract(cls, args):
+        return _extract(cls, args)
+
+
+@dataclass
+class OptimizationParams:
+    iterations: int = 30_000
+    warm_up: int = 3_000
+    deform_lr_max_steps: int = 40_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    warm_up_3d_features: int = 10000
+    iterative_opt_interval: int = 1000
+    monitor_mem: bool = False
+    lambda_reg_deform: float = 0.0
+    num_kmeans: int = 16
+    num_neighbors: int = 128
+    deform_type: str = "DeformNetwork"
+    num_sampled_pixels: int = 5000
+    smooth_K: int = 16
+    rfn: float = 1.0
+    num_sampled_masks: int = 50
+    contrastive_mode: str = "soft"
+    hard_positive_th: float = 0.75
+    hard_negative_th: float = 0.5
+    # no reference counterpart (trase_tpu's): the pair-budget overflow
+    # warning threshold and the auto-escalation cap for
+    # pairs_per_gaussian (0 disables auto-escalation)
+    overflow_warn_frac: float = 0.02
+    max_pairs_per_gaussian: int = 32
+
+    _shorthand = frozenset()
+
+    @classmethod
+    def add_to_parser(cls, parser):
+        _add_group(parser, cls, "Optimization Parameters", set())
 
     @classmethod
     def extract(cls, args):

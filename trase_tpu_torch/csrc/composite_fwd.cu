@@ -11,6 +11,14 @@
 //   that would take it below stops the pixel and does not count
 //   w     = exp(log alpha + log T),  acc += w,  v[c] += w * value[c]
 // and writes [acc, v...] channels-last (H, W, 1 + NV) for in-image pixels.
+// With WITH_RES (the training path) it also writes, for every pixel of the
+// padded tile grid, the residuals the backward (composite_bwd.cu) reads:
+// log T after the pixel's last contributing pair (the stop pair is not
+// added) and the index, within the tile's pair range, of the pair that
+// stopped it, or the range's length if none did. They are the per-pixel
+// counterparts of `logt_out` / `stop_out` (rasterize_pallas.py:601-607),
+// which the TPU keeps per tile and 128-pair window; per-pixel bookkeeping
+// lets the backward decide which pairs counted by index alone.
 // T is carried in LOG space, as the Pallas kernel does (its live test is
 // `cum_incl + logt >= LOG_T_EPS`, rasterize_pallas.py:647), so the stop
 // decision is the JAX one up to float reassociation. The plain PyTorch
@@ -49,8 +57,7 @@
 //     (__syncthreads_count).
 // Left for later work: deeper shared-memory batching with cp.async / TMA
 // double buffering, warp-level culling of pairs that miss a warp's pixels,
-// balancing long tile lists across blocks, and the backward residuals
-// (log T at stop and the stop index) that the training slice needs.
+// balancing long tile lists across blocks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,13 +69,15 @@ constexpr int kPix = kTile * kTile;  // threads per block: one per pixel
 constexpr int kBatch = kPix;         // pairs staged per shared-memory batch
 constexpr int kGeom = 6;             // mean2d(2), conic(3), log opacity(1)
 
-template <int NV, int NPACK>
+template <int NV, int NPACK, bool WITH_RES>
 __global__ void __launch_bounds__(kPix)
 composite_fwd_kernel(const float* __restrict__ payload,
                      const int* __restrict__ sorted_gauss,
                      const int* __restrict__ tile_start, int tw, int height,
                      int width, float log_alpha_max, float log_alpha_eps,
-                     float log_t_eps, float* __restrict__ out) {
+                     float log_t_eps, float* __restrict__ out,
+                     float* __restrict__ res_logt,
+                     int* __restrict__ res_stop) {
   static_assert(NPACK == 0 || NV == 4 + 2 * NPACK, "packed value layout");
   constexpr int kWords = kGeom + (NPACK > 0 ? 4 + NPACK : NV);
   __shared__ float rows[kWords][kBatch + 1];
@@ -92,6 +101,7 @@ composite_fwd_kernel(const float* __restrict__ payload,
   for (int c = 0; c < NV; ++c) val[c] = 0.f;
   float logt = 0.f;
   bool done = false;
+  int stop = end;
 
   for (int base = start; base < end; base += kBatch) {
     // A barrier for the whole block: no thread still reads the previous
@@ -121,6 +131,7 @@ composite_fwd_kernel(const float* __restrict__ payload,
       const float next = logt + log1pf(-alpha);
       if (!(next >= log_t_eps)) {  // T would fall below 1e-4: stop here
         done = true;
+        stop = base + j;
         break;
       }
       const float w = expf(alog + logt);
@@ -143,6 +154,10 @@ composite_fwd_kernel(const float* __restrict__ payload,
     }
   }
 
+  if constexpr (WITH_RES) {
+    res_logt[(size_t)tile * kPix + threadIdx.x] = logt;
+    res_stop[(size_t)tile * kPix + threadIdx.x] = stop - start;
+  }
   const int px = tx * kTile + lx;
   const int py = ty * kTile + ly;
   if (px < width && py < height) {
@@ -153,14 +168,15 @@ composite_fwd_kernel(const float* __restrict__ payload,
   }
 }
 
-template <int NV, int NPACK>
+template <int NV, int NPACK, bool WITH_RES>
 int launch(const float* payload, const int* sorted_gauss,
            const int* tile_start, int num_tiles, int tw, int height,
            int width, float log_alpha_max, float log_alpha_eps,
-           float log_t_eps, float* out, cudaStream_t stream) {
-  composite_fwd_kernel<NV, NPACK><<<num_tiles, kPix, 0, stream>>>(
+           float log_t_eps, float* out, float* res_logt, int* res_stop,
+           cudaStream_t stream) {
+  composite_fwd_kernel<NV, NPACK, WITH_RES><<<num_tiles, kPix, 0, stream>>>(
       payload, sorted_gauss, tile_start, tw, height, width, log_alpha_max,
-      log_alpha_eps, log_t_eps, out);
+      log_alpha_eps, log_t_eps, out, res_logt, res_stop);
   return (int)cudaGetLastError();
 }
 
@@ -168,26 +184,41 @@ int launch(const float* payload, const int* sorted_gauss,
 
 // C interface for ctypes. Returns the launch's cudaError_t (0 = success),
 // or cudaErrorInvalidValue for a value layout without an instantiation.
+// res_logt / res_stop (num_tiles * 256 each) are written when res_logt is
+// not null; the residual instantiation exists for the rgb + depth layout
+// that the GAUSSIAN training step composites.
 extern "C" int trase_composite_fwd(const float* payload,
                                    const int* sorted_gauss,
                                    const int* tile_start, int num_tiles,
                                    int tw, int height, int width, int n_val,
                                    int n_packed, float log_alpha_max,
                                    float log_alpha_eps, float log_t_eps,
-                                   float* out, void* stream) {
+                                   float* out, float* res_logt,
+                                   int* res_stop, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (num_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (res_logt != nullptr) {
+    if (n_val == 4 && n_packed == 0)
+      return launch<4, 0, true>(payload, sorted_gauss, tile_start, num_tiles,
+                                tw, height, width, log_alpha_max,
+                                log_alpha_eps, log_t_eps, out, res_logt,
+                                res_stop, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (n_val == 4 && n_packed == 0)
-    return launch<4, 0>(payload, sorted_gauss, tile_start, num_tiles, tw,
-                        height, width, log_alpha_max, log_alpha_eps,
-                        log_t_eps, out, s);
+    return launch<4, 0, false>(payload, sorted_gauss, tile_start, num_tiles,
+                               tw, height, width, log_alpha_max,
+                               log_alpha_eps, log_t_eps, out, nullptr,
+                               nullptr, s);
   if (n_val == 36 && n_packed == 0)
-    return launch<36, 0>(payload, sorted_gauss, tile_start, num_tiles, tw,
-                         height, width, log_alpha_max, log_alpha_eps,
-                         log_t_eps, out, s);
+    return launch<36, 0, false>(payload, sorted_gauss, tile_start, num_tiles,
+                                tw, height, width, log_alpha_max,
+                                log_alpha_eps, log_t_eps, out, nullptr,
+                                nullptr, s);
   if (n_val == 36 && n_packed == 16)
-    return launch<36, 16>(payload, sorted_gauss, tile_start, num_tiles, tw,
-                          height, width, log_alpha_max, log_alpha_eps,
-                          log_t_eps, out, s);
+    return launch<36, 16, false>(payload, sorted_gauss, tile_start,
+                                 num_tiles, tw, height, width, log_alpha_max,
+                                 log_alpha_eps, log_t_eps, out, nullptr,
+                                 nullptr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,332 @@
+"""GAUSSIAN-phase training step of the port.
+
+Counterpart of trase_tpu/engine/trainer.py (:82-137, :173-344,
+:638-690; reference train.py:209-243): render the view under autograd,
+loss = (1-λ) L1 + λ (1 - SSIM) (+ λ_reg |d_xyz| once the deform net is
+on), Adam on the gaussian fields (rows of dead slots frozen) and on the
+deform MLP, and the densification statistics from the gradient of the
+screen-space offset. The compositor's gradient runs through the
+hand-written CUDA backward (ops/rasterize_cuda.py) on the card.
+
+The state is a NamedTuple of tensors and the step is functional: it
+returns a new state and leaves its input alone. The NaN guard commits
+the new state only where every tensor of it is finite (a ``torch.where``
+on a device flag, no host sync), so a non-finite step is one skipped
+step. The deform net is a module whose weights live in the state as a
+list in flax order (Dense_i kernel in nn.Linear's (out, in) layout, then
+its bias); the step runs the module on them with
+``torch.func.functional_call``. Its hidden stack runs in bf16, as
+trase_tpu's does by default.
+
+The FEATURE step (contrastive losses, feature smoothing) belongs to the
+FEATURE slice of the port.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from ..losses.image_losses import l1_loss, ssim
+from ..models import gaussians as G
+from ..models.deform import DeformNetwork
+from ..ops.rasterize import RasterConfig
+from ..renderer import RenderCamera, render
+from ..utils.schedules import expon_lr_func, linear_noise_func
+from .optim import AdamState, adam_init, adam_update, adam_update_list
+
+# the fields the GAUSSIAN phase trains, with their LearningRates name
+TRAINED = ("xyz", "features_dc", "features_rest", "opacity", "scaling",
+           "rotation")
+
+
+class TrainState(NamedTuple):
+    params: G.GaussianParams
+    aux: G.GaussianAux
+    opt: G.GaussianOptState
+    deform: list  # deform tensors in flax order (see module docstring)
+    deform_opt: list  # AdamState per deform tensor
+
+
+class LearningRates(NamedTuple):
+    """Per-field learning rates (python floats), scheduled on the host."""
+
+    xyz: float
+    features_dc: float
+    features_rest: float
+    opacity: float
+    scaling: float
+    rotation: float
+    gaussian_features: float
+    deform: float
+
+
+def make_learning_rate_schedules(opt_args, spatial_lr_scale: float = 5.0):
+    """xyz + deform exponential schedules (gaussian_model.py:290-293,
+    deform_model.py:45-48); returns iteration -> LearningRates."""
+    xyz_sched = expon_lr_func(
+        lr_init=opt_args.position_lr_init * spatial_lr_scale,
+        lr_final=opt_args.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt_args.position_lr_delay_mult,
+        max_steps=opt_args.position_lr_max_steps)
+    deform_sched = expon_lr_func(
+        lr_init=opt_args.position_lr_init * spatial_lr_scale,
+        lr_final=opt_args.position_lr_final,
+        lr_delay_mult=opt_args.position_lr_delay_mult,
+        max_steps=opt_args.deform_lr_max_steps)
+
+    def at(iteration: int) -> LearningRates:
+        return LearningRates(
+            xyz=float(xyz_sched(iteration)),
+            features_dc=float(opt_args.feature_lr),
+            features_rest=float(opt_args.feature_lr / 20.0),
+            opacity=float(opt_args.opacity_lr),
+            scaling=float(opt_args.scaling_lr),
+            rotation=float(opt_args.rotation_lr),
+            gaussian_features=float(opt_args.feature_lr),
+            deform=float(deform_sched(iteration)),
+        )
+
+    return at
+
+
+def float_tensors(state: TrainState) -> list:
+    """Every float tensor of the state (what the NaN guard checks)."""
+    out = [x for x in state.params] + [x for x in state.aux
+                                       if x.is_floating_point()]
+    out += [t for s in state.opt for t in (s.mu, s.nu)]
+    out += list(state.deform)
+    out += [t for s in state.deform_opt for t in (s.mu, s.nu)]
+    return out
+
+
+def _all_finite(tensors) -> torch.Tensor:
+    """0-d bool tensor: every element of every tensor is finite."""
+    return torch.stack([torch.isfinite(x).all() for x in tensors]).all()
+
+
+def _commit(finite: torch.Tensor, new: TrainState,
+            old: TrainState) -> TrainState:
+    """`new` where `finite`, else `old`, tensor by tensor (on the
+    device: no host sync)."""
+    def w(n, o):
+        return torch.where(finite, n, o)
+
+    def adam(n, o):
+        return AdamState(w(n.mu, o.mu), w(n.nu, o.nu), w(n.step, o.step))
+
+    return TrainState(
+        params=G.GaussianParams(*[w(n, o) for n, o in zip(new.params,
+                                                          old.params)]),
+        aux=G.GaussianAux(*[w(n, o) for n, o in zip(new.aux, old.aux)]),
+        opt=G.GaussianOptState(*[adam(n, o) for n, o in zip(new.opt,
+                                                            old.opt)]),
+        deform=[w(n, o) for n, o in zip(new.deform, old.deform)],
+        deform_opt=[adam(n, o) for n, o in zip(new.deform_opt,
+                                               old.deform_opt)],
+    )
+
+
+def apply_deform(deform_net: DeformNetwork, deform: list, xyz, fid,
+                 ast_noise, use_deform: bool, gaussian_features=None):
+    """(d_xyz, d_rotation, d_scaling) for the step, the net run on the
+    `deform` tensors with its hidden stack in bf16; zeros when the net is
+    not on yet. The MLP's input is xyz.detach() (trase_tpu's
+    stop_gradient): xyz gets no gradient through the deformation."""
+    if not use_deform:
+        return 0.0, 0.0, 0.0
+    n = xyz.shape[0]
+    dev = xyz.device
+    t = (torch.zeros((n, 1), dtype=torch.float32, device=dev)
+         + torch.tensor(np.float32(fid), device=dev)
+         + torch.tensor(np.float32(ast_noise), device=dev))
+    args = (xyz.detach(), t)
+    if deform_net.feature_dim:
+        args += (gaussian_features.reshape(n, -1).detach(),)
+    return functional_call(
+        deform_net, dict(zip(deform_net.flax_names(), deform)), args,
+        {"dtype": torch.bfloat16})
+
+
+def gaussian_phase_step(
+    state: TrainState,
+    camera: RenderCamera,
+    gt_image: torch.Tensor,  # (3, H, W)
+    fid: float,
+    ast_noise: float,
+    lrs: LearningRates,
+    bg_color: torch.Tensor,
+    *,
+    deform_net: DeformNetwork,
+    sh_degree: int,
+    use_deform: bool,
+    is_6dof: bool,
+    lambda_dssim: float,
+    lambda_reg_deform: float,
+    raster_cfg: RasterConfig,
+):
+    """One GAUSSIAN-phase step -> (new state, metrics). The metrics are
+    0-d device tensors (loss, l1, finite, overflow, overflow_half): the
+    step itself never waits for the device."""
+    p, aux = state.params, state.aux
+    dev = p.xyz.device
+    leaves = {k: getattr(p, k).detach().requires_grad_(True)
+              for k in TRAINED}
+    dparams = [t.detach().requires_grad_(use_deform) for t in state.deform]
+    off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    params = p._replace(**leaves)
+    d_xyz, d_rot, d_scale = apply_deform(
+        deform_net, dparams, params.xyz, fid, ast_noise, use_deform,
+        params.gaussian_features)
+    out = render(camera, params, aux.alive, bg_color, d_xyz, d_rot, d_scale,
+                 is_6dof=is_6dof, sh_degree=sh_degree, mean2d_offset=off,
+                 with_features=False, raster_cfg=raster_cfg)
+    image = out["render"]
+    ll1 = l1_loss(image, gt_image)
+    loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (
+        1.0 - ssim(image, gt_image))
+    if use_deform and lambda_reg_deform > 0:
+        loss = loss + lambda_reg_deform * torch.abs(d_xyz).mean()
+    inputs = list(leaves.values()) + (dparams if use_deform else []) + [off]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)]
+
+    with torch.no_grad():
+        new_fields, new_opt_fields = {}, {}
+        for name, g in zip(TRAINED, grads):
+            new_fields[name], new_opt_fields[name] = adam_update(
+                getattr(p, name), g, getattr(state.opt, name),
+                getattr(lrs, name), row_mask=aux.alive)
+        new_params = p._replace(**new_fields)
+        new_opt = state.opt._replace(**new_opt_fields)
+        if use_deform:
+            new_deform, new_deform_opt = adam_update_list(
+                state.deform, grads[len(TRAINED):-1], state.deform_opt,
+                lrs.deform)
+        else:
+            new_deform, new_deform_opt = state.deform, state.deform_opt
+        new_aux = G.add_densification_stats(
+            aux, grads[-1], out["visibility_filter"] & aux.alive,
+            out["radii"], camera.image_height, camera.image_width)
+        new = TrainState(new_params, new_aux, new_opt, new_deform,
+                         new_deform_opt)
+        finite = torch.isfinite(loss.detach()) & _all_finite(
+            float_tensors(new))
+        new_state = _commit(finite, new, state)
+    metrics = {"loss": loss.detach(), "l1": ll1.detach(), "finite": finite,
+               "overflow": out["overflow"],
+               "overflow_half": out["overflow_half"]}
+    return new_state, metrics
+
+
+def densify_step(state: TrainState, scene_extent: float,
+                 max_screen_size: float, *, cfg: G.DensifyConfig,
+                 max_new: int, generator: torch.Generator | None = None,
+                 samples: torch.Tensor | None = None):
+    p, aux, opt, stats = G.densify_and_prune(
+        state.params, state.aux, state.opt, cfg, scene_extent,
+        max_screen_size, max_new, generator=generator, samples=samples)
+    return state._replace(params=p, aux=aux, opt=opt), stats
+
+
+def reset_opacity_step(state: TrainState) -> TrainState:
+    p, opt = G.reset_opacity(state.params, state.aux, state.opt)
+    return state._replace(params=p, opt=opt)
+
+
+def init_train_state(params: G.GaussianParams, aux: G.GaussianAux,
+                     deform: list) -> TrainState:
+    """Fresh Adam state for `params` and the deform tensors (float32
+    from the first step on)."""
+    deform = [t.detach().clone() for t in deform]
+    return TrainState(params=params, aux=aux, opt=G.init_opt_state(params),
+                      deform=deform,
+                      deform_opt=[adam_init(t) for t in deform])
+
+
+def deform_tensors(deform_net: DeformNetwork) -> list:
+    """The net's current weights in the state's flax order."""
+    named = dict(deform_net.named_parameters())
+    return [named[n].detach().clone() for n in deform_net.flax_names()]
+
+
+def make_ast_noise_fn(num_frames: int, is_blender: bool):
+    """AST time-jitter amplitude (train.py:154,198): scalar
+    N(0,1) * (1/num_frames) * linear_decay(iteration)."""
+    smooth_term = linear_noise_func(lr_init=0.1, lr_final=1e-15,
+                                    lr_delay_mult=0.01, max_steps=20000)
+    time_interval = 1.0 / max(num_frames, 1)
+
+    def fn(np_rng: np.random.Generator, iteration: int) -> float:
+        if is_blender:
+            return 0.0
+        return float(np_rng.standard_normal() * time_interval
+                     * smooth_term(iteration))
+
+    return fn
+
+
+# ------------------------------------------------- state across packages
+
+
+def _fields(obj) -> dict:
+    return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The state as numpy in trase_tpu's TrainState layout: params, aux,
+    opt ({field: {mu, nu, step}}), deform_vars ({"params": {"Dense_i":
+    {"kernel" (in, out), "bias"}}}) and deform_opt (the same tree with
+    {mu, nu, step} leaves)."""
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    def adam(s, transpose=False):
+        f = (lambda x: a(x).T) if transpose else a
+        return {"mu": f(s.mu), "nu": f(s.nu), "step": a(s.step)}
+
+    dvars, dopt = {}, {}
+    for i in range(len(state.deform) // 2):
+        w, b = state.deform[2 * i], state.deform[2 * i + 1]
+        sw, sb = state.deform_opt[2 * i], state.deform_opt[2 * i + 1]
+        dvars[f"Dense_{i}"] = {"kernel": a(w).T, "bias": a(b)}
+        dopt[f"Dense_{i}"] = {"kernel": adam(sw, True), "bias": adam(sb)}
+    return {
+        "params": {k: a(v) for k, v in state.params._asdict().items()},
+        "aux": {k: a(v) for k, v in state.aux._asdict().items()},
+        "opt": {k: adam(v) for k, v in state.opt._asdict().items()},
+        "deform_vars": {"params": dvars},
+        "deform_opt": {"params": dopt},
+    }
+
+
+def train_state_from_numpy(tree, device="cuda") -> TrainState:
+    """A TrainState on `device` from trase_tpu's TrainState as numpy
+    (jax.tree_util.tree_map(np.asarray, state)) or from
+    train_state_to_numpy's dict."""
+    tree = _fields(tree)
+    params, aux = G.params_from_numpy(tree["params"], tree["aux"], device)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=params.xyz.device)
+
+    def adam(s, transpose=False):
+        s = _fields(s)
+        f = (lambda x: t(np.asarray(x).T)) if transpose else t
+        return AdamState(mu=f(s["mu"]), nu=f(s["nu"]),
+                         step=t(s["step"], torch.int32))
+
+    opt = G.GaussianOptState(**{k: adam(v)
+                                for k, v in _fields(tree["opt"]).items()})
+    dvars = _fields(tree["deform_vars"])["params"]
+    dopt = _fields(tree["deform_opt"])["params"]
+    deform, deform_opt = [], []
+    for i in range(len(dvars)):
+        layer, lopt = dvars[f"Dense_{i}"], dopt[f"Dense_{i}"]
+        deform += [t(np.asarray(layer["kernel"]).T), t(layer["bias"])]
+        deform_opt += [adam(lopt["kernel"], True), adam(lopt["bias"])]
+    return TrainState(params, aux, opt, deform, deform_opt)

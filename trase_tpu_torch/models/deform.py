@@ -9,12 +9,17 @@ through a small time-net (t_emb -> 256 -> 30). The variants
 32-dim feature input and keep the reference's registry names.
 
 Weights written by the JAX trainer (flax variables, as numpy, in
-deform/iteration_N/deform.pkl) load with ``load_flax_params``.
+deform/iteration_N/deform.pkl) load with ``load_flax_params``;
+``flax_variables`` writes them back in that layout. ``dtype=
+torch.bfloat16`` runs the hidden stack in bf16 (the GAUSSIAN training
+step always does, as trase_tpu's does); parameters, the frequency
+embedding and the output heads stay float32.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
@@ -37,6 +42,14 @@ def frequency_embed(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
 
 def embed_dim(input_dim: int, num_freqs: int) -> int:
     return input_dim * (1 + 2 * num_freqs)
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax Dense(dtype=...): input, kernel and bias cast to `dtype`
+    (parameters stay float32); None computes in the input's type."""
+    if dtype is None:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
 class DeformNetwork(nn.Module):
@@ -80,11 +93,19 @@ class DeformNetwork(nn.Module):
                    else [self.gaussian_warp])
         return layers + [self.gaussian_rotation, self.gaussian_scaling]
 
+    def flax_names(self) -> list[str]:
+        """Parameter names in flax order: Dense_i's kernel, then its
+        bias, for i = 0, 1, ..."""
+        names = {id(p): n for n, p in self.named_parameters()}
+        return [names[id(p)] for layer in self.flax_order()
+                for p in (layer.weight, layer.bias)]
+
     def forward(self, xyz: torch.Tensor, t: torch.Tensor,
-                features: torch.Tensor | None = None):
+                features: torch.Tensor | None = None, dtype=None):
         t_emb = frequency_embed(t, self.t_multires)
         if self.is_blender:
-            t_emb = self.time_net[1](torch.relu(self.time_net[0](t_emb)))
+            t_emb = _dense(self.time_net[1], torch.relu(
+                _dense(self.time_net[0], t_emb, dtype)), dtype).float()
         x_emb = frequency_embed(xyz, self.multires)
 
         parts = [x_emb, t_emb]
@@ -94,9 +115,10 @@ class DeformNetwork(nn.Module):
 
         h = inp
         for i, layer in enumerate(self.linear):
-            h = torch.relu(layer(h))
+            h = torch.relu(_dense(layer, h, dtype))
             if i == self.skip_at:
-                h = torch.cat([inp, h], dim=-1)
+                h = torch.cat([inp.to(h.dtype), h], dim=-1)
+        h = h.float()
 
         if self.is_6dof:
             w = self.branch_w(h)
@@ -169,10 +191,21 @@ def load_flax_params(model: DeformNetwork, variables_np) -> DeformNetwork:
     return model
 
 
+def flax_variables(model: DeformNetwork) -> dict:
+    """The network's weights in trase_tpu's flax layout ({"params":
+    {"Dense_i": {"kernel" (in, out), "bias"}}}, numpy float32): the
+    inverse of load_flax_params, what deform.pkl holds."""
+    return {"params": {
+        f"Dense_{i}": {"kernel": lin.weight.detach().T.cpu().numpy(),
+                       "bias": lin.bias.detach().cpu().numpy()}
+        for i, lin in enumerate(model.flax_order())}}
+
+
 def deform_step(model: DeformNetwork, xyz: torch.Tensor, t: torch.Tensor,
-                features: torch.Tensor | None = None):
+                features: torch.Tensor | None = None, dtype=None):
     """Functional `DeformModel.step` (scene/deform_model.py:34-35):
-    (d_xyz, d_rotation, d_scaling) for every gaussian at time `t`."""
+    (d_xyz, d_rotation, d_scaling) for every gaussian at time `t`;
+    `dtype=torch.bfloat16` runs the hidden stack in bf16."""
     if model.feature_dim:
-        return model(xyz, t, features)
-    return model(xyz, t)
+        return model(xyz, t, features, dtype=dtype)
+    return model(xyz, t, dtype=dtype)

@@ -1,4 +1,5 @@
-"""Tile binning + the CUDA tile compositor (forward) and its plain version.
+"""Tile binning + the CUDA tile compositor (forward and backward) and the
+plain PyTorch version of each kernel.
 
 Counterpart of trase_tpu/ops/rasterize_pallas.py:194-375 (binning) and
 :1394-1511 (payload, bf16 feature packing, ``rasterize_tiled_pallas``).
@@ -12,9 +13,13 @@ is) with the pair id riding along.
 Compositing runs ``csrc/composite_fwd.cu`` (see its header for the
 design and its bound on the card) for CUDA tensors, and
 ``composite_plain`` — the same function in plain PyTorch, tile chunk by
-tile chunk — for CPU tensors. Nothing falls back from one to the other.
-The launch sits inside a ``torch.autograd.Function`` whose backward
-raises: the backward kernel belongs to the training slice.
+tile chunk — for CPU tensors. Under autograd the forward also keeps its
+per-pixel residuals, and the backward runs ``csrc/composite_bwd.cu``:
+``composite_bwd`` (pair gradients, counterpart of ``_bwd_group_kernel``)
+then ``reduce_pair_grads`` (per-gaussian rows, counterpart of
+``_transpose_kernel`` + ``unsort_slot_gradients``), or their plain
+versions ``composite_bwd_plain`` / ``reduce_pair_grads_plain`` for CPU
+tensors. Nothing falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -45,18 +50,25 @@ LOG_T_EPS = float(np.log(T_EPS))
 # depth, + 32 features, + 32 bf16-packed features.
 SUPPORTED = frozenset({(4, 0), (36, 0), (36, 16)})
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "composite_fwd.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "build")
+# value layouts the backward kernel is instantiated for: rgb + depth (the
+# GAUSSIAN phase); the FEATURE phase's layouts come with its slice
+BWD_SUPPORTED = frozenset({(4, 0)})
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("composite_fwd", "composite_bwd")}
+BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-# Kernel launches made by composite_fwd (the CUDA path only).
+# Kernel launches made by the wrappers (the CUDA path only): one is added
+# where each kernel is launched, nowhere else.
 FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+REDUCE_LAUNCHES = 0
 
-_LIB = None
+_LIBS: dict = {}
 
 
 # ------------------------------------------------------------ binning
@@ -237,10 +249,25 @@ def _check_inputs(payload, sorted_gauss, tile_start, image_height,
     return th, tw
 
 
+def _tile_origins(tiles: torch.Tensor, tw: int):
+    ox = ((tiles % tw) * TILE).to(torch.float32)[:, None]
+    oy = (torch.div(tiles, tw, rounding_mode="floor")
+          * TILE).to(torch.float32)[:, None]
+    return ox, oy
+
+
+def _pixel_coords(dev):
+    pix = torch.arange(PIX, device=dev)
+    fx = (pix % TILE).to(torch.float32)
+    fy = torch.div(pix, TILE, rounding_mode="floor").to(torch.float32)
+    return fx, fy
+
+
 def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                     tile_start: torch.Tensor, image_height: int,
                     image_width: int, n_val: int, n_packed: int = 0,
-                    tile_chunk: int = 2048, stats: dict | None = None):
+                    tile_chunk: int = 2048, stats: dict | None = None,
+                    residuals: bool = False):
     """Plain PyTorch version of the CUDA compositor: same inputs, same
     output (H, W, 1 + n_val) = [acc, values...], same expressions in the
     same order (log-space T, skip below 1/255, stop before T < 1e-4).
@@ -248,7 +275,12 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     Walks the pairs by rank within their tile, all tiles of a chunk at
     once, so memory is bounded by `tile_chunk` x 256 pixels. With
     `stats`, adds the pair-pixel evaluations ("evaluated": pixel not yet
-    stopped) and contributions ("contributing") to it.
+    stopped) and contributions ("contributing") to it. With `residuals`,
+    returns (out, logt, stop) as the kernel's residual instantiation
+    does: per pixel of the padded tile grid (num_tiles * 256, tile-major,
+    pixel y * 16 + x), log T after its last contributing pair (float32)
+    and the index within its tile's pair range of the pair that stopped
+    it, or the range's length (int32).
     """
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed)
@@ -256,27 +288,26 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     num_tiles = th * tw
     geom = payload[:, :GEOM_COLS]
     vals = unpack_values(payload, n_val, n_packed)
-    pix = torch.arange(PIX, device=dev)
-    fx = (pix % TILE).to(torch.float32)
-    fy = torch.div(pix, TILE, rounding_mode="floor").to(torch.float32)
+    fx, fy = _pixel_coords(dev)
     starts = tile_start[:-1].long()
     lens = (tile_start[1:] - tile_start[:-1]).long()
     last = max(sorted_gauss.shape[0] - 1, 0)
     out = torch.zeros((num_tiles, PIX, 1 + n_val), dtype=torch.float32,
                       device=dev)
+    res_logt = torch.zeros((num_tiles, PIX), dtype=torch.float32, device=dev)
+    res_stop = torch.zeros((num_tiles, PIX), dtype=torch.int32, device=dev)
     evaluated = contributing = 0
     for t0 in range(0, num_tiles, tile_chunk):
         t1 = min(num_tiles, t0 + tile_chunk)
         tiles = torch.arange(t0, t1, device=dev)
         ln, st = lens[t0:t1], starts[t0:t1]
-        ox = ((tiles % tw) * TILE).to(torch.float32)[:, None]
-        oy = (torch.div(tiles, tw, rounding_mode="floor")
-              * TILE).to(torch.float32)[:, None]
+        ox, oy = _tile_origins(tiles, tw)
         n_t = t1 - t0
         logt = torch.zeros((n_t, PIX), dtype=torch.float32, device=dev)
         acc = torch.zeros_like(logt)
         val = torch.zeros((n_t, PIX, n_val), dtype=torch.float32, device=dev)
         done = torch.zeros((n_t, PIX), dtype=torch.bool, device=dev)
+        stop_at = ln[:, None].expand(n_t, PIX).clone()
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         max_len = int(ln.max()) if n_t else 0
         for j in range(max_len):
@@ -296,6 +327,7 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
             stop = ok & ~(nxt >= LOG_T_EPS)
             live = ok & ~stop
             done = done | stop
+            stop_at = torch.where(stop, j, stop_at)
             w = torch.where(live, torch.exp(alog + logt), zero)
             acc = acc + w
             val = val + w[..., None] * vals[g][:, None, :]
@@ -307,12 +339,148 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                 break
         out[t0:t1, :, 0] = acc
         out[t0:t1, :, 1:] = val
+        res_logt[t0:t1] = logt
+        res_stop[t0:t1] = stop_at.to(torch.int32)
     if stats is not None:
         stats["evaluated"] = stats.get("evaluated", 0) + evaluated
         stats["contributing"] = stats.get("contributing", 0) + contributing
     img = out.reshape(th, tw, TILE, TILE, 1 + n_val).permute(0, 2, 1, 3, 4)
-    return img.reshape(th * TILE, tw * TILE, 1 + n_val)[
+    img = img.reshape(th * TILE, tw * TILE, 1 + n_val)[
         :image_height, :image_width]
+    if residuals:
+        return img, res_logt.reshape(-1), res_stop.reshape(-1)
+    return img
+
+
+def _tile_cotangent(grad_out: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """(H, W, C) image cotangent -> (num_tiles, 256, C), zero outside the
+    image."""
+    h, w, c = grad_out.shape
+    pad = torch.zeros((th * TILE, tw * TILE, c), dtype=grad_out.dtype,
+                      device=grad_out.device)
+    pad[:h, :w] = grad_out
+    return pad.reshape(th, TILE, tw, TILE, c).permute(0, 2, 1, 3, 4).reshape(
+        th * tw, PIX, c)
+
+
+def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
+                        tile_start: torch.Tensor, image_height: int,
+                        image_width: int, n_val: int, n_packed: int,
+                        grad_out: torch.Tensor, res_logt: torch.Tensor,
+                        res_stop: torch.Tensor, tile_chunk: int = 2048,
+                        stats: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel (composite_bwd.cu):
+    (n_pairs, 6 + n_val) pair gradients [d mean2d, d conic, d log op,
+    d values], row i for the pair at sorted position i. Rows of pairs at
+    or past a tile's largest stop, and of invalid pairs, are zero.
+
+    Same per-pixel expressions in the same order as the kernel, walking
+    the ranks in reverse from each tile's largest stop index, all tiles
+    of a chunk at once; only the 256-pixel sums associate differently.
+    With `stats`, adds the pair-pixel evaluations ("evaluated": below the
+    tile's largest stop) and counted pairs ("counted") to it, and sets
+    "logt_first": each pixel's log T reconstructed back to the tile's
+    first pair (0 up to rounding).
+    """
+    th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
+                           image_width, n_val, n_packed)
+    dev = payload.device
+    num_tiles = th * tw
+    words = GEOM_COLS + n_val
+    geom = payload[:, :GEOM_COLS]
+    vals = unpack_values(payload, n_val, n_packed)
+    fx, fy = _pixel_coords(dev)
+    g_all = _tile_cotangent(grad_out, th, tw)
+    logt_all = res_logt.reshape(num_tiles, PIX)
+    stop_all = res_stop.reshape(num_tiles, PIX).long()
+    starts = tile_start[:-1].long()
+    last = max(sorted_gauss.shape[0] - 1, 0)
+    dpair = torch.zeros((sorted_gauss.shape[0], words), dtype=torch.float32,
+                        device=dev)
+    logt_first = torch.zeros((num_tiles, PIX), dtype=torch.float32,
+                             device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    evaluated = counted_n = 0
+    for t0 in range(0, num_tiles, tile_chunk):
+        t1 = min(num_tiles, t0 + tile_chunk)
+        tiles = torch.arange(t0, t1, device=dev)
+        st = starts[t0:t1]
+        ox, oy = _tile_origins(tiles, tw)
+        g = g_all[t0:t1]
+        stop = stop_all[t0:t1]
+        logt = logt_all[t0:t1].clone()
+        suffix = torch.zeros_like(logt)
+        max_stop = stop.max(dim=1).values
+        top = int(max_stop.max())
+        for j in range(top - 1, -1, -1):
+            active = j < max_stop
+            gi = sorted_gauss[torch.clamp(st + j, max=last)].long()
+            row = geom[gi]
+            v = vals[gi]
+            dx = (row[:, 0:1] - ox) - fx
+            dy = (row[:, 1:2] - oy) - fy
+            ca, cb, cc = row[:, 2:3], row[:, 3:4], row[:, 4:5]
+            raw = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy \
+                + row[:, 5:6]
+            alog = torch.clamp(raw, max=LOG_ALPHA_MAX)
+            counted = (j < stop) & (alog >= LOG_ALPHA_EPS)
+            alpha = torch.where(counted, torch.exp(alog), zero)
+            before = logt - torch.log1p(-alpha)
+            t = torch.exp(before)
+            w = alpha * t
+            q = g[..., 0]
+            for c in range(n_val):
+                q = q + g[..., 1 + c] * v[:, c:c + 1]
+            dalpha = q * t - suffix / (1.0 - alpha)
+            suffix = torch.where(counted, suffix + q * w, suffix)
+            logt = torch.where(counted, before, logt)
+            dpow = torch.where(counted & (raw < LOG_ALPHA_MAX),
+                               dalpha * alpha, zero)
+            d = [dpow * -(ca * dx + cb * dy), dpow * -(cc * dy + cb * dx),
+                 dpow * (-0.5 * dx * dx), dpow * -(dx * dy),
+                 dpow * (-0.5 * dy * dy), dpow]
+            d += [torch.where(counted, g[..., 1 + c] * w, zero)
+                  for c in range(n_val)]
+            sums = torch.stack([x.sum(dim=1) for x in d], dim=1)
+            dpair[(st + j)[active]] = sums[active]
+            if stats is not None:
+                evaluated += PIX * int(active.sum())
+                counted_n += int(counted.sum())
+        logt_first[t0:t1] = logt
+    if stats is not None:
+        stats["evaluated"] = stats.get("evaluated", 0) + evaluated
+        stats["counted"] = stats.get("counted", 0) + counted_n
+        stats["logt_first"] = logt_first.reshape(-1)
+    return dpair
+
+
+def inverse_pairs(sorted_pid: torch.Tensor) -> torch.Tensor:
+    """int32 inverse of the pair sort: inv[pid] = sorted position of pair
+    pid (one index_put, where JAX inverts by a second sort)."""
+    n = sorted_pid.shape[0]
+    inv = torch.empty(n, dtype=torch.int32, device=sorted_pid.device)
+    inv[sorted_pid] = torch.arange(n, dtype=torch.int32,
+                                   device=sorted_pid.device)
+    return inv
+
+
+def reduce_pair_grads_plain(dpair: torch.Tensor, inv: torch.Tensor,
+                            tile_start: torch.Tensor,
+                            n: int) -> torch.Tensor:
+    """Plain PyTorch version of the reduce kernel: (n, words) per-gaussian
+    gradients, gaussian g summing, in k order, the rows at sorted
+    positions inv[g K + k]; positions at or past tile_start[-1] (invalid
+    pairs) read zero."""
+    k = inv.shape[0] // n
+    pos = inv.long().reshape(n, k)
+    valid = pos < tile_start[-1].long()
+    rows = dpair[torch.clamp(pos, max=dpair.shape[0] - 1)]
+    zero = torch.zeros((), dtype=dpair.dtype, device=dpair.device)
+    acc = torch.zeros((n, dpair.shape[1]), dtype=dpair.dtype,
+                      device=dpair.device)
+    for r in range(k):
+        acc = acc + torch.where(valid[:, r:r + 1], rows[:, r], zero)
+    return acc
 
 
 def _nvcc() -> str:
@@ -322,112 +490,256 @@ def _nvcc() -> str:
     if nvcc is None and os.path.exists(home):
         nvcc = home
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA compositor is built "
-                           "from csrc/composite_fwd.cu at first use")
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "trase_tpu_torch/csrc at first use")
     return nvcc
 
 
-def build_library() -> tuple[str, float, str]:
-    """Compile csrc/composite_fwd.cu for sm_90a into BUILD_DIR (once per
-    source content). Returns (library path, build seconds, nvcc output);
-    seconds and output are 0 and "" when the library was already built."""
-    with open(SOURCE, "rb") as f:
+def _library_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libcomposite_fwd_{digest}.so")
-    if os.path.exists(path):
-        return path, 0.0, ""
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build_library(names=None) -> dict:
+    """Compile the csrc/*.cu sources for sm_90a into BUILD_DIR, one nvcc
+    per source, all started together; each library's name carries its
+    source's hash, so a library is built once per source content.
+    Returns {name: (library path, build seconds, nvcc output)}; seconds
+    and output are 0 and "" for a library that was already built."""
+    names = tuple(SOURCES) if names is None else tuple(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, path)
-    return path, seconds, log
+    result, running = {}, {}
+    for name in names:
+        path = _library_path(name)
+        if os.path.exists(path):
+            result[name] = (path, 0.0, "")
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, path, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, path, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)
+        result[name] = (path, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
 
 
-def _library():
-    global _LIB
-    if _LIB is None:
-        path, _, _ = build_library()
+_ARGTYPES = {
+    "composite_fwd": ("trase_composite_fwd",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4),
+    "composite_bwd": ("trase_composite_bwd",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
+                      + [ctypes.c_void_p] * 3),
+}
+
+
+def _library(name: str):
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_library([name])[name][0]
         lib = ctypes.CDLL(path)
-        fn = lib.trase_composite_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        fn_name, argtypes = _ARGTYPES[name]
+        getattr(lib, fn_name).argtypes = argtypes
+        getattr(lib, fn_name).restype = ctypes.c_int
+        if name == "composite_bwd":
+            lib.trase_reduce_pair_grads.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 2)
+            lib.trase_reduce_pair_grads.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def _require_cuda(name: str, plain: str, **tensors):
+    for tname, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} takes CUDA tensors; the CPU path is "
+                             f"{plain}")
+        if not t.is_contiguous():
+            raise ValueError(f"{tname} must be contiguous")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                   tile_start: torch.Tensor, image_height: int,
-                  image_width: int, n_val: int, n_packed: int = 0):
+                  image_width: int, n_val: int, n_packed: int = 0,
+                  residuals: bool = False):
     """Launch the CUDA compositor on CUDA tensors: (H, W, 1 + n_val)
-    float32 [acc, values...]. Raises for CPU tensors, for value layouts
-    without a kernel instantiation and when the launch fails."""
+    float32 [acc, values...], or with `residuals` (out, logt, stop) as
+    composite_plain returns them. Raises for CPU tensors, for value
+    layouts without a kernel instantiation and when the launch fails."""
     global FWD_LAUNCHES
-    if payload.device.type != "cuda":
-        raise ValueError("composite_fwd takes CUDA tensors; the CPU path "
-                         "is composite_plain")
-    if (n_val, n_packed) not in SUPPORTED:
+    _require_cuda("composite_fwd", "composite_plain", payload=payload,
+                  sorted_gauss=sorted_gauss, tile_start=tile_start)
+    if (n_val, n_packed) not in SUPPORTED or (
+            residuals and (n_val, n_packed) not in BWD_SUPPORTED):
         raise ValueError(f"no kernel instantiation for n_val={n_val}, "
-                         f"n_packed={n_packed}; have {sorted(SUPPORTED)}")
+                         f"n_packed={n_packed}, residuals={residuals}; have "
+                         f"{sorted(SUPPORTED)}, residuals for "
+                         f"{sorted(BWD_SUPPORTED)}")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed)
-    for name, t in (("payload", payload), ("sorted_gauss", sorted_gauss),
-                    ("tile_start", tile_start)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = _library()
+    lib = _library("composite_fwd")
+    dev = payload.device
     out = torch.empty((image_height, image_width, 1 + n_val),
-                      dtype=torch.float32, device=payload.device)
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream(payload.device).cuda_stream
+                      dtype=torch.float32, device=dev)
+    res_logt = res_stop = None
+    if residuals:
+        res_logt = torch.empty(th * tw * PIX, dtype=torch.float32, device=dev)
+        res_stop = torch.empty(th * tw * PIX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         rc = lib.trase_composite_fwd(
             payload.data_ptr(), sorted_gauss.data_ptr(),
             tile_start.data_ptr(), th * tw, tw, image_height, image_width,
             n_val, n_packed, LOG_ALPHA_MAX, LOG_ALPHA_EPS, LOG_T_EPS,
-            out.data_ptr(), stream)
+            out.data_ptr(), None if res_logt is None else res_logt.data_ptr(),
+            None if res_stop is None else res_stop.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"composite_fwd launch failed: cudaError {rc}")
     FWD_LAUNCHES += 1
+    if residuals:
+        return out, res_logt, res_stop
+    return out
+
+
+def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
+                  tile_start: torch.Tensor, image_height: int,
+                  image_width: int, n_val: int, n_packed: int,
+                  grad_out: torch.Tensor, res_logt: torch.Tensor,
+                  res_stop: torch.Tensor,
+                  logt_first: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the backward kernel on CUDA tensors: (n_pairs, 6 + n_val)
+    pair gradients as composite_bwd_plain returns them, except that rows
+    of invalid pairs (past tile_start[-1]) are left unwritten. With
+    `logt_first` (num_tiles * 256 float32), the kernel also writes each
+    pixel's log T reconstructed back to its tile's first pair."""
+    global BWD_LAUNCHES
+    _require_cuda("composite_bwd", "composite_bwd_plain", payload=payload,
+                  sorted_gauss=sorted_gauss, tile_start=tile_start,
+                  grad_out=grad_out, res_logt=res_logt, res_stop=res_stop)
+    if (n_val, n_packed) not in BWD_SUPPORTED:
+        raise ValueError(f"no backward instantiation for n_val={n_val}, "
+                         f"n_packed={n_packed}; have {sorted(BWD_SUPPORTED)}")
+    th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
+                           image_width, n_val, n_packed)
+    if grad_out.shape != (image_height, image_width, 1 + n_val) or \
+            grad_out.dtype != torch.float32:
+        raise ValueError(f"grad_out must be float32 (H, W, {1 + n_val})")
+    if res_logt.shape != (th * tw * PIX,) or res_stop.dtype != torch.int32:
+        raise ValueError("residuals must be (num_tiles * 256,) float32 / int32")
+    lib = _library("composite_bwd")
+    dev = payload.device
+    dpair = torch.empty((sorted_gauss.shape[0], GEOM_COLS + n_val),
+                        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.trase_composite_bwd(
+            payload.data_ptr(), sorted_gauss.data_ptr(),
+            tile_start.data_ptr(), th * tw, tw, image_height, image_width,
+            n_val, grad_out.data_ptr(), res_logt.data_ptr(),
+            res_stop.data_ptr(), LOG_ALPHA_MAX, LOG_ALPHA_EPS,
+            dpair.data_ptr(),
+            None if logt_first is None else logt_first.data_ptr(),
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"composite_bwd launch failed: cudaError {rc}")
+    BWD_LAUNCHES += 1
+    return dpair
+
+
+def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
+                      tile_start: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch the reduce kernel on CUDA tensors: (n, words) per-gaussian
+    gradients as reduce_pair_grads_plain returns them."""
+    global REDUCE_LAUNCHES
+    _require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
+                  dpair=dpair, inv=inv, tile_start=tile_start)
+    if inv.dtype != torch.int32 or tile_start.dtype != torch.int32 or \
+            dpair.dtype != torch.float32:
+        raise ValueError("inv and tile_start must be int32, dpair float32")
+    if n <= 0 or inv.shape[0] % n or inv.shape[0] != dpair.shape[0]:
+        raise ValueError(f"{inv.shape[0]} pairs do not split over {n} "
+                         "gaussians or do not match dpair")
+    lib = _library("composite_bwd")
+    dev = dpair.device
+    words = dpair.shape[1]
+    out = torch.empty((n, words), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.trase_reduce_pair_grads(
+            dpair.data_ptr(), inv.data_ptr(),
+            tile_start[-1:].data_ptr(), n, inv.shape[0] // n, words,
+            out.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"reduce_pair_grads launch failed: cudaError {rc}")
+    REDUCE_LAUNCHES += 1
     return out
 
 
 def composite(payload, sorted_gauss, tile_start, image_height, image_width,
-              n_val, n_packed=0):
+              n_val, n_packed=0, residuals=False):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = composite_plain if payload.device.type == "cpu" else composite_fwd
     return fn(payload, sorted_gauss, tile_start, image_height, image_width,
-              n_val, n_packed)
+              n_val, n_packed, residuals=residuals)
 
 
 class _Composite(torch.autograd.Function):
-    """Forward-only compositor under autograd: backward raises, so a
-    render differentiated before the training slice fails loudly instead
-    of returning zero gradients."""
+    """The compositor under autograd: the forward keeps the per-pixel
+    residuals, the backward emits the (N, 6 + n_val) payload gradient
+    through composite_bwd + reduce_pair_grads (CUDA tensors) or their
+    plain versions (CPU tensors). Counterpart of pallas_composite's
+    custom VJP (rasterize_pallas.py:1322-1391)."""
 
     @staticmethod
-    def forward(ctx, payload, sorted_gauss, tile_start, image_height,
-                image_width, n_val, n_packed):
-        if n_packed:
-            payload = pack_feature_words(payload, n_val, n_packed)
-        return composite(payload, sorted_gauss, tile_start, image_height,
-                         image_width, n_val, n_packed)
+    def forward(ctx, payload, sorted_gauss, sorted_pid, tile_start,
+                image_height, image_width, n_val, n_packed):
+        kpay = (pack_feature_words(payload, n_val, n_packed) if n_packed
+                else payload)
+        out, logt, stop = composite(kpay, sorted_gauss, tile_start,
+                                    image_height, image_width, n_val,
+                                    n_packed, residuals=True)
+        ctx.save_for_backward(kpay, sorted_gauss, sorted_pid, tile_start,
+                              logt, stop)
+        ctx.dims = (image_height, image_width, n_val, n_packed,
+                    payload.shape[0])
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the compositor backward (_bwd_group_kernel) is not ported "
-            "yet: it belongs to the training slice")
+        kpay, sorted_gauss, sorted_pid, tile_start, logt, stop = \
+            ctx.saved_tensors
+        image_height, image_width, n_val, n_packed, n = ctx.dims
+        grad_out = grad_out.contiguous()
+        args = (kpay, sorted_gauss, tile_start, image_height, image_width,
+                n_val, n_packed, grad_out, logt, stop)
+        inv = inverse_pairs(sorted_pid)
+        if kpay.device.type == "cpu":
+            dpair = composite_bwd_plain(*args)
+            dpayload = reduce_pair_grads_plain(dpair, inv, tile_start, n)
+        else:
+            dpair = composite_bwd(*args)
+            dpayload = reduce_pair_grads(dpair, inv, tile_start, n)
+        return dpayload, None, None, None, None, None, None, None
 
 
 class CompositeInputs(NamedTuple):
     payload: torch.Tensor  # (N, 6 + n_val) float32, values unpacked
     sorted_gauss: torch.Tensor  # (n*K,) int32 gaussian of each sorted pair
+    sorted_pid: torch.Tensor  # (n*K,) int64 pair id of each sorted pair
     tile_start: torch.Tensor  # (T+1,) int32
     n_val: int
     n_packed: int  # > 0: the kernel composites bf16-packed features
@@ -450,8 +762,8 @@ def composite_inputs(proj: ProjectedGaussians,
         n_packed = extra_channels.shape[1] // 2
     sorted_gauss = torch.div(bins.sorted_pid, cfg.pairs_per_gaussian,
                              rounding_mode="floor").to(torch.int32)
-    return CompositeInputs(payload, sorted_gauss, bins.tile_start, n_val,
-                           n_packed, bins.overflow)
+    return CompositeInputs(payload, sorted_gauss, bins.sorted_pid,
+                           bins.tile_start, n_val, n_packed, bins.overflow)
 
 
 def rasterize_tiled(
@@ -466,15 +778,30 @@ def rasterize_tiled(
     """Counterpart of rasterize_tiled_pallas: render (3,H,W), depth
     (1,H,W), alpha (1,H,W), overflow, overflow_half and, with
     extra_channels (N, F), feats (F,H,W) + feats_hwc (H,W,F). rgb gets
-    the background (render = rgb + (1 - acc) bg); features do not."""
+    the background (render = rgb + (1 - acc) bg); features do not.
+    Differentiable in every projected input when autograd records: the
+    forward then keeps its residuals for the backward kernels."""
     if not with_color:
         raise NotImplementedError(
-            "with_color=False (features-only FEATURE-phase path) belongs "
-            "to the training slice")
+            "with_color=False (features-only path) belongs to the FEATURE "
+            "slice of the port")
     ci = composite_inputs(proj, extra_channels, image_height, image_width,
                           cfg)
-    hwc = _Composite.apply(ci.payload, ci.sorted_gauss, ci.tile_start,
-                           image_height, image_width, ci.n_val, ci.n_packed)
+    if torch.is_grad_enabled() and ci.payload.requires_grad:
+        if ci.payload.device.type == "cuda" and \
+                (ci.n_val, ci.n_packed) not in BWD_SUPPORTED:
+            raise NotImplementedError(
+                "the compositor backward on the card covers rgb + depth; "
+                "feature channels under autograd belong to the FEATURE "
+                "slice of the port")
+        hwc = _Composite.apply(ci.payload, ci.sorted_gauss, ci.sorted_pid,
+                               ci.tile_start, image_height, image_width,
+                               ci.n_val, ci.n_packed)
+    else:
+        payload = (pack_feature_words(ci.payload, ci.n_val, ci.n_packed)
+                   if ci.n_packed else ci.payload)
+        hwc = composite(payload, ci.sorted_gauss, ci.tile_start,
+                        image_height, image_width, ci.n_val, ci.n_packed)
     acc = hwc[..., 0]
     rgb = hwc[..., 1:4] + (1.0 - acc)[..., None] * bg_color[None, None, :]
     result = {

@@ -6,11 +6,13 @@ gaussian_renderer/__init__.py:37-155): applies the deformation deltas
 projection stage, normalizes the 32-dim segmentation features, masks
 gaussians by zeroing their opacity, and returns the reference's output
 keys. The device is the tensors' own: CUDA tensors composite through the
-CUDA kernel, CPU tensors through its plain version.
+CUDA kernel, CPU tensors through its plain version. Under autograd the
+render is differentiable in the gaussian parameters, the deformation
+deltas and ``mean2d_offset`` (the screen-space gradient carrier that
+densification reads).
 
-Training- and editing-slice options (feature smoothing, the
-screen-space gradient carrier, the features-only path, values-only
-gradients, object composition) raise NotImplementedError.
+FEATURE-slice options (feature smoothing, the features-only path,
+values-only gradients) and object composition raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -103,20 +105,19 @@ def render(
     render_gaussian_features (32,H,W) + its (H,W,32) view.
 
     `aux_alive`: (C,) bool alive-mask; `mask`: optional (C,) bool
-    keep-mask (False = removed, reference `render(mask=...)`).
+    keep-mask (False = removed, reference `render(mask=...)`);
+    `mean2d_offset`: (C, 2) zeros whose gradient is the densification
+    signal (added to the projected means before binning).
     """
     if smooth_map is not None:
         raise NotImplementedError("feature smoothing belongs to the "
-                                  "training slice")
-    if mean2d_offset is not None:
-        raise NotImplementedError("the screen-space gradient carrier "
-                                  "belongs to the training slice")
+                                  "FEATURE slice of the port")
     if not with_color:
         raise NotImplementedError("with_color=False belongs to the "
-                                  "training slice")
+                                  "FEATURE slice of the port")
     if grad_values_only:
         raise NotImplementedError("grad_values_only belongs to the "
-                                  "training slice")
+                                  "FEATURE slice of the port")
     H, W = camera.image_height, camera.image_width
 
     means3d, scales, rots = apply_deformation(
@@ -134,6 +135,8 @@ def render(
         proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
                                  H, W, sh_coeffs=G.get_features(params),
                                  sh_degree=sh_degree)
+    if mean2d_offset is not None:
+        proj = proj._replace(mean2d=proj.mean2d + mean2d_offset)
 
     extra = None
     if with_features:
