@@ -12,15 +12,20 @@ JSON line per phase:
 3. compare      the CUDA compositor against its plain PyTorch version
                 (composite_plain) on the same inputs, for 4 values
                 (rgb+depth), 36 (+32 features) and 36 with bf16-packed
-                features, at a small random scene and at the full scene of
-                phase 4; plus the small scene's render against the
-                all-pairs oracle;
-   compare-bwd  at both scenes (4 values): the forward's residual outputs,
-                the backward kernel (composite_bwd) and the reduce kernel
-                (reduce_pair_grads) against their plain versions on the
-                same inputs and cotangent, with errors per column group,
-                and the log T the reverse walk reconstructs at each tile's
-                first pair against log 1 = 0;
+                features, and for the FEATURE step's 32 features alone,
+                unpacked and packed, with and without residual outputs
+                (bit for bit), at a small random scene and at the full
+                scene of phase 4; plus the small scene's render against
+                the all-pairs oracle;
+   compare-bwd  the forward's residual outputs, the backward kernel
+                (composite_bwd) and the reduce kernel (reduce_pair_grads)
+                against their plain versions on the same inputs and
+                cotangent, with errors per column group, and the log T the
+                reverse walk reconstructs at each tile's first pair against
+                log 1 = 0: 4 values at both scenes; 32 features alone,
+                full and values-only (geometry exactly 0, values equal to
+                the full mode's), unpacked and packed at the small scene
+                and packed at the full one;
 4. render       the bench scene of bench.py (100k gaussians in a 131072
                 capacity, SH degree 3, 32-dim features, DeformNetwork
                 8x256, 1008x1344, K=6, seeded): deform_step ->
@@ -34,13 +39,24 @@ JSON line per phase:
                 (bf16 deform stack on, lambda_dssim 0.2, gt zeros): warm-up
                 then timed steps; checks finiteness, a falling loss and
                 one launch of each kernel per step; the per-stage split;
-7. train-cli    trase_tpu_torch.train on phase 5's dataset, with densify
-                and opacity reset inside the run, then trase_tpu_torch.render
-                on its snapshot;
+   feature-step the same scene through engine.trainer.feature_phase_step
+                (bf16 deform stack, 32 features KNN-smoothed over K=16
+                slots with dropout 0.5, soft mode, 4096 pixels, 8 seeded
+                masks at 504x672), both arms (densify stats / values-only):
+                warm-up then timed steps; checks finiteness, which fields
+                changed and one launch of each kernel per step in the
+                features-only instantiation; the smoothing map's build
+                time and the per-stage split;
+7. train-cli    trase_tpu_torch.train on phase 5's dataset (with masks),
+                with densify and opacity reset inside the run, crossing
+                warm_up_3d_features into FEATURE blocks in both arms, then
+                trase_tpu_torch.render on its snapshot;
 8. profile      torch.profiler over a few frames of phase 4 and a few steps
-                of phase 6: device busy time by kernel and the idle share;
+                of phase 6 and of each FEATURE arm: device busy time by
+                kernel and the idle share;
 9. kernels      one object per kernel: launches, error against the plain
-                version, times and the bound.
+                version, times and the bound, with one variant per
+                instantiation a path launches.
 
 The last two lines are the nvidia-smi name/power-limit line and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
@@ -75,6 +91,13 @@ TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 CLI_ITERATIONS = 300
 # the bench scene of bench.py:110-130
 N_GAUSSIANS, CAPACITY, HEIGHT, WIDTH = 100_000, 131072, 1008, 1344
+# the FEATURE step of bench.py:176-191: 8 masks at half resolution, 4096
+# sampled pixels, soft mode; smoothing on, as training runs it
+FEATURE_MASKS, FEATURE_PIXELS, SMOOTH_K = 8, 4096, 16
+# the train CLI's FEATURE schedule: GAUSSIAN 1-149, FEATURE 150-199
+# (densify stats), GAUSSIAN 200-249, FEATURE 250-299 (stats to 259, then
+# values-only), GAUSSIAN 300
+CLI_FEATURE_FROM, CLI_INTERVAL, CLI_DENSIFY_UNTIL = 150, 49, 260
 KERNELS = {
     "composite_fwd": ("trase_tpu_torch/csrc/composite_fwd.cu",
                       "trase_tpu/ops/rasterize_pallas.py:590"),
@@ -83,8 +106,7 @@ KERNELS = {
     "reduce_pair_grads": ("trase_tpu_torch/csrc/composite_bwd.cu",
                           "trase_tpu/ops/rasterize_pallas.py:1195"),
 }
-GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "log_op": (5, 6),
-          "values": (6, 10)}
+GEOM_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "log_op": (5, 6)}
 
 
 def emit(obj) -> None:
@@ -138,15 +160,17 @@ def projected(params, aux, cam, d, with_features):
     return proj, feats
 
 
-def kernel_inputs(proj, feats, H, W, cfg, pack):
-    """composite_fwd's arguments, features packed when `pack`."""
+def kernel_inputs(proj, feats, H, W, cfg, pack, with_color=True):
+    """composite_fwd's arguments, features packed when `pack`; with
+    with_color=False the features-only layout."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     ci = RC.composite_inputs(proj, feats, H, W,
-                             cfg._replace(pack_features=pack))
+                             cfg._replace(pack_features=pack), with_color)
     payload = ci.payload
     if ci.n_packed:
-        payload = RC.pack_feature_words(payload, ci.n_val, ci.n_packed)
+        payload = RC.pack_feature_words(payload, ci.n_val, ci.n_packed,
+                                        with_color)
     return payload, ci.sorted_gauss, ci.tile_start, ci.n_val, ci.n_packed
 
 
@@ -206,50 +230,73 @@ def profile_frames(frame, frames=5) -> dict:
                     for k in kernels[:12]]}
 
 
-def split(hwc):
+def split(hwc, with_color=True):
+    if not with_color:
+        return {"alpha": hwc[..., 0], "feats": hwc[..., 1:]}
     return {"alpha": hwc[..., 0], "render": hwc[..., 1:4],
             "feats": hwc[..., 4:-1], "depth": hwc[..., -1]}
 
 
-def compare(label, proj, feats, H, W, cfg, pack, timed):
+def compare(label, proj, feats, H, W, cfg, pack, timed, with_color=True):
     """Kernel vs plain on one input; with `timed`, also times both and
-    reckons the bound from this input's bytes and pair-pixel work."""
+    reckons the bound from this input's bytes and pair-pixel work. The
+    features-only layouts (with_color=False) must agree bit for bit, with
+    and without the residual outputs."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
-    args = kernel_inputs(proj, feats, H, W, cfg, pack)
+    args = kernel_inputs(proj, feats, H, W, cfg, pack, with_color)
     payload, sg, tile_start, n_val, n_packed = args
-    got = RC.composite_fwd(payload, sg, tile_start, H, W, n_val, n_packed)
+    kw = dict(with_color=with_color)
+    got = RC.composite_fwd(payload, sg, tile_start, H, W, n_val, n_packed,
+                           **kw)
     torch.cuda.synchronize()
     stats = {}
     ref = RC.composite_plain(payload, sg, tile_start, H, W, n_val, n_packed,
-                             stats=stats)
+                             stats=stats, **kw)
     errs = {}
-    for k, g in split(got).items():
+    for k, g in split(got, with_color).items():
         if g.numel():
-            errs[k] = float((g - split(ref)[k]).abs().max())
-    bad = {k: e for k, e in errs.items() if not e <= TOL[k]}
+            errs[k] = float((g - split(ref, with_color)[k]).abs().max())
+    tol = TOL if with_color else dict.fromkeys(TOL, 0.0)
+    bad = {k: e for k, e in errs.items() if not e <= tol[k]}
     row = {"phase": "compare", "scene": label, "n_val": n_val,
-           "n_packed": n_packed, "max_abs_diff": errs, "tol": TOL,
-           "pairs": int(tile_start[-1])}
+           "n_packed": n_packed, "with_color": with_color,
+           "max_abs_diff": errs, "tol": tol, "pairs": int(tile_start[-1])}
+    if not with_color:
+        res, logt, stop = RC.composite_fwd(*args[:3], H, W, n_val, n_packed,
+                                           residuals=True, **kw)
+        torch.cuda.synchronize()
+        _, ref_logt, ref_stop = RC.composite_plain(
+            *args[:3], H, W, n_val, n_packed, residuals=True, **kw)
+        row["residuals"] = {
+            "image": float((res - ref).abs().max()),
+            "logt": float((logt - ref_logt).abs().max()),
+            "stop_mismatches": int((stop != ref_stop).sum())}
+        if any(row["residuals"].values()):
+            bad["residuals"] = row["residuals"]
     if timed:
-        row["ms"] = cuda_ms(lambda: RC.composite_fwd(*args[:3], H, W,
-                                                     n_val, n_packed), 20)
+        row["ms"] = cuda_ms(lambda: RC.composite_fwd(
+            *args[:3], H, W, n_val, n_packed, **kw), 20)
         row["plain_ms"] = cuda_ms(lambda: RC.composite_plain(
-            *args[:3], H, W, n_val, n_packed), 1)
+            *args[:3], H, W, n_val, n_packed, **kw), 1)
         pairs = int(tile_start[-1])
         nbytes = (pairs * (4 * payload.shape[1] + 4) + 4 * tile_start.numel()
                   + 4 * H * W * (1 + n_val))
         ops = 16 * stats["evaluated"] + (8 + 2 * n_val) * stats["contributing"]
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOPS_PER_S * 1e3
         row.update(bytes=nbytes, ops=ops, evaluated=stats["evaluated"],
                    contributing=stats["contributing"],
-                   bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                   **bound(None, nbytes, ops))
+        if not with_color:
+            row["ms_residuals"] = cuda_ms(lambda: RC.composite_fwd(
+                *args[:3], H, W, n_val, n_packed, residuals=True, **kw), 20)
+            rbytes = nbytes + 8 * logt.numel()
+            row.update(bytes_residuals=rbytes, **bound(
+                "residuals", rbytes, ops))
     emit(row)
     if bad:
         raise AssertionError(f"kernel disagrees with plain on {label} "
-                             f"n_val={n_val} n_packed={n_packed}: {bad}")
+                             f"n_val={n_val} n_packed={n_packed} "
+                             f"with_color={with_color}: {bad}")
     return row
 
 
@@ -281,9 +328,12 @@ def small_scene(device):
 
 def write_cli_inputs(root, params, aux, net, device, n_train=3, n_test=2,
                      size=64):
-    """A Blender-format dataset (transforms_*.json, images, points3d.ply)
-    and a model directory, written with the port's own writers."""
+    """A Blender-format dataset (transforms_*.json, images, SAM-style
+    masks, points3d.ply) and a model directory, written with the port's
+    own writers. Each image gets 3 seeded elliptical masks."""
     from PIL import Image
+
+    from trase_tpu_torch.data.masks import save_mask_file
 
     from trase_tpu_torch.config import save_cfg
     from trase_tpu_torch.data.ply import write_point_cloud
@@ -292,8 +342,11 @@ def write_cli_inputs(root, params, aux, net, device, n_train=3, n_test=2,
     from trase_tpu_torch.renderer import make_render_camera, render
 
     src, mdl = os.path.join(root, "data"), os.path.join(root, "model")
-    os.makedirs(os.path.join(src, "images"))
+    # the Blender reader finds masks at <image dir>/masks/<name>.npz
+    os.makedirs(os.path.join(src, "images", "masks"))
     fov = 0.9
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
     for split_name, n, off in (("train", n_train, 0.0), ("test", n_test, 0.37)):
         frames = []
         for i in range(n):
@@ -318,6 +371,13 @@ def write_cli_inputs(root, params, aux, net, device, n_train=3, n_test=2,
             name = f"{split_name}_{i:04d}"
             Image.fromarray(arr.astype(np.uint8)).save(
                 os.path.join(src, "images", f"{name}.png"))
+            c = rng.uniform(0.25, 0.75, size=(3, 2)) * size
+            r = rng.uniform(0.12, 0.3, size=(3, 2)) * size
+            save_mask_file(os.path.join(src, "images", "masks",
+                                        f"{name}.npz"),
+                           ((yy - c[:, :1, None]) / r[:, :1, None]) ** 2
+                           + ((xx - c[:, 1:, None]) / r[:, 1:, None]) ** 2
+                           <= 1.0)
             blender = c2w.copy()
             blender[:3, 1:3] *= -1  # COLMAP -> Blender axes
             frames.append({"file_path": f"images/{name}",
@@ -343,140 +403,207 @@ def write_cli_inputs(root, params, aux, net, device, n_train=3, n_test=2,
     return src, mdl, it, n_train, n_test
 
 
-def compare_bwd(label, proj, H, W, cfg, timed):
+def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
+                with_color=True):
     """Forward residuals, backward kernel and reduce kernel against their
-    plain versions on one input and one seeded cotangent; with `timed`,
-    also times each and reckons the bounds from this input's counts."""
+    plain versions on one input and one seeded cotangent, one row per
+    backward mode (full; and values-only for the features-only layouts);
+    with `timed`, also times each and reckons the bounds from this
+    input's counts."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
-    ci = RC.composite_inputs(proj, None, H, W, cfg._replace(
-        pack_features=False))
-    args = (ci.payload, ci.sorted_gauss, ci.tile_start, H, W, 4, 0)
-    out, logt, stop = RC.composite_fwd(*args, residuals=True)
+    ci = RC.composite_inputs(proj, feats, H, W, cfg._replace(
+        pack_features=pack), with_color)
+    n_val, n_packed = ci.n_val, ci.n_packed
+    kpay = (RC.pack_feature_words(ci.payload, n_val, n_packed, with_color)
+            if n_packed else ci.payload)
+    args = (kpay, ci.sorted_gauss, ci.tile_start, H, W, n_val, n_packed)
+    out, logt, stop = RC.composite_fwd(*args, with_color=with_color,
+                                       residuals=True)
     torch.cuda.synchronize()
-    ref_out, ref_logt, ref_stop = RC.composite_plain(*args, residuals=True)
+    ref_out, ref_logt, ref_stop = RC.composite_plain(
+        *args, with_color=with_color, residuals=True)
     fwd = {"image": float((out - ref_out).abs().max()),
            "logt": float((logt - ref_logt).abs().max()),
            "stop_mismatches": int((stop != ref_stop).sum())}
     gen = torch.Generator(device=proj.mean2d.device).manual_seed(0)
-    g = torch.randn((H, W, 5), generator=gen, device=proj.mean2d.device)
-    first = torch.empty_like(logt)
-    dpair = RC.composite_bwd(*args, g, logt, stop, logt_first=first)
-    torch.cuda.synchronize()
-    stats = {}
-    ref_pair = RC.composite_bwd_plain(*args, g, logt, stop, stats=stats)
+    g = torch.randn((H, W, 1 + n_val), generator=gen,
+                    device=proj.mean2d.device)
     nv = int(ci.tile_start[-1])
     n = ci.payload.shape[0]
+    words = 6 + n_val
     inv = RC.inverse_pairs(ci.sorted_pid)
-    dpay = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
-    torch.cuda.synchronize()
-    same_input = RC.reduce_pair_grads_plain(dpair, inv, ci.tile_start, n)
-    chain = RC.reduce_pair_grads_plain(ref_pair, inv, ci.tile_start, n)
+    groups = dict(GEOM_GROUPS, values=(6, words))
+    rows, full_pair = [], None
+    for values_only in ((False,) if with_color else (False, True)):
+        mode = dict(with_color=with_color, values_only=values_only)
+        first = torch.empty_like(logt)
+        dpair = RC.composite_bwd(*args, g, logt, stop, logt_first=first,
+                                 **mode)
+        torch.cuda.synchronize()
+        stats = {}
+        ref_pair = RC.composite_bwd_plain(*args, g, logt, stop, stats=stats,
+                                          **mode)
+        dpay = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
+        torch.cuda.synchronize()
+        same_input = RC.reduce_pair_grads_plain(dpair, inv, ci.tile_start, n)
+        chain = RC.reduce_pair_grads_plain(ref_pair, inv, ci.tile_start, n)
+        checked = {k: v for k, v in groups.items()
+                   if not (values_only and k != "values")}
 
-    def by_group(a, b):
-        out_abs, out_rel = {}, {}
-        for name, (lo, hi) in GROUPS.items():
-            d = float((a[:, lo:hi] - b[:, lo:hi]).abs().max())
-            out_abs[name] = d
-            out_rel[name] = d / (float(b[:, lo:hi].abs().max()) + 1e-30)
-        return out_abs, out_rel
+        def by_group(a, b):
+            out_abs, out_rel = {}, {}
+            for name, (lo, hi) in checked.items():
+                d = float((a[:, lo:hi] - b[:, lo:hi]).abs().max())
+                out_abs[name] = d
+                out_rel[name] = d / (float(b[:, lo:hi].abs().max()) + 1e-30)
+            return out_abs, out_rel
 
-    pair_abs, pair_rel = by_group(dpair[:nv], ref_pair[:nv])
-    gauss_abs, gauss_rel = by_group(dpay, chain)
-    row = {"phase": "compare-bwd", "scene": label, "pairs": nv,
-           "fwd_residuals": fwd,
-           "bwd_max_abs_diff": pair_abs, "bwd_max_rel_diff": pair_rel,
-           "reduce_max_abs_diff": float((dpay - same_input).abs().max()),
-           "per_gaussian_max_abs_diff": gauss_abs,
-           "per_gaussian_max_rel_diff": gauss_rel,
-           "logt_first_max_abs": float(first.abs().max()),
-           "t_first_max_err": float((first.exp() - 1.0).abs().max()),
-           "logt_first_vs_plain": float(
-               (first - stats["logt_first"]).abs().max()),
-           "tol": {"fwd": TOL["depth"], "bwd_rel": BWD_TOL,
-                   "reduce": 0.0, "t_first": LOGT_FIRST_TOL}}
-    if timed:
-        words = 10
-        row["bwd_ms"] = cuda_ms(lambda: RC.composite_bwd(
-            *args, g, logt, stop), 20)
-        row["bwd_plain_ms"] = cuda_ms(lambda: RC.composite_bwd_plain(
-            *args, g, logt, stop), 1)
-        nbytes = (nv * (4 * words + 4) + nv * 4 * words + 4 * H * W * 5
-                  + 8 * logt.numel() + 4 * ci.tile_start.numel())
-        ops = 16 * stats["evaluated"] + 51 * stats["counted"]
-        row.update(bwd_bytes=nbytes, bwd_ops=ops,
-                   evaluated=stats["evaluated"], counted=stats["counted"],
-                   **bound("bwd", nbytes, ops))
-        row["reduce_ms"] = cuda_ms(lambda: RC.reduce_pair_grads(
-            dpair, inv, ci.tile_start, n), 20)
-        row["reduce_plain_ms"] = cuda_ms(lambda: RC.reduce_pair_grads_plain(
-            dpair, inv, ci.tile_start, n), 3)
-        idx = ci.sorted_gauss[:nv].long()
-        rows = dpair[:nv].contiguous()
-        acc = torch.zeros((n, words), device=dpair.device)
-        # the same sums as one PyTorch call (a yardstick only)
-        row["reduce_library_ms"] = cuda_ms(
-            lambda: acc.index_add_(0, idx, rows), 20)
-        k = inv.numel() // n
-        rbytes = 4 * inv.numel() + nv * 4 * words + n * 4 * words
-        row.update(reduce_bytes=rbytes, reduce_ops=n * k * words,
-                   **bound("reduce", rbytes, n * k * words))
-    emit(row)
-    bad = [k for k, v in pair_rel.items() if not v <= BWD_TOL]
-    bad += [k for k, v in gauss_rel.items() if not v <= BWD_TOL]
-    if fwd["stop_mismatches"] or not fwd["image"] <= TOL["depth"] \
-            or not fwd["logt"] <= TOL["depth"]:
-        bad.append("forward residuals")
-    if row["reduce_max_abs_diff"] != 0.0:
-        bad.append("reduce")
-    if not row["t_first_max_err"] <= LOGT_FIRST_TOL:
-        bad.append("log T reconstruction")
-    if bad:
-        raise AssertionError(f"backward kernels disagree with plain on "
-                             f"{label}: {bad}")
-    return row
+        pair_abs, pair_rel = by_group(dpair[:nv], ref_pair[:nv])
+        gauss_abs, gauss_rel = by_group(dpay, chain)
+        row = {"phase": "compare-bwd", "scene": label, "n_val": n_val,
+               "n_packed": n_packed, "with_color": with_color,
+               "values_only": values_only, "pairs": nv,
+               "fwd_residuals": fwd,
+               "bwd_max_abs_diff": pair_abs, "bwd_max_rel_diff": pair_rel,
+               "reduce_max_abs_diff": float((dpay - same_input).abs().max()),
+               "per_gaussian_max_abs_diff": gauss_abs,
+               "per_gaussian_max_rel_diff": gauss_rel,
+               "logt_first_max_abs": float(first.abs().max()),
+               "t_first_max_err": float((first.exp() - 1.0).abs().max()),
+               "logt_first_vs_plain": float(
+                   (first - stats["logt_first"]).abs().max()),
+               "tol": {"fwd": TOL["depth"], "bwd_rel": BWD_TOL,
+                       "reduce": 0.0, "t_first": LOGT_FIRST_TOL}}
+        bad = [k for k, v in pair_rel.items() if not v <= BWD_TOL]
+        bad += [k for k, v in gauss_rel.items() if not v <= BWD_TOL]
+        if values_only:
+            row["geometry_max_abs"] = float(dpair[:nv, :6].abs().max())
+            row["values_vs_full_max_abs"] = float(
+                (dpair[:nv, 6:] - full_pair[:nv, 6:]).abs().max())
+            row["per_gaussian_geometry_max_abs"] = float(
+                dpay[:, :6].abs().max())
+            if row["geometry_max_abs"] or row["values_vs_full_max_abs"] \
+                    or row["per_gaussian_geometry_max_abs"]:
+                bad.append("values-only contract")
+        full_pair = dpair
+        if timed:
+            row["bwd_ms"] = cuda_ms(lambda: RC.composite_bwd(
+                *args, g, logt, stop, **mode), 20)
+            row["bwd_plain_ms"] = cuda_ms(lambda: RC.composite_bwd_plain(
+                *args, g, logt, stop, **mode), 1)
+            nbytes = (nv * (4 * kpay.shape[1] + 4) + nv * 4 * words
+                      + 4 * H * W * (1 + n_val) + 8 * logt.numel()
+                      + 4 * ci.tile_start.numel())
+            per_counted = (5 + 2 * n_val) if values_only else 35 + 4 * n_val
+            ops = 16 * stats["evaluated"] + per_counted * stats["counted"]
+            row.update(bwd_bytes=nbytes, bwd_ops=ops,
+                       evaluated=stats["evaluated"], counted=stats["counted"],
+                       **bound("bwd", nbytes, ops))
+            if not values_only:
+                row["fwd_residuals_ms"] = cuda_ms(lambda: RC.composite_fwd(
+                    *args, with_color=with_color, residuals=True), 20)
+                row["reduce_ms"] = cuda_ms(lambda: RC.reduce_pair_grads(
+                    dpair, inv, ci.tile_start, n), 20)
+                row["reduce_plain_ms"] = cuda_ms(
+                    lambda: RC.reduce_pair_grads_plain(
+                        dpair, inv, ci.tile_start, n), 3)
+                idx = ci.sorted_gauss[:nv].long()
+                prows = dpair[:nv].contiguous()
+                acc = torch.zeros((n, words), device=dpair.device)
+                # the same sums as one PyTorch call (a yardstick only)
+                row["reduce_library_ms"] = cuda_ms(
+                    lambda: acc.index_add_(0, idx, prows), 20)
+                k = inv.numel() // n
+                rbytes = 4 * inv.numel() + nv * 4 * words + n * 4 * words
+                row.update(reduce_words=words, reduce_bytes=rbytes,
+                           reduce_ops=n * k * words,
+                           **bound("reduce", rbytes, n * k * words))
+        emit(row)
+        if fwd["stop_mismatches"] or not fwd["image"] <= TOL["depth"] \
+                or not fwd["logt"] <= TOL["depth"]:
+            bad.append("forward residuals")
+        if row["reduce_max_abs_diff"] != 0.0:
+            bad.append("reduce")
+        if not row["t_first_max_err"] <= LOGT_FIRST_TOL:
+            bad.append("log T reconstruction")
+        if bad:
+            raise AssertionError(f"backward kernels disagree with plain on "
+                                 f"{label} n_val={n_val} n_packed="
+                                 f"{n_packed} values_only={values_only}: "
+                                 f"{bad}")
+        rows.append(row)
+    return rows
 
 
 def bound(prefix, nbytes, ops):
+    """The least time for `nbytes` of traffic and `ops` f32 operations
+    on the card, and which of the two bounds it."""
+    pre = f"{prefix}_" if prefix else ""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_FLOPS_PER_S * 1e3
-    return {f"{prefix}_bound_ms": max(bytes_ms, ops_ms),
-            f"{prefix}_bound_by": "bytes" if bytes_ms >= ops_ms
+    return {f"{pre}bound_ms": max(bytes_ms, ops_ms),
+            f"{pre}bound_by": "bytes" if bytes_ms >= ops_ms
             else "operations"}
 
 
 def counts():
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
-    return {"composite_fwd": RC.FWD_LAUNCHES,
-            "composite_bwd": RC.BWD_LAUNCHES,
-            "reduce_pair_grads": RC.REDUCE_LAUNCHES}
+    totals = dict.fromkeys(("composite_fwd", "composite_bwd",
+                            "reduce_pair_grads"), 0)
+    for key, n in RC.LAYOUT_LAUNCHES.items():
+        totals[key[0]] += n
+    return totals
+
+
+def layout_counts():
+    """The launches since reset_counts by instantiation, as strings:
+    kernel/n_val/n_packed/with_color/(residuals or values_only) and
+    reduce_pair_grads/words."""
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    return {"/".join(str(int(x) if isinstance(x, bool) else x) for x in k):
+            v for k, v in sorted(RC.LAYOUT_LAUNCHES.items(), key=str)}
 
 
 def reset_counts():
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
-    RC.FWD_LAUNCHES = RC.BWD_LAUNCHES = RC.REDUCE_LAUNCHES = 0
+    RC.LAYOUT_LAUNCHES.clear()
 
 
 class StageTimer:
     """CUDA events around the functions one training step calls: each
     wrapped call records an event before and after itself on the current
     stream, so the split needs no change to the step. Installed only for
-    the split's own steps (not for the counted or timed ones)."""
+    the split's own steps (not for the counted or timed ones). `feature`
+    picks the FEATURE step's calls, else the GAUSSIAN step's."""
 
-    def __init__(self):
+    def __init__(self, feature=False):
         import trase_tpu_torch.engine.trainer as TT
         import trase_tpu_torch.ops.rasterize_cuda as RC
         import trase_tpu_torch.renderer as RR
 
         self.events = []
         composite = RC._Composite
-        self.patches = [
-            (TT, "apply_deform", "deform_fwd"),
+        if feature:
+            loss = [(TT, "bilinear_resize_mm", "loss"),
+                    (TT, "cosine_gram", "loss"),
+                    (TT, "positive_pixel_pair_loss", "loss"),
+                    (TT, "negative_pixel_pair_loss", "loss")]
+            head = [(TT, "sample_pixels_and_masks", "sample"),
+                    (TT, "pixel_mask_correspondence_matrix", "mask_terms"),
+                    (TT, "pixel_weights", "mask_terms"),
+                    (TT, "apply_deform", "deform_fwd"),
+                    (RR, "smooth_features", "smooth")]
+        else:
+            loss = [(TT, "l1_loss", "loss"), (TT, "ssim", "loss")]
+            head = [(TT, "apply_deform", "deform_fwd")]
+        self.patches = head + [
             (RR, "project_gaussians", "project"),
             (RC, "composite_inputs", "bin_payload"),
-            (TT, "l1_loss", "loss"), (TT, "ssim", "loss"),
+        ] + loss + [
             (RC, "composite_bwd", "composite_bwd"),
             (RC, "reduce_pair_grads", "reduce"),
             (TT, "adam_update", "adam"), (TT, "adam_update_list", "adam"),
@@ -495,6 +622,9 @@ class StageTimer:
         RC._Composite = Shim
 
     def _wrap(self, fn, name):
+        if isinstance(fn, dict):  # a table of losses by mode
+            return {k: self._wrap(f, name) for k, f in fn.items()}
+
         def wrapped(*args, **kw):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -559,13 +689,16 @@ def run(dev: torch.device) -> None:
     # 3. kernels vs plain (and the small scene vs the oracle)
     rows = []
     proj, feats, H, W = small_scene(dev)
+    cfg16 = RasterConfig(pairs_per_gaussian=16)
     for pack, f in ((False, None), (False, feats), (True, feats)):
-        rows.append(compare("small", proj, f, H, W,
-                            RasterConfig(pairs_per_gaussian=16), pack, False))
+        rows.append(compare("small", proj, f, H, W, cfg16, pack, False))
+    for pack in (False, True):
+        rows.append(compare("small", proj, feats, H, W, cfg16, pack, False,
+                            with_color=False))
     with torch.no_grad():
         bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
-        cfg16 = RasterConfig(pairs_per_gaussian=16, pack_features=False)
-        tiled = RC.rasterize_tiled(proj, feats, bg, H, W, cfg16)
+        tiled = RC.rasterize_tiled(proj, feats, bg, H, W,
+                                   cfg16._replace(pack_features=False))
         oracle = rasterize_reference(proj, feats, bg, H, W)
     # the tiled path culls by the exact-support rect, the oracle composites
     # every tail: test_rasterize_pallas.py::test_matches_oracle's 2e-3
@@ -573,8 +706,10 @@ def run(dev: torch.device) -> None:
     emit({"phase": "compare", "scene": "small", "against": "oracle",
           "render_max_abs_diff": oracle_err, "tol": 2e-3})
     assert oracle_err <= 2e-3, oracle_err
-    bwd_rows = [compare_bwd("small", proj, H, W,
-                            RasterConfig(pairs_per_gaussian=16), False)]
+    bwd_rows = compare_bwd("small", proj, None, H, W, cfg16, False)
+    for pack in (False, True):
+        bwd_rows += compare_bwd("small", proj, feats, H, W, cfg16, False,
+                                pack=pack, with_color=False)
 
     n, cap, H, W = N_GAUSSIANS, CAPACITY, HEIGHT, WIDTH
     rng = np.random.default_rng(0)
@@ -592,17 +727,21 @@ def run(dev: torch.device) -> None:
     cfg = RasterConfig(pairs_per_gaussian=6)
     full = {}
     with torch.no_grad():
-        for with_features, pack in ((False, False), (True, False),
-                                    (True, True)):
+        for with_features, pack, with_color in (
+                (False, False, True), (True, False, True), (True, True, True),
+                (True, False, False), (True, True, False)):
             bproj, bfeats = projected(params, aux, cam,
                                       deltas(params, net, 0.5), with_features)
-            r = compare("bench", bproj, bfeats, H, W, cfg, pack, True)
-            full[(r["n_val"], r["n_packed"])] = r
+            r = compare("bench", bproj, bfeats, H, W, cfg, pack, True,
+                        with_color)
+            full[(r["n_val"], r["n_packed"], with_color)] = r
             rows.append(r)
-        bproj, _ = projected(params, aux, cam, deltas(params, net, 0.5),
-                             False)
-        bwd_rows.append(compare_bwd("bench", bproj, H, W, cfg, True))
-    kb = bwd_rows[-1]
+        bench_bwd = compare_bwd("bench", bproj, None, H, W, cfg, True)
+        for pack in (True, False):
+            bench_bwd += compare_bwd("bench", bproj, bfeats, H, W, cfg, True,
+                                     pack=pack, with_color=False)
+    bwd_rows += bench_bwd
+    kb = bench_bwd[0]
 
     # 4. the serving path: deform_step -> renderer.render, counted
     from trase_tpu_torch.models.deform import deform_step
@@ -615,7 +754,7 @@ def run(dev: torch.device) -> None:
         return render(cam, params, aux.alive, bg, *d, sh_degree=3,
                       with_features=with_features, raster_cfg=cfg)
 
-    launches = {}
+    launches, layouts = {}, {}
     reset_counts()
     calls = 0
     frame_ms = {}
@@ -641,13 +780,14 @@ def run(dev: torch.device) -> None:
             a = out["alpha"]
             assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
     launches["render"] = counts()
+    layouts["render"] = layout_counts()
     # serving keeps the no-residual forward and launches no backward
     assert launches["render"] == {"composite_fwd": calls, "composite_bwd": 0,
                                   "reduce_pair_grads": 0}, launches
     with torch.no_grad():
         stages = stage_ms(params, aux, cam, net, cfg, False, False)
         stages_feats = stage_ms(params, aux, cam, net, cfg, True, True)
-    k4, k36 = full[(4, 0)], full[(36, 16)]
+    k4, k36 = full[(4, 0, True)], full[(36, 16, True)]
     emit({"phase": "render", "gaussians": n, "capacity": cap,
           "height": H, "width": W, "pairs_per_gaussian": 6,
           "render_calls": calls, "launches": launches["render"],
@@ -677,6 +817,7 @@ def run(dev: torch.device) -> None:
               "--pairs_per_gaussian", "6", "--device", dev.type])
     png_counts = check_pngs(mdl, it, n_train, n_test)
     launches["cli"] = counts()
+    layouts["cli"] = layout_counts()
     assert launches["cli"]["composite_fwd"] == 2 * (n_train + n_test) + 2, \
         launches["cli"]
     emit({"phase": "cli", "png_counts": png_counts,
@@ -687,11 +828,19 @@ def run(dev: torch.device) -> None:
     # 6. the training step on the bench scene
     train = train_step_phase(params, aux, cam, net, cfg, dev)
     launches["train_step"] = train.pop("launches")
+    layouts["train_step"] = train.pop("layouts")
     emit({"phase": "train-step", **train})
+
+    # 6b. the FEATURE step on the bench scene, both arms
+    feature = feature_step_phase(params, aux, cam, net, cfg, dev)
+    launches["feature_step"] = feature.pop("launches")
+    layouts["feature_step"] = feature.pop("layouts")
+    emit({"phase": "feature-step", **feature})
 
     # 7. the training CLI, then the render CLI on its snapshot
     cli_row = train_cli_phase(src, tmp.name, dev, n_train, n_test)
     launches["train_cli"] = cli_row["launches"]
+    layouts["train_cli"] = cli_row.pop("layouts")
     emit({"phase": "train-cli", **cli_row})
     tmp.cleanup()
 
@@ -704,46 +853,114 @@ def run(dev: torch.device) -> None:
     emit({"phase": "profile", "path": "train-step",
           **profile_frames(train_step_fn(params, aux, cam, net, cfg, dev,
                                          carry=False), frames=3)})
+    for stats in (True, False):
+        emit({"phase": "profile", "path": "feature-step",
+              "with_densify_stats": stats,
+              **profile_frames(feature_step_fn(
+                  train_state(params, aux, net), cam, net, cfg, dev, stats,
+                  carry=False), frames=3)})
 
     # 9. kernels
+    emit(kernel_table(rows, bwd_rows, full, kb, launches, layouts,
+                      time.perf_counter() - t_start))
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+def kernel_table(rows, bwd_rows, full, kb, launches, layouts, seconds):
+    """The kernels line: one object per kernel with its headline numbers
+    (the GAUSSIAN layout, as in earlier runs) and one variant per
+    instantiation, with its launches summed over the paths' counts."""
+    def launched(key):  # over every path (the FEATURE step's per arm)
+        flat = [c for lc in layouts.values()
+                for c in (lc.values() if "densify_stats" in lc else [lc])]
+        return sum(c.get(key, 0) for c in flat)
+
+    fwd_variants = []
+    for (n_val, n_packed, color), r in full.items():
+        key = f"composite_fwd/{n_val}/{n_packed}/{int(color)}"
+        same = dict(n_val=n_val, n_packed=n_packed, with_color=color,
+                    max_abs_err=max(r["max_abs_diff"].values()),
+                    plain_ms=r["plain_ms"], pairs=r["pairs"],
+                    evaluated=r["evaluated"],
+                    contributing=r["contributing"])
+        fwd_variants.append(dict(same, residuals=False,
+                                 launches=launched(key + "/0"), ms=r["ms"],
+                                 bound_ms=r["bound_ms"],
+                                 bound_by=r["bound_by"]))
+        if not color:
+            fwd_variants.append(dict(
+                same, residuals=True, launches=launched(key + "/1"),
+                ms=r["ms_residuals"], bound_ms=r["residuals_bound_ms"],
+                bound_by=r["residuals_bound_by"]))
+    bwd_variants, red_variants = [], []
+    for r in bwd_rows:
+        if "bwd_ms" not in r:
+            continue
+        key = (f"composite_bwd/{r['n_val']}/{r['n_packed']}/"
+               f"{int(r['with_color'])}/{int(r['values_only'])}")
+        bwd_variants.append(dict(
+            n_val=r["n_val"], n_packed=r["n_packed"],
+            with_color=r["with_color"], values_only=r["values_only"],
+            launches=launched(key),
+            max_abs_err=max(r["bwd_max_abs_diff"].values()),
+            max_rel_err=max(r["bwd_max_rel_diff"].values()),
+            ms=r["bwd_ms"], plain_ms=r["bwd_plain_ms"],
+            bound_ms=r["bwd_bound_ms"], bound_by=r["bwd_bound_by"],
+            evaluated=r["evaluated"], counted=r["counted"]))
+        if "reduce_ms" in r:
+            if r["with_color"]:
+                fwd_variants.append(dict(
+                    n_val=r["n_val"], n_packed=r["n_packed"],
+                    with_color=True, residuals=True,
+                    launches=launched(f"composite_fwd/{r['n_val']}/"
+                                      f"{r['n_packed']}/1/1"),
+                    ms=r["fwd_residuals_ms"],
+                    max_abs_err=max(r["fwd_residuals"]["image"],
+                                    r["fwd_residuals"]["logt"])))
+            red_variants.append(dict(
+                words=r["reduce_words"], n_packed=r["n_packed"],
+                launches=launched(f"reduce_pair_grads/{r['reduce_words']}"),
+                max_abs_err=r["reduce_max_abs_diff"], ms=r["reduce_ms"],
+                plain_ms=r["reduce_plain_ms"],
+                bound_ms=r["reduce_bound_ms"],
+                bound_by=r["reduce_bound_by"],
+                library_ms=r["reduce_library_ms"]))
     fwd_err = max(max(r["max_abs_diff"].values()) for r in rows)
     fwd_err = max([fwd_err] + [max(r["fwd_residuals"]["image"],
                                    r["fwd_residuals"]["logt"])
                                for r in bwd_rows])
-    bwd_err = max(max(r["bwd_max_abs_diff"].values()) for r in bwd_rows)
-    red_err = max(r["reduce_max_abs_diff"] for r in bwd_rows)
+    k4 = full[(4, 0, True)]
     entries = [
         dict(name="composite_fwd", launches=launches["render"][
             "composite_fwd"], max_abs_err=fwd_err, ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=None,
-             variants=[{k: r[k] for k in ("n_val", "n_packed", "ms",
-                                          "plain_ms", "bound_ms", "bound_by",
-                                          "pairs", "evaluated",
-                                          "contributing")}
-                       for r in full.values()]),
+             variants=fwd_variants),
         dict(name="composite_bwd", launches=launches["train_step"][
-            "composite_bwd"], max_abs_err=bwd_err,
+            "composite_bwd"],
+             max_abs_err=max(max(r["bwd_max_abs_diff"].values())
+                             for r in bwd_rows),
              max_rel_err=max(max(r["bwd_max_rel_diff"].values())
                              for r in bwd_rows),
              ms=kb["bwd_ms"], plain_ms=kb["bwd_plain_ms"],
              bound_ms=kb["bwd_bound_ms"], bound_by=kb["bwd_bound_by"],
              library_ms=None, t_first_max_err=max(
-                 r["t_first_max_err"] for r in bwd_rows)),
+                 r["t_first_max_err"] for r in bwd_rows),
+             variants=bwd_variants),
         dict(name="reduce_pair_grads", launches=launches["train_step"][
-            "reduce_pair_grads"], max_abs_err=red_err, ms=kb["reduce_ms"],
-             plain_ms=kb["reduce_plain_ms"], bound_ms=kb["reduce_bound_ms"],
-             bound_by=kb["reduce_bound_by"],
-             library_ms=kb["reduce_library_ms"]),
+            "reduce_pair_grads"],
+             max_abs_err=max(r["reduce_max_abs_diff"] for r in bwd_rows),
+             ms=kb["reduce_ms"], plain_ms=kb["reduce_plain_ms"],
+             bound_ms=kb["reduce_bound_ms"], bound_by=kb["reduce_bound_by"],
+             library_ms=kb["reduce_library_ms"], variants=red_variants),
     ]
     for e in entries:
         e["route"] = "cuda"
         e["source"], e["replaces"] = KERNELS[e["name"]]
-    emit({"kernels": entries, "launches_by_path": launches,
-          "seconds": time.perf_counter() - t_start})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    return {"kernels": entries, "launches_by_path": launches,
+            "launches_by_instantiation": layouts, "seconds": seconds}
 
 
 def check_pngs(mdl, it, n_train, n_test):
@@ -812,9 +1029,12 @@ def train_step_phase(params, aux, cam, net, cfg, dev) -> dict:
         finite.append(m["finite"])
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-    launches = counts()
+    launches, layouts = counts(), layout_counts()
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     assert launches == dict.fromkeys(launches, n_steps), launches
+    assert layouts == {"composite_fwd/4/0/1/1": n_steps,
+                       "composite_bwd/4/0/1/0": n_steps,
+                       "reduce_pair_grads/10": n_steps}, layouts
     losses = [float(x) for x in losses]
     assert all(bool(f) for f in finite), "a step was skipped as non-finite"
     state = step.box["state"]
@@ -859,22 +1079,168 @@ def train_step_phase(params, aux, cam, net, cfg, dev) -> dict:
     split["deform_fwd_bwd_alone"] = cuda_ms(deform_fb, 5)
     return {"steps": n_steps, "timed_steps": TRAIN_STEPS, "step_ms": step_ms,
             "step_ms_initial_state": fixed_ms,
-            "losses": losses, "launches": launches, "stage_ms": split,
+            "losses": losses, "launches": launches, "layouts": layouts,
+            "stage_ms": split,
             "peak_memory_gib": peak,
             "n_alive": int(state.aux.alive.sum())}
 
 
+def feature_masks(dev):
+    """FEATURE_MASKS seeded elliptical regions at half the render's
+    resolution, each a different one, some overlapping (identical masks,
+    as in bench.py:178, would leave no negative pair)."""
+    hm, wm = HEIGHT // 2, WIDTH // 2
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:hm, 0:wm].astype(np.float32)
+    masks = np.zeros((FEATURE_MASKS, hm, wm), np.float32)
+    for m in range(FEATURE_MASKS):
+        cy, cx = rng.uniform(0.2, 0.8) * hm, rng.uniform(0.2, 0.8) * wm
+        ry, rx = rng.uniform(0.1, 0.3) * hm, rng.uniform(0.1, 0.3) * wm
+        masks[m] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+    return (torch.tensor(masks, device=dev),
+            torch.ones(FEATURE_MASKS, dtype=torch.bool, device=dev))
+
+
+def feature_step_fn(init, cam, net, cfg, dev, stats, carry=True):
+    """One FEATURE step of the bench scene per call, from `init` (bf16
+    deform stack, smoothing over a KNN map of init's xyz, soft mode);
+    `stats` picks the arm. With `carry` each call continues from the last
+    call's state; without, every call starts from `init`."""
+    from trase_tpu_torch.config import OptimizationParams
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.ops.knn import build_feature_smooth_map
+
+    lr_at = TT.make_learning_rate_schedules(OptimizationParams())
+    masks, valid = feature_masks(dev)
+    with torch.no_grad():
+        smooth_map = build_feature_smooth_map(init.params.xyz, SMOOTH_K)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bg = torch.zeros(3, device=dev)
+    box = {"state": init, "i": 0}
+
+    def step():
+        box["i"] += 1
+        state, m = TT.feature_phase_step(
+            box["state"], cam, masks, valid, (box["i"] % 10) / 10,
+            lr_at(10000 + box["i"]), bg, smooth_map, deform_net=net,
+            sh_degree=3, use_deform=True, is_6dof=False,
+            contrastive_mode="soft", rfn=1.0, positive_th=0.75,
+            negative_th=0.5, num_sampled_pixels=FEATURE_PIXELS,
+            num_sampled_masks=FEATURE_MASKS, raster_cfg=cfg,
+            with_densify_stats=stats, generator=gen)
+        if carry:
+            box["state"] = state
+        return m
+
+    step.box = box
+    return step
+
+
+def changed_fields(old, new) -> list:
+    """Names of the state's tensors that differ between two states."""
+    out = []
+    for part in ("params", "aux", "opt"):
+        for name, a, b in zip(getattr(old, part)._fields, getattr(old, part),
+                              getattr(new, part)):
+            pairs = (zip(a, b) if part == "opt" else [(a, b)])
+            if not all(torch.equal(x, y) for x, y in pairs):
+                out.append(f"{part}.{name}")
+    for i, (a, b) in enumerate(zip(old.deform, new.deform)):
+        if not torch.equal(a, b):
+            out.append(f"deform.{i}")
+    return out
+
+
+def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
+    """The FEATURE step at the bench scene in both arms: TRAIN_WARMUP +
+    TRAIN_STEPS carried steps each, counted (one launch of each kernel
+    per step, in the features-only packed instantiation: values-only in
+    the second arm), checked (finite; only the features, their Adam
+    state and, with stats, the densification accumulators change) and
+    timed; then steps from the initial state split by stage."""
+    from trase_tpu_torch.ops.knn import build_feature_smooth_map
+
+    init = train_state(params, aux, net)
+    xyz = init.params.xyz
+    with torch.no_grad():
+        smooth_ms = cuda_ms(lambda: build_feature_smooth_map(xyz, SMOOTH_K),
+                            3)
+    out = {"masks": [FEATURE_MASKS, HEIGHT // 2, WIDTH // 2],
+           "sampled_pixels": FEATURE_PIXELS, "smooth_k": SMOOTH_K,
+           "contrastive_mode": "soft", "smooth_map_ms": smooth_ms,
+           "launches": {}, "layouts": {}, "arms": {}}
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    for stats in (True, False):
+        arm = "densify_stats" if stats else "values_only"
+        step = feature_step_fn(init, cam, net, cfg, dev, stats)
+        reset_counts()
+        first = [step() for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [step() for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+        launches, layouts = counts(), layout_counts()
+        assert launches == dict.fromkeys(launches, n_steps), launches
+        want = {"composite_fwd/32/16/0/1": n_steps,
+                f"composite_bwd/32/16/0/{int(not stats)}": n_steps,
+                "reduce_pair_grads/38": n_steps}
+        assert layouts == want, (arm, layouts)
+        metrics = first + ms
+        assert all(bool(m["finite"]) for m in metrics), arm
+        state = step.box["state"]
+        for x in state.params + tuple(state.opt.gaussian_features[:2]):
+            assert bool(torch.isfinite(x).all()), "non-finite state tensor"
+        changed = changed_fields(init, state)
+        expect = ["params.gaussian_features", "opt.gaussian_features"]
+        if stats:
+            expect[1:1] = ["aux.max_radii2d", "aux.xyz_gradient_accum",
+                           "aux.denom"]
+        assert changed == expect, (arm, changed)
+        out["launches"][arm] = launches
+        out["layouts"][arm] = layouts
+        out["arms"][arm] = {
+            "step_ms": step_ms, "changed": changed,
+            "losses": [float(m["loss"]) for m in metrics],
+            "last": {k: float(metrics[-1][k])
+                     for k in ("rfn", "pos_sim", "neg_sim", "overflow")}}
+        del step
+        fixed = feature_step_fn(init, cam, net, cfg, dev, stats, carry=False)
+        fixed()
+        timer = StageTimer(feature=True)
+        try:
+            splits = []
+            for _ in range(4):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                fixed()
+                b.record()
+                splits.append(timer.step_split(a, b))
+        finally:
+            timer.restore()
+        out["arms"][arm]["stage_ms"] = {
+            k: sum(sp[k] for sp in splits[1:]) / (len(splits) - 1)
+            for k in splits[-1]}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
 def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
     """trase_tpu_torch.train on the CLI dataset with densification and an
-    opacity reset inside the run, then the render CLI on its snapshot."""
+    opacity reset inside the run, crossing warm_up_3d_features
+    (CLI_FEATURE_FROM) into two FEATURE blocks, the second of which runs
+    past densify_until_iter (values-only), then the render CLI on its
+    snapshot."""
     from trase_tpu_torch import render as cli
     from trase_tpu_torch import train as train_cli
     from trase_tpu_torch.engine import trainer as TT
 
     mdl = os.path.join(root, "trained")
     it = CLI_ITERATIONS
-    events = {"densify": [], "reset": []}
+    events = {"densify": [], "reset": [], "feature": []}
     densify, reset = TT.densify_step, TT.reset_opacity_step
+    feature = TT.feature_phase_step
 
     def count_densify(*a, **kw):
         out = densify(*a, **kw)
@@ -885,7 +1251,12 @@ def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
         events["reset"].append(1)
         return reset(*a, **kw)
 
+    def count_feature(*a, **kw):
+        events["feature"].append(kw["with_densify_stats"])
+        return feature(*a, **kw)
+
     TT.densify_step, TT.reset_opacity_step = count_densify, count_reset
+    TT.feature_phase_step = count_feature
     reset_counts()
     t0 = time.perf_counter()
     try:
@@ -893,20 +1264,34 @@ def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
             "-s", src, "-m", mdl, "--iterations", str(it), "--eval",
             "--warm_up", "100", "--densify_from_iter", "50",
             "--densification_interval", "100", "--opacity_reset_interval",
-            "250", "--pairs_per_gaussian", "6", "--device", dev.type,
-            "--quiet"])
+            "250", "--warm_up_3d_features", str(CLI_FEATURE_FROM),
+            "--iterative_opt_interval", str(CLI_INTERVAL),
+            "--densify_until_iter", str(CLI_DENSIFY_UNTIL),
+            "--num_sampled_pixels", "1024", "--num_sampled_masks", "3",
+            "--pairs_per_gaussian", "6", "--device", dev.type, "--quiet"])
     finally:
         TT.densify_step, TT.reset_opacity_step = densify, reset
+        TT.feature_phase_step = feature
     seconds = time.perf_counter() - t0
-    launches = counts()
+    launches, layouts = counts(), layout_counts()
     assert launches == dict.fromkeys(launches, it), launches
-    assert trainer.step_calls == it and int(trainer.skipped) == 0
+    block = CLI_INTERVAL + 1
+    n_feature = 2 * block
+    n_stats = block + CLI_DENSIFY_UNTIL - (CLI_FEATURE_FROM + 2 * block)
+    assert events["feature"] == [True] * n_stats + [False] * (
+        n_feature - n_stats), events["feature"]
+    assert trainer.feature_calls == n_feature
+    assert trainer.step_calls == it - n_feature
+    assert int(trainer.skipped) == 0
+    assert layouts["composite_bwd/32/16/0/1"] == n_feature - n_stats
     assert len(events["densify"]) >= 1 and len(events["reset"]) >= 1, events
     cli.main(["-s", src, "-m", mdl, "--iteration", str(it),
               "--pairs_per_gaussian", "6", "--device", dev.type])
     pngs = check_pngs(mdl, it, n_train, n_test)
     return {"iterations": it, "seconds": seconds,
             "it_per_s": it / seconds, "launches": launches,
+            "layouts": layouts, "feature_steps": n_feature,
+            "feature_steps_values_only": n_feature - n_stats,
             "densify": events["densify"], "opacity_resets":
             len(events["reset"]), "n_alive": trainer._n_alive_cache,
             "capacity": int(trainer.state.params.xyz.shape[0]),

@@ -1,5 +1,7 @@
 """The CUDA kernels (trase_tpu_torch/csrc/composite_fwd.cu, composite_bwd.cu)
-against their plain PyTorch versions on the card. Imports no jax, so it
+against their plain PyTorch versions on the card, in the GAUSSIAN step's
+layout (rgb + depth) and the FEATURE step's (32 features alone, unpacked
+and bf16-packed, full and values-only backward). Imports no jax, so it
 runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -60,10 +62,11 @@ def test_cuda_kernel_matches_plain(n_feat, pack):
         payload = TRC.pack_feature_words(payload, ci.n_val, ci.n_packed)
     args = (payload, ci.sorted_gauss, ci.tile_start, H, W, ci.n_val,
             ci.n_packed)
-    before = TRC.FWD_LAUNCHES
+    key = ("composite_fwd", ci.n_val, ci.n_packed, True, False)
+    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
     got = TRC.composite_fwd(*args)
     torch.cuda.synchronize()
-    assert TRC.FWD_LAUNCHES == before + 1
+    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
     ref = TRC.composite_plain(*args)
     diff = (got - ref).abs()
     assert float(diff[..., :-1].max()) <= 1e-5
@@ -112,14 +115,14 @@ def test_cuda_backward_matches_plain():
     g = torch.randn((H, W, 5), generator=torch.Generator().manual_seed(0)
                     ).cuda()
     first = torch.empty_like(logt)
-    before = (TRC.BWD_LAUNCHES, TRC.REDUCE_LAUNCHES)
+    keys = (("composite_bwd", 4, 0, True, False), ("reduce_pair_grads", 10))
+    before = [TRC.LAYOUT_LAUNCHES.get(k, 0) for k in keys]
     dpair = TRC.composite_bwd(*args, g, logt, stop, logt_first=first)
     inv = TRC.inverse_pairs(ci.sorted_pid)
     n = ci.payload.shape[0]
     dpay = TRC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
     torch.cuda.synchronize()
-    assert (TRC.BWD_LAUNCHES, TRC.REDUCE_LAUNCHES) == (before[0] + 1,
-                                                       before[1] + 1)
+    assert [TRC.LAYOUT_LAUNCHES[k] for k in keys] == [b + 1 for b in before]
     stats = {}
     ref_pair = TRC.composite_bwd_plain(*args, g, logt, stop, stats=stats)
     nv = int(ci.tile_start[-1])
@@ -155,3 +158,73 @@ def test_render_gradients_on_card():
     for k, ref in grads["cpu"].items():
         scale = float(ref.abs().max()) + 1e-8
         assert float((grads["cuda"][k] - ref).abs().max()) / scale < 1e-5, k
+
+
+def _feature_inputs(pack, H=96, W=128, n=400):
+    proj, feats = _scene(n, H, W, 32, "cuda")
+    ci = TRC.composite_inputs(proj, feats, H, W, TR.RasterConfig(
+        pairs_per_gaussian=16, pack_features=pack), with_color=False)
+    assert (ci.n_val, ci.n_packed) == (32, 16 if pack else 0)
+    payload = ci.payload
+    if ci.n_packed:
+        payload = TRC.pack_feature_words(payload, 32, 16, with_color=False)
+    return ci, (payload, ci.sorted_gauss, ci.tile_start, H, W, 32,
+                ci.n_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [False, True])
+def test_cuda_features_only_forward_matches_plain(pack):
+    """The features-only instantiations, with and without residuals: the
+    same image bit for bit as the plain version (the same expressions in
+    the same order), and the plain version's log T and stop index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, args = _feature_inputs(pack)
+    out = TRC.composite_fwd(*args, with_color=False)
+    res, logt, stop = TRC.composite_fwd(*args, with_color=False,
+                                        residuals=True)
+    torch.cuda.synchronize()
+    ref, ref_logt, ref_stop = TRC.composite_plain(*args, with_color=False,
+                                                  residuals=True)
+    assert torch.equal(out, ref) and torch.equal(res, ref)
+    assert torch.equal(stop, ref_stop) and torch.equal(logt, ref_logt)
+    assert float(out[..., 0].max()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [False, True])
+def test_cuda_features_only_backward_matches_plain(pack):
+    """The features-only backward, full and values-only, against the
+    plain version (256-pixel sums in another order: 1e-5 of each column's
+    scale); values-only gives exact zeros in the geometry columns and the
+    full mode's value columns bit for bit; the reduce at 38 words equals
+    its plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ci, args = _feature_inputs(pack)
+    _, logt, stop = TRC.composite_fwd(*args, with_color=False,
+                                      residuals=True)
+    H, W = args[3], args[4]
+    g = torch.randn((H, W, 33), generator=torch.Generator().manual_seed(0)
+                    ).cuda()
+    nv = int(ci.tile_start[-1])
+    inv = TRC.inverse_pairs(ci.sorted_pid)
+    n = ci.payload.shape[0]
+    got = {}
+    for vo in (False, True):
+        dpair = TRC.composite_bwd(*args, g, logt, stop, with_color=False,
+                                  values_only=vo)
+        dpay = TRC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
+        torch.cuda.synchronize()
+        ref = TRC.composite_bwd_plain(*args, g, logt, stop,
+                                      with_color=False, values_only=vo)
+        scale = ref[:nv].abs().amax(dim=0) + 1e-6
+        assert float(((dpair[:nv] - ref[:nv]).abs() / scale).max()) < 1e-5
+        assert dpay.shape == (n, 38)
+        assert torch.equal(dpay, TRC.reduce_pair_grads_plain(
+            dpair, inv, ci.tile_start, n))
+        got[vo] = dpair[:nv]
+    assert not bool(got[True][:, :6].any())
+    assert torch.equal(got[True][:, 6:], got[False][:, 6:])
+    assert bool(got[False][:, :6].any())

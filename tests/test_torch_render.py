@@ -207,13 +207,82 @@ def test_render_gradients_reach_params_and_deltas():
 
 
 @pytest.mark.parametrize("option", [
-    dict(with_color=False), dict(grad_values_only=True),
-    dict(smooth_map=torch.zeros(1, 16, dtype=torch.long))])
+    dict(layout=(36, 0, True)), dict(layout=(36, 16, True)),
+    dict(layout=(4, 0, True), values_only=True)])
 def test_training_options_not_ported(option):
-    _, _, tp, ta = field(n=30)
-    _, tcam = cameras()
-    with pytest.raises(NotImplementedError):
-        t_render(tcam, tp, ta.alive, torch.zeros(3), **option)
+    """What still has no backward kernel on the card: 32 features beside
+    rgb + depth under autograd (unpacked and packed), and values-only
+    with colour; the training layouts pass (on the CPU the plain versions
+    take every layout)."""
+    from trase_tpu_torch.ops import rasterize_cuda as TRC
+
+    with pytest.raises(NotImplementedError, match="36 values"):
+        TRC.check_card_backward(**option)
+    for layout in ((4, 0, True), (32, 0, False), (32, 16, False)):
+        TRC.check_card_backward(layout)
+        TRC.check_card_backward(layout, values_only=not layout[2])
+
+
+@pytest.mark.parametrize("values_only", [False, True])
+def test_render_features_only_smoothed(values_only):
+    """render(with_color=False) with a smoothing map and trase_tpu's
+    slot permutation, the FEATURE step's call: the [acc | feats] image
+    and alpha against trase_tpu's (Pallas, interpret mode) within
+    TOL["feats"], no render / depth keys, and the gradients in the raw
+    features and (full mode) in mean2d_offset within 3e-4 of scale; in
+    values-only mode the offset gets exact zeros."""
+    from trase_tpu.ops.knn import build_feature_smooth_map
+
+    jp, ja, tp, ta = field(n=60, seed=9, sh_degree=1)
+    rng = np.random.default_rng(10)
+    cap = jp.xyz.shape[0]
+    f = rng.normal(size=(cap, 32)).astype(np.float32)
+    jp = jp._replace(gaussian_features=jnp.asarray(f))
+    tp = tp._replace(gaussian_features=torch.from_numpy(f))
+    jcam, tcam = cameras()
+    nmap = np.array(build_feature_smooth_map(jp.xyz, 16))
+    key = jax.random.PRNGKey(4)
+    perm = np.array(jax.random.permutation(key, 16)[:8])
+    w = rng.normal(size=(H, W, 33)).astype(np.float32)
+    cfg = dict(raster_cfg=JRasterConfig(pairs_per_gaussian=16))
+
+    def jloss(feats, off):
+        out = j_render(jcam, jp._replace(gaussian_features=feats), ja.alive,
+                       jnp.zeros(3), sh_degree=1, mean2d_offset=off,
+                       with_color=False, grad_values_only=values_only,
+                       smooth_map=jnp.asarray(nmap), smooth_rng=key,
+                       backend="pallas_interpret", **cfg)
+        return jnp.sum(out["render_gaussian_features_acc_hwc"] * w), out
+
+    (_, ref), rg = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(f), jnp.zeros((cap, 2)))
+    feats = torch.from_numpy(f).requires_grad_(True)
+    off = torch.zeros((cap, 2), requires_grad=True)
+    got = t_render(tcam, tp._replace(gaussian_features=feats), ta.alive,
+                   torch.zeros(3), sh_degree=1, mean2d_offset=off,
+                   with_color=False, grad_values_only=values_only,
+                   smooth_map=torch.from_numpy(nmap),
+                   smooth_perm=torch.from_numpy(perm),
+                   raster_cfg=TRasterConfig(pairs_per_gaussian=16))
+    assert "render" not in got and "depth" not in got
+    for k in ("render_gaussian_features_acc_hwc", "alpha",
+              "render_gaussian_features"):
+        np.testing.assert_allclose(got[k].detach().numpy(),
+                                   np.asarray(ref[k]), atol=TOL["feats"],
+                                   rtol=0, err_msg=k)
+    np.testing.assert_array_equal(got["radii"].numpy(),
+                                  np.asarray(ref["radii"]))
+    loss = (got["render_gaussian_features_acc_hwc"]
+            * torch.from_numpy(w)).sum()
+    gf, goff = torch.autograd.grad(loss, [feats, off], allow_unused=True)
+    for name, a, b in (("features", rg[0], gf), ("offset", rg[1], goff)):
+        a = np.asarray(a)
+        b = np.zeros_like(a) if b is None else b.numpy()
+        if values_only and name == "offset":
+            assert not a.any() and not b.any()
+            continue
+        assert np.abs(b).max() > 0, name
+        assert np.abs(a - b).max() / np.abs(a).max() < 3e-4, name
 
 
 def test_feature3d_to_rgb_up_to_sign():

@@ -446,23 +446,3 @@ def test_snapshot_renders_in_both_packages(trained):
     out = os.path.join(mdl, "test", f"ours_{it}", "renders")
     assert len([f for f in os.listdir(out) if f.endswith(".png")]) == 2
 
-
-def test_refuses_feature_phase(tmp_path):
-    """A run that would reach warm_up_3d_features with SAM masks present
-    needs the FEATURE step: refused, naming the FEATURE slice."""
-    from trase_tpu_torch.engine.loop import Trainer
-
-    class Cam:
-        masks, mask_path = None, "masks.npz"
-
-    class Scene:
-        def get_train_cameras(self):
-            return [Cam()]
-
-    class Opt:
-        iterations, warm_up_3d_features = 10_000, 10_000
-
-    tr = Trainer.__new__(Trainer)
-    tr.opt, tr.scene = Opt, Scene()
-    with pytest.raises(NotImplementedError, match="FEATURE slice"):
-        tr.train(progress=False)

@@ -2,9 +2,10 @@
 
 A second package beside the JAX reference, mirroring its module names so
 each counterpart is easy to find. Plain tensor code is PyTorch; the
-Pallas compositor of the serving path is a hand-written CUDA kernel for
-Hopper (``ops/rasterize_cuda.py`` + ``csrc/composite_fwd.cu``). The
-package imports torch and numpy only: never jax, flax or ``trase_tpu``.
+Pallas compositor and its gradient are hand-written CUDA kernels for
+Hopper (``ops/rasterize_cuda.py`` + ``csrc/composite_fwd.cu``,
+``csrc/composite_bwd.cu``). The package imports torch and numpy only:
+never jax, flax or ``trase_tpu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where every kernel is replaced by its plain PyTorch version.

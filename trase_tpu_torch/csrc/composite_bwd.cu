@@ -2,7 +2,8 @@
 // gradients: the CUDA port of trase_tpu's Pallas kernels `_bwd_group_kernel`
 // (trase_tpu/ops/rasterize_pallas.py:817) and `_transpose_kernel` (:1195)
 // with the un-sort it feeds (`unsort_slot_gradients`, :1355). They carry the
-// gradient of the GAUSSIAN training step.
+// gradient of both training steps: GAUSSIAN (rgb + depth) and FEATURE (32
+// features alone, unpacked or bf16-packed, full or values-only).
 //
 // 1. composite_bwd_kernel: one 256-thread block per 16x16 tile, one thread
 //    per pixel. The forward (composite_fwd.cu, WITH_RES) left per pixel
@@ -32,28 +33,47 @@
 //    Rows of the tile's range at or past its largest stop get zeros (the
 //    stop pair and every later one have no gradient); rows of invalid
 //    pairs, past tile_start[num_tiles], are not written.
+//    In VALUES_ONLY mode (the FEATURE step once densification has ended:
+//    trase_tpu's values_only, rasterize_pallas.py:938-948) the kernel emits
+//    d v_c = g_c w alone and exact zeros in the 6 geometry words: it still
+//    reconstructs each pair's alpha and the reverse log T, but skips q, the
+//    suffix R, dalpha and the chain. The value words are the same
+//    expressions summed in the same order as the full mode's, so the two
+//    modes agree on them bit for bit.
 // 2. reduce_pair_grads_kernel: one thread per (gaussian g, word). It sums,
 //    in k order, the rows at sorted positions inv[g K + k] (inv is the
 //    inverse of the sort's permutation), reading 0 for positions at or past
 //    tile_start[num_tiles] (the invalid-pair sentinel: the TPU's win_range
 //    mask), and writes the (N, 6 + NV) per-gaussian payload gradient.
 //
+// Payload layouts (as the forward reads them, composite_fwd.cu): values
+// [rgb 3, feats, depth] or features alone (WITH_COLOR false), unpacked, or
+// with the features bf16-packed two per word (NPACK > 0). The gradient row
+// is always unpacked, 6 + NV words: a packed payload row (6 + 16 words for
+// the features-only layout) is narrower than its gradient row (6 + 32).
+//
 // Bound on one H100 SXM (3.35 TB/s, 67 TFLOP/s f32 non-tensor):
-//   backward bytes: each valid pair's payload row (4 (6 + NV) B) and
+//   backward bytes: each valid pair's payload row (4 x its words) and
 //   gaussian index (4 B) read once, its gradient row (4 (6 + NV) B) written
 //   once, the cotangent (4 (1 + NV) B per pixel) and residuals (8 B per
 //   padded pixel) read once;
 //   backward work: 16 f32 ops per evaluated pair-pixel (pair below the
 //   tile's largest stop: the splat quadratic, clamp, tests), 35 + 4 NV per
 //   counted pair-pixel (3 transcendentals counted as one op each, q, dalpha,
-//   the suffix, the chain, d v, and its share of the 256-pixel sums);
+//   the suffix, the chain, d v, and its share of the 256-pixel sums), or
+//   5 + 2 NV in VALUES_ONLY mode (alpha, log T, w, d v and its sums);
 //   reduce bytes: inv (4 B per pair), each valid gradient row once, the
 //   output once; work: K (6 + NV) adds per gaussian, so bytes bound it.
 //   chip_smoke.py reckons both bounds from its run's counts.
 //
 // This first design is simple and correct, not fast: the reduction costs
-// (6 + NV) x 5 shuffles per pair per warp that the pair touches, and long
-// tile lists leave SMs idle at the tail, as in the forward.
+// (6 + NV) x 5 shuffles per pair per warp that the pair touches (38 x 5 at
+// the FEATURE layouts), and long tile lists leave SMs idle at the tail, as
+// in the forward. Shared memory is static: pair rows staged per batch plus
+// the 8 warps' partial sums, part[8][batch][6 + NV]. At 38 gradient words
+// a 64-pair batch would need 88.0 KB, over the 48 KB static limit, so the
+// wide layouts stage 32 pairs per batch (44.1 KB unpacked, 42.0 KB packed)
+// and the 10-word GAUSSIAN layout keeps 64.
 //
 // Built with -fmad=false, like the forward, so that the plain PyTorch
 // versions (ops/rasterize_cuda.py: composite_bwd_plain,
@@ -68,7 +88,6 @@ namespace {
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;  // threads per block: one per pixel
 constexpr int kWarps = kPix / 32;
-constexpr int kBatch = 64;           // pairs staged per shared-memory batch
 constexpr int kGeom = 6;             // mean2d(2), conic(3), log opacity(1)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -78,7 +97,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int NV>
+// Unpacked value c of staged pair j: rows is word-major with stride ld.
+// c is a compile-time constant in the unrolled loops, so the branches fold.
+template <int NV, int NPACK, bool WITH_COLOR>
+__device__ __forceinline__ float value_at(const float* rows, int ld, int c,
+                                          int j) {
+  if constexpr (NPACK == 0) {
+    return rows[(kGeom + c) * ld + j];
+  } else {
+    constexpr int kFeat0 = WITH_COLOR ? 3 : 0;  // first feature value
+    constexpr int kWord0 = kGeom + (WITH_COLOR ? 4 : 0);  // first packed word
+    if (WITH_COLOR && c < 3) return rows[(kGeom + c) * ld + j];
+    if (WITH_COLOR && c == NV - 1) return rows[(kGeom + 3) * ld + j];
+    const int f = c - kFeat0;
+    const unsigned int u = __float_as_uint(
+        rows[(kWord0 + (f < NPACK ? f : f - NPACK)) * ld + j]);
+    return __uint_as_float(f < NPACK ? u << 16 : u & 0xffff0000u);
+  }
+}
+
+template <int NV, int NPACK, bool WITH_COLOR, bool VALUES_ONLY>
 __global__ void __launch_bounds__(kPix)
 composite_bwd_kernel(const float* __restrict__ payload,
                      const int* __restrict__ sorted_gauss,
@@ -88,8 +126,14 @@ composite_bwd_kernel(const float* __restrict__ payload,
                      const int* __restrict__ res_stop, float log_alpha_max,
                      float log_alpha_eps, float* __restrict__ dpair,
                      float* __restrict__ logt_first) {
-  constexpr int kWords = kGeom + NV;  // payload row == gradient row
-  __shared__ float rows[kWords][kBatch + 1];
+  constexpr int kPlain = WITH_COLOR ? 4 : 0;
+  static_assert(NPACK == 0 || NV == kPlain + 2 * NPACK,
+                "packed value layout");
+  constexpr int kPayWords = kGeom + (NPACK > 0 ? kPlain + NPACK : NV);
+  constexpr int kWords = kGeom + NV;  // gradient row, always unpacked
+  constexpr int kBatch = kWords > 16 ? 32 : 64;  // pairs staged per batch
+  constexpr int kLd = kBatch + 1;
+  __shared__ float rows[kPayWords * kLd];
   __shared__ float part[kWarps][kBatch][kWords];
   __shared__ int gid[kBatch];
   __shared__ int warp_max[kWarps];
@@ -141,20 +185,20 @@ composite_bwd_kernel(const float* __restrict__ payload,
     __syncthreads();  // the previous batch's rows and partials are read
     if ((int)threadIdx.x < n) gid[threadIdx.x] = sorted_gauss[start + lo + threadIdx.x];
     __syncthreads();
-    for (int i = threadIdx.x; i < n * kWords; i += kPix) {
-      const int j = i / kWords;
-      const int c = i - j * kWords;
-      rows[c][j] = payload[(size_t)gid[j] * kWords + c];
+    for (int i = threadIdx.x; i < n * kPayWords; i += kPix) {
+      const int j = i / kPayWords;
+      const int c = i - j * kPayWords;
+      rows[c * kLd + j] = payload[(size_t)gid[j] * kPayWords + c];
     }
     __syncthreads();
     for (int j = n - 1; j >= 0; --j) {
-      const float dx = (rows[0][j] - ox) - fx;
-      const float dy = (rows[1][j] - oy) - fy;
-      const float ca = rows[2][j];
-      const float cb = rows[3][j];
-      const float cc = rows[4][j];
-      const float raw =
-          -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy + rows[5][j];
+      const float dx = (rows[0 * kLd + j] - ox) - fx;
+      const float dy = (rows[1 * kLd + j] - oy) - fy;
+      const float ca = rows[2 * kLd + j];
+      const float cb = rows[3 * kLd + j];
+      const float cc = rows[4 * kLd + j];
+      const float raw = -0.5f * (ca * dx * dx + cc * dy * dy) -
+                        cb * dx * dy + rows[5 * kLd + j];
       const float alog = fminf(raw, log_alpha_max);
       const bool counted = (lo + j < my_stop) && (alog >= log_alpha_eps);
       float d[kWords];
@@ -165,39 +209,47 @@ composite_bwd_kernel(const float* __restrict__ payload,
         const float before = logt - log1pf(-alpha);
         const float t = expf(before);
         const float w = alpha * t;
-        float q = g[0];
+        if constexpr (!VALUES_ONLY) {
+          float q = g[0];
 #pragma unroll
-        for (int c = 0; c < NV; ++c) q += g[1 + c] * rows[kGeom + c][j];
-        const float dalpha = q * t - suffix / (1.f - alpha);
-        suffix += q * w;
+          for (int c = 0; c < NV; ++c)
+            q += g[1 + c] * value_at<NV, NPACK, WITH_COLOR>(rows, kLd, c, j);
+          const float dalpha = q * t - suffix / (1.f - alpha);
+          suffix += q * w;
+          const float dpow = raw < log_alpha_max ? dalpha * alpha : 0.f;
+          d[0] = dpow * -(ca * dx + cb * dy);
+          d[1] = dpow * -(cc * dy + cb * dx);
+          d[2] = dpow * (-0.5f * dx * dx);
+          d[3] = dpow * -(dx * dy);
+          d[4] = dpow * (-0.5f * dy * dy);
+          d[5] = dpow;
+        }
         logt = before;
-        const float dpow = raw < log_alpha_max ? dalpha * alpha : 0.f;
-        d[0] = dpow * -(ca * dx + cb * dy);
-        d[1] = dpow * -(cc * dy + cb * dx);
-        d[2] = dpow * (-0.5f * dx * dx);
-        d[3] = dpow * -(dx * dy);
-        d[4] = dpow * (-0.5f * dy * dy);
-        d[5] = dpow;
 #pragma unroll
         for (int c = 0; c < NV; ++c) d[kGeom + c] = g[1 + c] * w;
       }
+      constexpr int kFirst = VALUES_ONLY ? kGeom : 0;  // words summed
       if (__any_sync(kFull, counted)) {
 #pragma unroll
-        for (int c = 0; c < kWords; ++c) {
+        for (int c = kFirst; c < kWords; ++c) {
           const float s = warp_sum(d[c]);
-          if (lane == c) part[warp][j][c] = s;
+          if (lane == (c & 31)) part[warp][j][c] = s;
         }
-      } else if (lane < kWords) {
-        part[warp][j][lane] = 0.f;
+      } else {
+        for (int c = kFirst + lane; c < kWords; c += 32)
+          part[warp][j][c] = 0.f;
       }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < n * kWords; i += kPix) {
       const int j = i / kWords;
       const int c = i - j * kWords;
-      float s = part[0][j][c];
+      float s = 0.f;
+      if (!VALUES_ONLY || c >= kGeom) {
+        s = part[0][j][c];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) s += part[w][j][c];
+        for (int w = 1; w < kWarps; ++w) s += part[w][j][c];
+      }
       dpair[(size_t)(start + lo + j) * kWords + c] = s;
     }
   }
@@ -234,19 +286,29 @@ extern "C" int trase_composite_bwd(const float* payload,
                                    const int* sorted_gauss,
                                    const int* tile_start, int num_tiles,
                                    int tw, int height, int width, int n_val,
-                                   const float* grad_out,
+                                   int n_packed, int with_color,
+                                   int values_only, const float* grad_out,
                                    const float* res_logt, const int* res_stop,
                                    float log_alpha_max, float log_alpha_eps,
                                    float* dpair, float* logt_first,
                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (num_tiles <= 0) return (int)cudaErrorInvalidValue;
-  if (n_val == 4) {
-    composite_bwd_kernel<4><<<num_tiles, kPix, 0, s>>>(
-        payload, sorted_gauss, tile_start, tw, height, width, grad_out,
-        res_logt, res_stop, log_alpha_max, log_alpha_eps, dpair, logt_first);
-    return (int)cudaGetLastError();
+#define TRASE_BWD(NV, NPACK, COLOR, VONLY)                                 \
+  if (n_val == NV && n_packed == NPACK && (with_color != 0) == COLOR &&  \
+      (values_only != 0) == VONLY) {                                       \
+    composite_bwd_kernel<NV, NPACK, COLOR, VONLY><<<num_tiles, kPix, 0, s>>>( \
+        payload, sorted_gauss, tile_start, tw, height, width, grad_out,    \
+        res_logt, res_stop, log_alpha_max, log_alpha_eps, dpair,           \
+        logt_first);                                                       \
+    return (int)cudaGetLastError();                                        \
   }
+  TRASE_BWD(4, 0, true, false)
+  TRASE_BWD(32, 0, false, false)
+  TRASE_BWD(32, 0, false, true)
+  TRASE_BWD(32, 16, false, false)
+  TRASE_BWD(32, 16, false, true)
+#undef TRASE_BWD
   return (int)cudaErrorInvalidValue;
 }
 

@@ -27,10 +27,12 @@
 // contraction) the two agree to the last bits apart from libm ulps.
 //
 // Payload rows (one per gaussian, float32): [mx, my, a, b, c, log op | values]
-// with values = NV floats [rgb 3, feats, depth 1], or, packed (NPACK > 0),
-// [rgb 3, depth 1, NPACK words] where word r holds feats[r] as bf16 in its
-// low half and feats[r + NPACK] in its high half (trase_tpu's
-// pack_feature_rows layout; the bf16 pattern u16 is the float u16 << 16).
+// with values = NV floats [rgb 3, feats, depth 1] (WITH_COLOR) or [feats]
+// (the FEATURE phase's features-only layout, trase_tpu's with_color=False),
+// or, packed (NPACK > 0), [rgb 3, depth 1, NPACK words] (WITH_COLOR) or
+// [NPACK words] alone, where word r holds feats[r] as bf16 in its low half
+// and feats[r + NPACK] in its high half (trase_tpu's pack_feature_rows
+// layout; the bf16 pattern u16 is the float u16 << 16).
 //
 // Bound on one H100 SXM (3.35 TB/s, 67 TFLOP/s f32 non-tensor), at the
 // serving path's scene (100k gaussians, 1008x1344, K=6):
@@ -45,6 +47,7 @@
 //   power limit) the scene had 5.2e5 valid pairs, 1.21e8 evaluated and
 //   1.00e8 contributing pair-pixels, so the work bound leads: 0.053 ms at
 //   NV=4 (bytes 0.015 ms), 0.149 ms at NV=36 (bytes 0.086 ms; packed 0.077).
+//   The features-only layouts (NV=32, 152 B rows, 88 B packed) sit between.
 //
 // This first design is simple and correct, not fast:
 //   - one 256-thread block per tile, one thread per pixel; the block walks
@@ -69,7 +72,7 @@ constexpr int kPix = kTile * kTile;  // threads per block: one per pixel
 constexpr int kBatch = kPix;         // pairs staged per shared-memory batch
 constexpr int kGeom = 6;             // mean2d(2), conic(3), log opacity(1)
 
-template <int NV, int NPACK, bool WITH_RES>
+template <int NV, int NPACK, bool WITH_COLOR, bool WITH_RES>
 __global__ void __launch_bounds__(kPix)
 composite_fwd_kernel(const float* __restrict__ payload,
                      const int* __restrict__ sorted_gauss,
@@ -78,8 +81,10 @@ composite_fwd_kernel(const float* __restrict__ payload,
                      float log_t_eps, float* __restrict__ out,
                      float* __restrict__ res_logt,
                      int* __restrict__ res_stop) {
-  static_assert(NPACK == 0 || NV == 4 + 2 * NPACK, "packed value layout");
-  constexpr int kWords = kGeom + (NPACK > 0 ? 4 + NPACK : NV);
+  constexpr int kPlain = WITH_COLOR ? 4 : 0;  // rgb + depth before packing
+  static_assert(NPACK == 0 || NV == kPlain + 2 * NPACK,
+                "packed value layout");
+  constexpr int kWords = kGeom + (NPACK > 0 ? kPlain + NPACK : NV);
   __shared__ float rows[kWords][kBatch + 1];
   __shared__ int gid[kBatch];
 
@@ -140,14 +145,17 @@ composite_fwd_kernel(const float* __restrict__ payload,
 #pragma unroll
         for (int c = 0; c < NV; ++c) val[c] += w * rows[kGeom + c][j];
       } else {
+        constexpr int kFeat0 = WITH_COLOR ? 3 : 0;  // first feature value
+        if constexpr (WITH_COLOR) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) val[c] += w * rows[kGeom + c][j];
-        val[NV - 1] += w * rows[kGeom + 3][j];
+          for (int c = 0; c < 3; ++c) val[c] += w * rows[kGeom + c][j];
+          val[NV - 1] += w * rows[kGeom + 3][j];
+        }
 #pragma unroll
         for (int r = 0; r < NPACK; ++r) {
-          const unsigned int u = __float_as_uint(rows[kGeom + 4 + r][j]);
-          val[3 + r] += w * __uint_as_float(u << 16);
-          val[3 + NPACK + r] += w * __uint_as_float(u & 0xffff0000u);
+          const unsigned int u = __float_as_uint(rows[kGeom + kPlain + r][j]);
+          val[kFeat0 + r] += w * __uint_as_float(u << 16);
+          val[kFeat0 + NPACK + r] += w * __uint_as_float(u & 0xffff0000u);
         }
       }
       logt = next;
@@ -168,15 +176,16 @@ composite_fwd_kernel(const float* __restrict__ payload,
   }
 }
 
-template <int NV, int NPACK, bool WITH_RES>
+template <int NV, int NPACK, bool WITH_COLOR, bool WITH_RES>
 int launch(const float* payload, const int* sorted_gauss,
            const int* tile_start, int num_tiles, int tw, int height,
            int width, float log_alpha_max, float log_alpha_eps,
            float log_t_eps, float* out, float* res_logt, int* res_stop,
            cudaStream_t stream) {
-  composite_fwd_kernel<NV, NPACK, WITH_RES><<<num_tiles, kPix, 0, stream>>>(
-      payload, sorted_gauss, tile_start, tw, height, width, log_alpha_max,
-      log_alpha_eps, log_t_eps, out, res_logt, res_stop);
+  composite_fwd_kernel<NV, NPACK, WITH_COLOR, WITH_RES>
+      <<<num_tiles, kPix, 0, stream>>>(
+          payload, sorted_gauss, tile_start, tw, height, width,
+          log_alpha_max, log_alpha_eps, log_t_eps, out, res_logt, res_stop);
   return (int)cudaGetLastError();
 }
 
@@ -185,40 +194,36 @@ int launch(const float* payload, const int* sorted_gauss,
 // C interface for ctypes. Returns the launch's cudaError_t (0 = success),
 // or cudaErrorInvalidValue for a value layout without an instantiation.
 // res_logt / res_stop (num_tiles * 256 each) are written when res_logt is
-// not null; the residual instantiation exists for the rgb + depth layout
-// that the GAUSSIAN training step composites.
+// not null; the residual instantiations exist for the layouts the training
+// steps composite: rgb + depth (GAUSSIAN) and 32 features alone, unpacked
+// or packed (FEATURE).
 extern "C" int trase_composite_fwd(const float* payload,
                                    const int* sorted_gauss,
                                    const int* tile_start, int num_tiles,
                                    int tw, int height, int width, int n_val,
-                                   int n_packed, float log_alpha_max,
-                                   float log_alpha_eps, float log_t_eps,
-                                   float* out, float* res_logt,
-                                   int* res_stop, void* stream) {
+                                   int n_packed, int with_color,
+                                   float log_alpha_max, float log_alpha_eps,
+                                   float log_t_eps, float* out,
+                                   float* res_logt, int* res_stop,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (num_tiles <= 0) return (int)cudaErrorInvalidValue;
-  if (res_logt != nullptr) {
-    if (n_val == 4 && n_packed == 0)
-      return launch<4, 0, true>(payload, sorted_gauss, tile_start, num_tiles,
-                                tw, height, width, log_alpha_max,
-                                log_alpha_eps, log_t_eps, out, res_logt,
-                                res_stop, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_val == 4 && n_packed == 0)
-    return launch<4, 0, false>(payload, sorted_gauss, tile_start, num_tiles,
-                               tw, height, width, log_alpha_max,
-                               log_alpha_eps, log_t_eps, out, nullptr,
-                               nullptr, s);
-  if (n_val == 36 && n_packed == 0)
-    return launch<36, 0, false>(payload, sorted_gauss, tile_start, num_tiles,
-                                tw, height, width, log_alpha_max,
-                                log_alpha_eps, log_t_eps, out, nullptr,
-                                nullptr, s);
-  if (n_val == 36 && n_packed == 16)
-    return launch<36, 16, false>(payload, sorted_gauss, tile_start,
-                                 num_tiles, tw, height, width, log_alpha_max,
-                                 log_alpha_eps, log_t_eps, out, nullptr,
-                                 nullptr, s);
+  const bool res = res_logt != nullptr;
+#define TRASE_FWD(NV, NPACK, COLOR, RES)                                   \
+  if (n_val == NV && n_packed == NPACK && (with_color != 0) == COLOR &&  \
+      res == RES)                                                          \
+    return launch<NV, NPACK, COLOR, RES>(                                  \
+        payload, sorted_gauss, tile_start, num_tiles, tw, height, width,   \
+        log_alpha_max, log_alpha_eps, log_t_eps, out, res_logt, res_stop,  \
+        s);
+  TRASE_FWD(4, 0, true, true)
+  TRASE_FWD(32, 0, false, true)
+  TRASE_FWD(32, 16, false, true)
+  TRASE_FWD(4, 0, true, false)
+  TRASE_FWD(36, 0, true, false)
+  TRASE_FWD(36, 16, true, false)
+  TRASE_FWD(32, 0, false, false)
+  TRASE_FWD(32, 16, false, false)
+#undef TRASE_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -1,18 +1,26 @@
 """SAM mask loading/decoding (numpy; torch only for reference .pt files).
 
-Counterpart of the reader-facing half of trase_tpu/data/masks.py. The
-reference stores per-image SAM masks as ``masks/<name>.pt`` holding
-either a raw (N,H,W) bool tensor or a dict
+Counterpart of trase_tpu/data/masks.py without its background
+prefetcher. The reference stores per-image SAM masks as
+``masks/<name>.pt`` holding either a raw (N,H,W) bool tensor or a dict
 {"masks": np.array of bitarray, "N", "H", "W"} (extract_masks.py:87-99).
 ``decode_mask_file`` accepts .pt, the native .npz format (packed bits +
-shape) and .npy. The padded/prefetched training-side loaders belong to
-the training slice.
+shape, written by ``save_mask_file``) and .npy. The FEATURE step takes
+one static (M_max, H, W) float32 stack per dataset with a validity
+vector (``pad_masks``, ``load_padded_masks``); the loop decodes on the
+host when a camera's stack is not cached.
 """
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
+
+
+class PaddedMasks(NamedTuple):
+    masks: np.ndarray  # (M_max, H, W) float32
+    valid: np.ndarray  # (M_max,) bool
 
 
 def decode_mask_file(path: str) -> np.ndarray | None:
@@ -55,3 +63,50 @@ def decode_mask_file(path: str) -> np.ndarray | None:
             flat.append(bits)
         return np.concatenate(flat).reshape(n, h, w).astype(bool)
     raise ValueError(f"Unrecognized mask container in {path}")
+
+
+def mask_file_shape(path: str) -> tuple | None:
+    """(N, H, W) of a mask file without decoding the bits, when the
+    container carries shape metadata (.npz native format, .pt dicts).
+    Returns None when a full decode is required."""
+    if not os.path.exists(path):
+        return None
+    if path.endswith(".npz"):
+        z = np.load(path)
+        if "packed" in z:
+            return (int(z["N"]), int(z["H"]), int(z["W"]))
+        return tuple(z["masks"].shape)
+    if path.endswith(".pt"):
+        import torch
+
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict):
+            return (int(obj["N"]), int(obj["H"]), int(obj["W"]))
+        if torch.is_tensor(obj):
+            return tuple(obj.shape)
+    return None
+
+
+def save_mask_file(path: str, masks: np.ndarray):
+    """Native .npz format: bit-packed, shape-tagged."""
+    n, h, w = masks.shape
+    packed = np.packbits(masks.astype(bool).ravel())
+    np.savez_compressed(path, packed=packed, N=n, H=h, W=w)
+
+
+def pad_masks(masks: np.ndarray, m_max: int) -> PaddedMasks:
+    """(N, H, W) masks -> the first m_max of them as float32, padded with
+    all-zero masks to (m_max, H, W), and which slots are real."""
+    n = masks.shape[0]
+    if n >= m_max:
+        return PaddedMasks(masks=masks[:m_max].astype(np.float32),
+                           valid=np.ones(m_max, bool))
+    pad = np.zeros((m_max - n,) + masks.shape[1:], np.float32)
+    return PaddedMasks(masks=np.concatenate([masks.astype(np.float32), pad]),
+                       valid=np.arange(m_max) < n)
+
+
+def load_padded_masks(path: str, m_max: int) -> PaddedMasks | None:
+    """Decode + pad (None when the file is missing)."""
+    masks = decode_mask_file(path)
+    return None if masks is None else pad_masks(masks, m_max)

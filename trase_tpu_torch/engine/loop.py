@@ -1,20 +1,31 @@
-"""Host-side training loop of the port: the GAUSSIAN phase.
+"""Host-side training loop of the port: both phases.
 
-Counterpart of trase_tpu/engine/loop.py (:56-160, :297-315, :356-440,
-:443-612, :805; reference train.py:76-398) for runs shorter than
-``warm_up_3d_features``: the Deformable-3DGS stage that every TRASE run
-starts with. It keeps the SH-degree ramp, camera sampling from
-``np.random.default_rng(seed)`` (in trase_tpu's draw order), the deform
-warm-up, densify / opacity-reset timing, capacity growth, the
-pair-budget controller and the snapshot layout render.py reads
-(point_cloud/iteration_N/point_cloud.ply, deform/iteration_N/deform.pkl).
+Counterpart of trase_tpu/engine/loop.py (:56-160, :197-384, :443-612,
+:805-815; reference train.py:76-398). It keeps the SH-degree ramp,
+camera sampling from ``np.random.default_rng(seed)`` (in trase_tpu's
+draw order), the deform warm-up, densify / opacity-reset timing,
+capacity growth, the pair-budget controller and the snapshot layout
+render.py reads (point_cloud/iteration_N/point_cloud.ply with the
+KNN-smoothed features, deform/iteration_N/deform.pkl).
 
-A run that would reach ``warm_up_3d_features`` with SAM masks present
-needs the FEATURE step and is refused. Left out: the metrics pipeline
-and the watchdog (they existed for a remote device), tensorboard,
-``evaluate`` and training checkpoints. The step's metrics stay on the
-device; the host reads them every 10 iterations (progress line, skipped
-steps) and every 100 (pair budget).
+From ``warm_up_3d_features`` on, when the dataset has SAM masks, the
+OPT_STATE machine alternates GAUSSIAN and FEATURE blocks every
+``iterative_opt_interval`` counted steps (steps the NaN guard skipped do
+not count). The FEATURE step reads the camera's masks, padded to one
+(M_max, H, W) stack per dataset and cached on the device (LRU, keyed on
+the image path), and the feature-smoothing KNN map, rebuilt where
+trase_tpu's loop rebuilds it: at each switch into FEATURE and after each
+densify. A camera without masks inside a FEATURE block takes a GAUSSIAN
+step and leaves the map as it is. The FEATURE step carries the
+densification statistics while ``iteration < densify_until_iter`` and
+runs values-only after.
+
+Left out: the metrics pipeline and the watchdog (they existed for a
+remote device), the background mask prefetcher (masks decode on the
+host when a camera's stack is not cached), tensorboard, ``evaluate`` and
+training checkpoints. The step's metrics stay on the device; the host
+reads them every 10 iterations (progress line, skipped steps), every
+100 (pair budget), and at a block's end (phase switch).
 """
 from __future__ import annotations
 
@@ -27,16 +38,21 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data.masks import (decode_mask_file, load_padded_masks,
+                          mask_file_shape, pad_masks)
 from ..models import gaussians as G
 from ..models.deform import flax_variables, init_deform, make_deform_network
 from ..models.gaussians_io import save_checkpoint
+from ..ops.knn import build_feature_smooth_map, smooth_features
 from ..ops.rasterize import RasterConfig
 from . import trainer as T
 
-# densify_and_prune's static budget of clones and of splits per call, and
-# the device GT cache's size, as trase_tpu's loop sets them
+# densify_and_prune's static budget of clones and of splits per call, the
+# device GT cache's size, and the mask cache's floor and cap (the cache
+# holds the whole train set up to the cap), as trase_tpu's loop sets them
 MAX_NEW_PER_DENSIFY = 8192
 GT_CACHE_SIZE = 128
+MASK_CACHE_SIZE, MASK_CACHE_CAP = 8, 128
 
 
 def _load_gt(path: str, bg: np.ndarray) -> np.ndarray:
@@ -70,6 +86,10 @@ class Trainer:
         self.np_rng = np.random.default_rng(seed)
         # the split's standard normals (densify_and_prune)
         self.densify_gen = torch.Generator().manual_seed(seed + 1)
+        # the FEATURE step's pixel / mask samples and smoothing slots
+        self.feature_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 2)
+        self.opt_state = T.OptState(opt_args.iterative_opt_interval)
 
         self.state = T.init_train_state(
             scene.gaussian_params, scene.gaussian_aux,
@@ -90,6 +110,12 @@ class Trainer:
         # across splits) and size
         self._gt_cache: OrderedDict = OrderedDict()
         self._next_cam = None
+        # padded mask stacks on the device, LRU, keyed as the GT cache
+        self._mask_cache: OrderedDict = OrderedDict()
+        self.mask_cache_size = MASK_CACHE_SIZE
+        self._m_max = 1
+        self._smooth_map = None
+        self._smooth_dirty = True
 
         self._overflow_strikes = 0
         self._initial_pairs_per_gaussian = \
@@ -97,8 +123,10 @@ class Trainer:
         self._deescalate_clean = 0
         self._n_alive_cache = int(self.state.aux.alive.sum())
         self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._skipped_seen = 0  # skipped steps the phase counter left out
         self.ema_loss = 0.0
         self.step_calls = 0
+        self.feature_calls = 0
 
     # ------------------------------------------------------------ data
 
@@ -117,6 +145,56 @@ class Trainer:
             self._gt_cache.popitem(last=False)
         return self._gt_cache[key]
 
+    def _prepare_mask_meta(self, cams):
+        """M_max across the dataset, from shape metadata where the file
+        has it; the mask cache is sized to the train set (capped), so
+        each stack uploads once."""
+        self.mask_cache_size = max(self.mask_cache_size,
+                                   min(len(cams), MASK_CACHE_CAP))
+        m_max = 0
+        for cam in cams:
+            shape = None
+            if cam.masks is not None:
+                shape = cam.masks.shape
+            elif cam.mask_path:
+                shape = mask_file_shape(cam.mask_path)
+                if shape is None:
+                    m = decode_mask_file(cam.mask_path)
+                    shape = None if m is None else m.shape
+            if shape is not None:
+                m_max = max(m_max, shape[0])
+        self._m_max = max(m_max, 1)
+
+    def _masks_for(self, cam):
+        """(masks (M_max, H, W) float32, valid (M_max,) bool) on the
+        device, or None when the camera has no masks."""
+        key = cam.image_path or cam.image_name
+        if key in self._mask_cache:
+            self._mask_cache.move_to_end(key)
+            return self._mask_cache[key]
+        if cam.masks is not None:
+            padded = pad_masks(np.asarray(cam.masks), self._m_max)
+        elif cam.mask_path:
+            padded = load_padded_masks(cam.mask_path, self._m_max)
+        else:
+            padded = None
+        if padded is None:
+            return None
+        entry = (torch.as_tensor(padded.masks, device=self.device),
+                 torch.as_tensor(padded.valid, device=self.device))
+        self._mask_cache[key] = entry
+        while len(self._mask_cache) > self.mask_cache_size:
+            self._mask_cache.popitem(last=False)
+        return entry
+
+    def _get_smooth_map(self):
+        if self._smooth_dirty or self._smooth_map is None:
+            with torch.no_grad():
+                self._smooth_map = build_feature_smooth_map(
+                    self.state.params.xyz, max(int(self.opt.smooth_K), 1))
+            self._smooth_dirty = False
+        return self._smooth_map
+
     # ------------------------------------------------------------ steps
 
     def _gaussian_step(self, cam, iteration):
@@ -131,6 +209,33 @@ class Trainer:
             lambda_reg_deform=self.opt.lambda_reg_deform,
             raster_cfg=self.raster_cfg)
         self.step_calls += 1
+        self.skipped = self.skipped + (~metrics["finite"]).to(torch.int32)
+        return metrics
+
+    def _feature_step(self, cam, iteration):
+        """One FEATURE step, or None when the camera has no masks."""
+        entry = self._masks_for(cam)
+        if entry is None:
+            return None
+        opt = self.opt
+        smooth = self._get_smooth_map() if opt.smooth_K != 1 else None
+        self.state, metrics = T.feature_phase_step(
+            self.state, cam.to_render_camera(self.device), *entry, cam.fid,
+            self.lr_at(iteration), self.bg_color, smooth,
+            deform_net=self.deform_net, sh_degree=self.active_sh_degree,
+            use_deform=iteration >= opt.warm_up, is_6dof=self.args.is_6dof,
+            contrastive_mode=opt.contrastive_mode, rfn=opt.rfn,
+            positive_th=opt.hard_positive_th,
+            negative_th=opt.hard_negative_th,
+            num_sampled_pixels=opt.num_sampled_pixels,
+            num_sampled_masks=opt.num_sampled_masks,
+            raster_cfg=self.raster_cfg,
+            # the reference gates add_densification_stats on iteration <
+            # densify_until_iter (train.py:362-366); past it the step
+            # differentiates the features alone (values-only backward)
+            with_densify_stats=iteration < opt.densify_until_iter,
+            generator=self.feature_gen)
+        self.feature_calls += 1
         self.skipped = self.skipped + (~metrics["finite"]).to(torch.int32)
         return metrics
 
@@ -151,6 +256,7 @@ class Trainer:
             self.state, float(self.scene.cameras_extent), size_threshold,
             cfg=cfg, max_new=self.max_new, generator=self.densify_gen)
         self._n_alive_cache = int(stats["n_alive"])
+        self._smooth_dirty = True
         return stats
 
     def _reset_opacity(self):
@@ -201,12 +307,11 @@ class Trainer:
         train_cams = self.scene.get_train_cameras()
         has_masks = any(c.masks is not None or c.mask_path
                         for c in train_cams)
-        if has_masks and opt.iterations >= opt.warm_up_3d_features:
-            raise NotImplementedError(
-                f"--iterations {opt.iterations} reaches warm_up_3d_features "
-                f"({opt.warm_up_3d_features}) with SAM masks present: the "
-                "FEATURE step belongs to the FEATURE slice of the port. "
-                "Train fewer iterations, or raise --warm_up_3d_features.")
+        if has_masks:
+            self._prepare_mask_meta(train_cams)
+        if first_iter >= opt.iterative_opt_interval and \
+                first_iter >= opt.warm_up_3d_features:
+            self.opt_state.state = T.FEATURE
         iter_bar = None
         if progress:
             try:
@@ -224,6 +329,20 @@ class Trainer:
                     self.active_sh_degree < self.max_sh_degree:
                 self.active_sh_degree += 1
 
+            if iteration >= opt.warm_up_3d_features and has_masks:
+                if self.opt_state.iterations > self.opt_state.max_iterations:
+                    # steps the NaN guard skipped do not count: take them
+                    # off before deciding (trase_tpu's retro-correction)
+                    skipped = int(self.skipped)
+                    self.opt_state.iterations = max(
+                        0, self.opt_state.iterations
+                        - (skipped - self._skipped_seen))
+                    self._skipped_seen = skipped
+                if self.opt_state.switch():
+                    viewpoint_stack = list(train_cams)
+                    if self.opt_state.state == T.FEATURE:
+                        self._smooth_dirty = True
+
             if not viewpoint_stack:
                 viewpoint_stack = list(train_cams)
             if self._next_cam is not None:
@@ -239,7 +358,12 @@ class Trainer:
             else:
                 self._next_cam = None
 
-            metrics = self._gaussian_step(cam, iteration)
+            metrics = None
+            if self.opt_state.state == T.FEATURE and has_masks:
+                metrics = self._feature_step(cam, iteration)
+            if metrics is None:
+                metrics = self._gaussian_step(cam, iteration)
+            self.opt_state.step()
             if iteration % 100 == 0:
                 over = metrics["overflow"], metrics["overflow_half"]
                 self._handle_overflow(iteration, *[float(x) for x in over])
@@ -248,6 +372,7 @@ class Trainer:
                 self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
                 if iter_bar:
                     iter_bar.set_postfix({"Loss": f"{self.ema_loss:.3f}",
+                                          "State": self.opt_state.state,
                                           "Points": self._n_alive_cache,
                                           "Skipped": skipped})
                     iter_bar.update(10)
@@ -292,11 +417,20 @@ class Trainer:
 
     def save_snapshot(self, iteration: int):
         """point_cloud/iteration_N/point_cloud.ply and
-        deform/iteration_N/deform.pkl, as trase_tpu writes them. The
-        features are written unsmoothed: the KNN feature smoothing comes
-        with the FEATURE slice (this phase does not train them)."""
+        deform/iteration_N/deform.pkl, as trase_tpu writes them: the
+        features KNN-smoothed over every neighbour slot (no dropout) when
+        smooth_K != 1. The neighbours are those of the saved xyz: a map
+        of its own, where trase_tpu reuses the FEATURE steps' map."""
         print(f"\n[ITER {iteration}] Saving Gaussians")
-        self.scene.save(iteration, self.state.params, self.state.aux.alive)
+        smoothed = None
+        if self.opt.smooth_K != 1:
+            with torch.no_grad():
+                smoothed = smooth_features(
+                    self.state.params.gaussian_features,
+                    build_feature_smooth_map(self.state.params.xyz,
+                                             max(int(self.opt.smooth_K), 1)))
+        self.scene.save(iteration, self.state.params, self.state.aux.alive,
+                        smoothed_features=smoothed)
         deform_dir = os.path.join(self.args.model_path, "deform",
                                   f"iteration_{iteration}")
         save_checkpoint(os.path.join(deform_dir, "deform.pkl"),

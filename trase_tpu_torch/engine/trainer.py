@@ -1,12 +1,17 @@
-"""GAUSSIAN-phase training step of the port.
+"""The two training steps of the port, GAUSSIAN and FEATURE.
 
-Counterpart of trase_tpu/engine/trainer.py (:82-137, :173-344,
-:638-690; reference train.py:209-243): render the view under autograd,
-loss = (1-λ) L1 + λ (1 - SSIM) (+ λ_reg |d_xyz| once the deform net is
-on), Adam on the gaussian fields (rows of dead slots frozen) and on the
-deform MLP, and the densification statistics from the gradient of the
-screen-space offset. The compositor's gradient runs through the
-hand-written CUDA backward (ops/rasterize_cuda.py) on the card.
+Counterpart of trase_tpu/engine/trainer.py (:63-137, :173-577,
+:638-690; reference train.py:209-296). GAUSSIAN: render the view under
+autograd, loss = (1-λ) L1 + λ (1 - SSIM) (+ λ_reg |d_xyz| once the
+deform net is on), Adam on the gaussian fields (rows of dead slots
+frozen) and on the deform MLP, and the densification statistics from the
+gradient of the screen-space offset. FEATURE: render the 32 features
+alone (KNN-smoothed), resize them to the masks' resolution, contrastive
+pixel-pair losses against the SAM masks + rfn (1 - |F|)^2, Adam on
+``gaussian_features`` only, and the densification statistics while
+densification lasts; after it the compositor's backward runs
+values-only. The compositor's gradient runs through the hand-written
+CUDA backward (ops/rasterize_cuda.py) on the card.
 
 The state is a NamedTuple of tensors and the step is functional: it
 returns a new state and leaves its input alone. The NaN guard commits
@@ -17,9 +22,6 @@ list in flax order (Dense_i kernel in nn.Linear's (out, in) layout, then
 its bias); the step runs the module on them with
 ``torch.func.functional_call``. Its hidden stack runs in bf16, as
 trase_tpu's does by default.
-
-The FEATURE step (contrastive losses, feature smoothing) belongs to the
-FEATURE slice of the port.
 """
 from __future__ import annotations
 
@@ -29,17 +31,51 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..losses.contrastive import (
+    PixelSample,
+    cosine_gram,
+    negative_pixel_pair_loss,
+    pixel_mask_correspondence_matrix,
+    pixel_weights,
+    positive_pixel_pair_loss,
+    sample_pixels_and_masks,
+)
 from ..losses.image_losses import l1_loss, ssim
 from ..models import gaussians as G
 from ..models.deform import DeformNetwork
 from ..ops.rasterize import RasterConfig
 from ..renderer import RenderCamera, render
+from ..utils.image import bilinear_resize_mm
 from ..utils.schedules import expon_lr_func, linear_noise_func
 from .optim import AdamState, adam_init, adam_update, adam_update_list
 
 # the fields the GAUSSIAN phase trains, with their LearningRates name
 TRAINED = ("xyz", "features_dc", "features_rest", "opacity", "scaling",
            "rotation")
+
+GAUSSIAN = "GAUSSIAN"
+FEATURE = "FEATURE"
+
+
+class OptState:
+    """The reference's OPT_STATE machine (train.py:51-73): starts in
+    GAUSSIAN; switch() toggles the phase once more than `max_iterations`
+    steps counted in the current block."""
+
+    def __init__(self, max_iterations: int):
+        self.state = GAUSSIAN
+        self.iterations = 0
+        self.max_iterations = max_iterations
+
+    def step(self):
+        self.iterations += 1
+
+    def switch(self) -> bool:
+        if self.iterations > self.max_iterations:
+            self.state = FEATURE if self.state == GAUSSIAN else GAUSSIAN
+            self.iterations = 0
+            return True
+        return False
 
 
 class TrainState(NamedTuple):
@@ -219,6 +255,127 @@ def gaussian_phase_step(
         new_state = _commit(finite, new, state)
     metrics = {"loss": loss.detach(), "l1": ll1.detach(), "finite": finite,
                "overflow": out["overflow"],
+               "overflow_half": out["overflow_half"]}
+    return new_state, metrics
+
+
+def feature_phase_step(
+    state: TrainState,
+    camera: RenderCamera,
+    sam_masks: torch.Tensor,  # (M, Hm, Wm) float32, zero-padded
+    mask_valid: torch.Tensor,  # (M,) bool
+    fid: float,
+    lrs: LearningRates,
+    bg_color: torch.Tensor,
+    smooth_map: torch.Tensor | None,  # (C, K) neighbour map
+    *,
+    deform_net: DeformNetwork,
+    sh_degree: int,
+    use_deform: bool,
+    is_6dof: bool,
+    contrastive_mode: str,
+    rfn: float,
+    positive_th: float,
+    negative_th: float,
+    num_sampled_pixels: int,
+    num_sampled_masks: int,
+    raster_cfg: RasterConfig,
+    with_densify_stats: bool = True,
+    generator: torch.Generator | None = None,
+    sample: PixelSample | None = None,
+    smooth_perm: torch.Tensor | None = None,
+):
+    """One FEATURE step -> (new state, metrics): contrastive losses on
+    the rendered features, Adam on `gaussian_features` alone
+    (train.py:244-296; trase_tpu's _feature_phase_body). The pixel /
+    mask sample and the smoothing permutation come from `generator`
+    unless given (`sample`, `smooth_perm`); `smooth_map` None turns
+    smoothing off. with_densify_stats=False (iteration >=
+    densify_until_iter) differentiates the features alone, so the
+    compositor's backward runs values-only and the densification
+    statistics stay as they were. The metrics (loss, finite, rfn,
+    pos_sim, neg_sim, overflow, overflow_half) are 0-d device tensors."""
+    p, aux = state.params, state.aux
+    dev = p.xyz.device
+    if sample is None:
+        sample = sample_pixels_and_masks(generator, sam_masks, mask_valid,
+                                         num_sampled_pixels,
+                                         num_sampled_masks)
+    C = pixel_mask_correspondence_matrix(sam_masks, sample)
+    weights = pixel_weights(sam_masks, sample)
+    with torch.no_grad():
+        d_xyz, d_rot, d_scale = apply_deform(
+            deform_net, state.deform, p.xyz, fid, 0.0, use_deform,
+            p.gaussian_features)
+
+    feat = p.gaussian_features.detach().requires_grad_(True)
+    off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32, device=dev,
+                      requires_grad=with_densify_stats)
+    out = render(camera, p._replace(gaussian_features=feat), aux.alive,
+                 bg_color, d_xyz, d_rot, d_scale, is_6dof=is_6dof,
+                 sh_degree=sh_degree, mean2d_offset=off, with_features=True,
+                 with_color=False, grad_values_only=not with_densify_stats,
+                 norm_gaussian_features=True, smooth_map=smooth_map,
+                 smooth_perm=smooth_perm, smooth_generator=generator,
+                 raster_cfg=raster_cfg)
+    # (H, W, 1 + F) [acc | feats], unsliced: |feats|^2 per pixel is the
+    # row's sum of squares less acc^2
+    featsA = out["render_gaussian_features_acc_hwc"]
+    sq = torch.sum(featsA * featsA, dim=-1) - featsA[..., 0] * featsA[..., 0]
+    rf_norm = torch.sqrt(torch.clamp(sq, min=0.0) + 1e-12).mean()
+    rfn_reg = (1.0 - rf_norm) ** 2
+    hm, wm = sam_masks.shape[1:]
+    if featsA.shape[:2] != (hm, wm):
+        featsA = bilinear_resize_mm(featsA, hm, wm)
+    sampled = featsA.reshape(-1, featsA.shape[-1])[sample.pixel_idx][:, 1:]
+    C_F = cosine_gram(sampled)
+    pos = positive_pixel_pair_loss[contrastive_mode](
+        C, C_F, sample, positive_th=positive_th, weights=weights)
+    neg = negative_pixel_pair_loss[contrastive_mode](
+        C, C_F, sample, negative_th=negative_th, weights=weights)
+    loss = pos + neg + rfn * rfn_reg
+
+    inputs = [feat, off] if with_densify_stats else [feat]
+    grads = torch.autograd.grad(loss, inputs)
+    with torch.no_grad():
+        pair = sample.pixel_valid[:, None] & sample.pixel_valid[None, :]
+        zero = torch.zeros((), device=dev)
+
+        def mean_sim(sel):
+            return torch.where(sel, C_F, zero).sum() / torch.clamp(
+                sel.sum(), min=1)
+
+        pos_sim = mean_sim(pair & (C == 1))
+        neg_sim = mean_sim(pair & (C == 0))
+        new_feat, new_feat_opt = adam_update(
+            p.gaussian_features, grads[0], state.opt.gaussian_features,
+            lrs.gaussian_features, row_mask=aux.alive)
+        new_params = p._replace(gaussian_features=new_feat)
+        new_opt = state.opt._replace(gaussian_features=new_feat_opt)
+        new_aux = aux
+        if with_densify_stats:
+            new_aux = G.add_densification_stats(
+                aux, grads[1], out["visibility_filter"] & aux.alive,
+                out["radii"], camera.image_height, camera.image_width)
+        checked = (list(new_params)
+                   + [x for x in new_aux if x.is_floating_point()]
+                   + [t for s in new_opt for t in (s.mu, s.nu)])
+        finite = torch.isfinite(loss.detach()) & _all_finite(checked)
+
+        def w(n, o):
+            return torch.where(finite, n, o)
+
+        new_state = state._replace(
+            params=p._replace(gaussian_features=w(new_feat,
+                                                  p.gaussian_features)),
+            opt=state.opt._replace(gaussian_features=AdamState(
+                *[w(n, o) for n, o in zip(new_feat_opt,
+                                          state.opt.gaussian_features)])),
+            aux=G.GaussianAux(*[w(n, o) for n, o in zip(new_aux, aux)])
+            if with_densify_stats else aux)
+    metrics = {"loss": loss.detach(), "finite": finite,
+               "rfn": rf_norm.detach(), "pos_sim": pos_sim,
+               "neg_sim": neg_sim, "overflow": out["overflow"],
                "overflow_half": out["overflow_half"]}
     return new_state, metrics
 

@@ -20,6 +20,12 @@ then ``reduce_pair_grads`` (per-gaussian rows, counterpart of
 ``_transpose_kernel`` + ``unsort_slot_gradients``), or their plain
 versions ``composite_bwd_plain`` / ``reduce_pair_grads_plain`` for CPU
 tensors. Nothing falls back from one to the other.
+
+Value layouts: [rgb, features, depth] (``with_color``, the GAUSSIAN step
+and serving) or the features alone (``with_color=False``, the FEATURE
+step), each with the features unpacked or bf16-packed two per word. The
+backward also has a values-only mode (``grad_values_only``): exact zeros
+for the geometry, the FEATURE step's after densification ends.
 """
 from __future__ import annotations
 
@@ -46,13 +52,17 @@ LOG_ALPHA_MAX = float(np.log(ALPHA_MAX))
 LOG_ALPHA_EPS = float(np.log(ALPHA_EPS))
 LOG_T_EPS = float(np.log(T_EPS))
 
-# (n_val, n_packed) value layouts the kernel is instantiated for: rgb +
-# depth, + 32 features, + 32 bf16-packed features.
-SUPPORTED = frozenset({(4, 0), (36, 0), (36, 16)})
+# (n_val, n_packed, with_color) value layouts the forward kernel is
+# instantiated for: rgb + depth, + 32 features, + 32 bf16-packed features
+# (serving), and 32 features alone, unpacked or packed (the FEATURE step).
+SUPPORTED = frozenset({(4, 0, True), (36, 0, True), (36, 16, True),
+                       (32, 0, False), (32, 16, False)})
 
-# value layouts the backward kernel is instantiated for: rgb + depth (the
-# GAUSSIAN phase); the FEATURE phase's layouts come with its slice
-BWD_SUPPORTED = frozenset({(4, 0)})
+# layouts the backward kernel (and the forward's residual instantiation)
+# is instantiated for: rgb + depth (the GAUSSIAN step) and 32 features
+# alone, unpacked or packed (the FEATURE step), each of the latter full or
+# values-only. The 36-value layouts lie on no training path.
+BWD_SUPPORTED = frozenset({(4, 0, True), (32, 0, False), (32, 16, False)})
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -62,11 +72,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-# Kernel launches made by the wrappers (the CUDA path only): one is added
-# where each kernel is launched, nowhere else.
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-REDUCE_LAUNCHES = 0
+# Kernel launches made by the wrappers (the CUDA path only), by
+# instantiation: one is added where each kernel is launched, nowhere else.
+# Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
+# for the compositor kernels, (kernel, words) for the reduce.
+LAYOUT_LAUNCHES: dict = {}
 
 _LIBS: dict = {}
 
@@ -168,22 +178,28 @@ def build_tile_bins(proj: ProjectedGaussians, image_height: int,
 
 
 def build_payload(proj: ProjectedGaussians,
-                  extra_channels: torch.Tensor | None):
+                  extra_channels: torch.Tensor | None,
+                  with_color: bool = True):
     """(N, 6 + n_val) per-gaussian float32 table + n_val.
 
-    Row = [mean2d, conic, log opacity | rgb, extra, depth]. Invalid rows
-    are zeroed (log opacity = log 1e-38), so garbage projections never
-    reach exp(). Each pixel's depth is sum(w * depth), not normalized.
+    Row = [mean2d, conic, log opacity | rgb, extra, depth], or with
+    with_color=False (the FEATURE step's features-only layout) [mean2d,
+    conic, log opacity | extra]. Invalid rows are zeroed (log opacity =
+    log 1e-38), so garbage projections never reach exp(). Each pixel's
+    depth is sum(w * depth), not normalized.
     """
+    if not with_color and extra_channels is None:
+        raise ValueError("with_color=False requires extra_channels")
     vmask = proj.valid[:, None]
     opacity = torch.where(proj.valid, proj.opacity,
                           torch.zeros_like(proj.opacity))
     log_op = torch.log(torch.clamp(opacity, min=1e-38))
     geom = torch.cat([proj.mean2d, proj.conic], dim=1)
-    cols = [proj.color]
+    cols = [proj.color] if with_color else []
     if extra_channels is not None:
         cols.append(extra_channels)
-    cols.append(proj.depth[:, None])
+    if with_color:
+        cols.append(proj.depth[:, None])
     vals = torch.cat(cols, dim=1)
     zero = torch.zeros((), dtype=geom.dtype, device=geom.device)
     payload = torch.cat([torch.where(vmask, geom, zero), log_op[:, None],
@@ -191,58 +207,75 @@ def build_payload(proj: ProjectedGaussians,
     return payload.contiguous(), vals.shape[1]
 
 
-def row_words(n_val: int, n_packed: int) -> int:
+def _plain_words(with_color: bool) -> int:
+    """Unpacked value words ahead of the packed ones: rgb + depth."""
+    return 4 if with_color else 0
+
+
+def row_words(n_val: int, n_packed: int, with_color: bool = True) -> int:
     """float32 words per payload row in the kernel's layout."""
-    return GEOM_COLS + (4 + n_packed if n_packed else n_val)
+    if n_packed:
+        return GEOM_COLS + _plain_words(with_color) + n_packed
+    return GEOM_COLS + n_val
 
 
-def pack_feature_words(payload: torch.Tensor, n_val: int,
-                       n_packed: int) -> torch.Tensor:
-    """[geom 6 | rgb, feats 2P, depth] -> [geom 6 | rgb, depth, P words]:
-    word r carries feats[r] as bf16 (round to nearest even, as JAX's
+def pack_feature_words(payload: torch.Tensor, n_val: int, n_packed: int,
+                       with_color: bool = True) -> torch.Tensor:
+    """[geom 6 | rgb, feats 2P, depth] -> [geom 6 | rgb, depth, P words],
+    or features-only [geom 6 | feats 2P] -> [geom 6 | P words]: word r
+    carries feats[r] as bf16 (round to nearest even, as JAX's
     astype(bfloat16)) in its low half and feats[r + P] in its high half.
     Not differentiable (bit reinterpretation)."""
     n = payload.shape[0]
     g = GEOM_COLS
-    feats = payload[:, g + 3:g + 3 + 2 * n_packed]
-    bf = feats.to(torch.bfloat16)
+    f0 = g + (3 if with_color else 0)  # first feature column
+    bf = payload[:, f0:f0 + 2 * n_packed].to(torch.bfloat16)
     words = torch.stack([bf[:, :n_packed], bf[:, n_packed:]], dim=-1)
     words = words.reshape(n, 2 * n_packed).contiguous().view(torch.float32)
+    if not with_color:
+        return torch.cat([payload[:, :g], words], dim=1).contiguous()
     return torch.cat([payload[:, :g + 3], payload[:, g + n_val - 1:g + n_val],
                       words], dim=1).contiguous()
 
 
-def unpack_values(payload: torch.Tensor, n_val: int,
-                  n_packed: int) -> torch.Tensor:
-    """(N, n_val) float32 values [rgb, feats, depth] of a kernel-layout
-    payload (inverse of pack_feature_words on the value words)."""
+def unpack_values(payload: torch.Tensor, n_val: int, n_packed: int,
+                  with_color: bool = True) -> torch.Tensor:
+    """(N, n_val) float32 values ([rgb, feats, depth], or [feats] without
+    colour) of a kernel-layout payload (inverse of pack_feature_words on
+    the value words)."""
     g = GEOM_COLS
     if not n_packed:
         return payload[:, g:g + n_val]
-    bf = payload[:, g + 4:g + 4 + n_packed].contiguous().view(torch.bfloat16)
-    return torch.cat([payload[:, g:g + 3], bf[:, 0::2].float(),
-                      bf[:, 1::2].float(), payload[:, g + 3:g + 4]], dim=1)
+    w0 = g + _plain_words(with_color)  # first packed word
+    bf = payload[:, w0:w0 + n_packed].contiguous().view(torch.bfloat16)
+    feats = [bf[:, 0::2].float(), bf[:, 1::2].float()]
+    if not with_color:
+        return torch.cat(feats, dim=1)
+    return torch.cat([payload[:, g:g + 3], *feats, payload[:, g + 3:g + 4]],
+                     dim=1)
 
 
 # --------------------------------------------------------- compositing
 
 
 def _check_inputs(payload, sorted_gauss, tile_start, image_height,
-                  image_width, n_val, n_packed):
+                  image_width, n_val, n_packed, with_color=True):
     th, tw = _tile_grid(image_height, image_width)
     if payload.dtype != torch.float32 or payload.dim() != 2:
         raise ValueError("payload must be a 2-D float32 tensor")
-    if payload.shape[1] != row_words(n_val, n_packed):
+    words = row_words(n_val, n_packed, with_color)
+    if payload.shape[1] != words:
         raise ValueError(f"payload rows have {payload.shape[1]} words, the "
-                         f"layout ({n_val}, {n_packed}) needs "
-                         f"{row_words(n_val, n_packed)}")
+                         f"layout ({n_val}, {n_packed}, with_color="
+                         f"{with_color}) needs {words}")
     if sorted_gauss.dtype != torch.int32 or tile_start.dtype != torch.int32:
         raise ValueError("sorted_gauss and tile_start must be int32")
     if tile_start.shape != (th * tw + 1,):
         raise ValueError(f"tile_start has shape {tuple(tile_start.shape)}, "
                          f"the {th}x{tw} tile grid needs ({th * tw + 1},)")
-    if n_packed and n_val != 4 + 2 * n_packed:
-        raise ValueError("packed layout needs n_val == 4 + 2 * n_packed")
+    if n_packed and n_val != _plain_words(with_color) + 2 * n_packed:
+        raise ValueError(f"packed layout needs n_val == "
+                         f"{_plain_words(with_color)} + 2 * n_packed")
     devs = {payload.device, sorted_gauss.device, tile_start.device}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
@@ -266,8 +299,8 @@ def _pixel_coords(dev):
 def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                     tile_start: torch.Tensor, image_height: int,
                     image_width: int, n_val: int, n_packed: int = 0,
-                    tile_chunk: int = 2048, stats: dict | None = None,
-                    residuals: bool = False):
+                    with_color: bool = True, tile_chunk: int = 2048,
+                    stats: dict | None = None, residuals: bool = False):
     """Plain PyTorch version of the CUDA compositor: same inputs, same
     output (H, W, 1 + n_val) = [acc, values...], same expressions in the
     same order (log-space T, skip below 1/255, stop before T < 1e-4).
@@ -283,11 +316,11 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     it, or the range's length (int32).
     """
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
-                           image_width, n_val, n_packed)
+                           image_width, n_val, n_packed, with_color)
     dev = payload.device
     num_tiles = th * tw
     geom = payload[:, :GEOM_COLS]
-    vals = unpack_values(payload, n_val, n_packed)
+    vals = unpack_values(payload, n_val, n_packed, with_color)
     fx, fy = _pixel_coords(dev)
     starts = tile_start[:-1].long()
     lens = (tile_start[1:] - tile_start[:-1]).long()
@@ -368,11 +401,14 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                         image_width: int, n_val: int, n_packed: int,
                         grad_out: torch.Tensor, res_logt: torch.Tensor,
                         res_stop: torch.Tensor, tile_chunk: int = 2048,
-                        stats: dict | None = None) -> torch.Tensor:
+                        stats: dict | None = None, with_color: bool = True,
+                        values_only: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel (composite_bwd.cu):
     (n_pairs, 6 + n_val) pair gradients [d mean2d, d conic, d log op,
     d values], row i for the pair at sorted position i. Rows of pairs at
-    or past a tile's largest stop, and of invalid pairs, are zero.
+    or past a tile's largest stop, and of invalid pairs, are zero. With
+    `values_only`, the 6 geometry columns are exactly zero and the value
+    columns are the full mode's.
 
     Same per-pixel expressions in the same order as the kernel, walking
     the ranks in reverse from each tile's largest stop index, all tiles
@@ -383,12 +419,12 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     first pair (0 up to rounding).
     """
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
-                           image_width, n_val, n_packed)
+                           image_width, n_val, n_packed, with_color)
     dev = payload.device
     num_tiles = th * tw
     words = GEOM_COLS + n_val
     geom = payload[:, :GEOM_COLS]
-    vals = unpack_values(payload, n_val, n_packed)
+    vals = unpack_values(payload, n_val, n_packed, with_color)
     fx, fy = _pixel_coords(dev)
     g_all = _tile_cotangent(grad_out, th, tw)
     logt_all = res_logt.reshape(num_tiles, PIX)
@@ -428,21 +464,24 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
             before = logt - torch.log1p(-alpha)
             t = torch.exp(before)
             w = alpha * t
-            q = g[..., 0]
-            for c in range(n_val):
-                q = q + g[..., 1 + c] * v[:, c:c + 1]
-            dalpha = q * t - suffix / (1.0 - alpha)
-            suffix = torch.where(counted, suffix + q * w, suffix)
+            d = []
+            if not values_only:
+                q = g[..., 0]
+                for c in range(n_val):
+                    q = q + g[..., 1 + c] * v[:, c:c + 1]
+                dalpha = q * t - suffix / (1.0 - alpha)
+                suffix = torch.where(counted, suffix + q * w, suffix)
+                dpow = torch.where(counted & (raw < LOG_ALPHA_MAX),
+                                   dalpha * alpha, zero)
+                d = [dpow * -(ca * dx + cb * dy),
+                     dpow * -(cc * dy + cb * dx), dpow * (-0.5 * dx * dx),
+                     dpow * -(dx * dy), dpow * (-0.5 * dy * dy), dpow]
             logt = torch.where(counted, before, logt)
-            dpow = torch.where(counted & (raw < LOG_ALPHA_MAX),
-                               dalpha * alpha, zero)
-            d = [dpow * -(ca * dx + cb * dy), dpow * -(cc * dy + cb * dx),
-                 dpow * (-0.5 * dx * dx), dpow * -(dx * dy),
-                 dpow * (-0.5 * dy * dy), dpow]
             d += [torch.where(counted, g[..., 1 + c] * w, zero)
                   for c in range(n_val)]
             sums = torch.stack([x.sum(dim=1) for x in d], dim=1)
-            dpair[(st + j)[active]] = sums[active]
+            first = GEOM_COLS if values_only else 0
+            dpair[(st + j)[active], first:] = sums[active]
             if stats is not None:
                 evaluated += PIX * int(active.sum())
                 counted_n += int(counted.sum())
@@ -536,10 +575,10 @@ def build_library(names=None) -> dict:
 
 _ARGTYPES = {
     "composite_fwd": ("trase_composite_fwd",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4),
     "composite_bwd": ("trase_composite_bwd",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                       + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
                       + [ctypes.c_void_p] * 3),
 }
@@ -575,25 +614,29 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _count_layout(key):
+    LAYOUT_LAUNCHES[key] = LAYOUT_LAUNCHES.get(key, 0) + 1
+
+
 def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                   tile_start: torch.Tensor, image_height: int,
                   image_width: int, n_val: int, n_packed: int = 0,
-                  residuals: bool = False):
+                  with_color: bool = True, residuals: bool = False):
     """Launch the CUDA compositor on CUDA tensors: (H, W, 1 + n_val)
     float32 [acc, values...], or with `residuals` (out, logt, stop) as
     composite_plain returns them. Raises for CPU tensors, for value
     layouts without a kernel instantiation and when the launch fails."""
-    global FWD_LAUNCHES
     _require_cuda("composite_fwd", "composite_plain", payload=payload,
                   sorted_gauss=sorted_gauss, tile_start=tile_start)
-    if (n_val, n_packed) not in SUPPORTED or (
-            residuals and (n_val, n_packed) not in BWD_SUPPORTED):
-        raise ValueError(f"no kernel instantiation for n_val={n_val}, "
-                         f"n_packed={n_packed}, residuals={residuals}; have "
+    layout = (n_val, n_packed, with_color)
+    if layout not in SUPPORTED or (residuals
+                                   and layout not in BWD_SUPPORTED):
+        raise ValueError(f"no kernel instantiation for (n_val, n_packed, "
+                         f"with_color)={layout}, residuals={residuals}; have "
                          f"{sorted(SUPPORTED)}, residuals for "
                          f"{sorted(BWD_SUPPORTED)}")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
-                           image_width, n_val, n_packed)
+                           image_width, n_val, n_packed, with_color)
     lib = _library("composite_fwd")
     dev = payload.device
     out = torch.empty((image_height, image_width, 1 + n_val),
@@ -606,12 +649,12 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
         rc = lib.trase_composite_fwd(
             payload.data_ptr(), sorted_gauss.data_ptr(),
             tile_start.data_ptr(), th * tw, tw, image_height, image_width,
-            n_val, n_packed, LOG_ALPHA_MAX, LOG_ALPHA_EPS, LOG_T_EPS,
-            out.data_ptr(), None if res_logt is None else res_logt.data_ptr(),
+            n_val, n_packed, int(with_color), LOG_ALPHA_MAX, LOG_ALPHA_EPS,
+            LOG_T_EPS, out.data_ptr(), None if res_logt is None else res_logt.data_ptr(),
             None if res_stop is None else res_stop.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"composite_fwd launch failed: cudaError {rc}")
-    FWD_LAUNCHES += 1
+    _count_layout(("composite_fwd", *layout, residuals))
     if residuals:
         return out, res_logt, res_stop
     return out
@@ -622,21 +665,26 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                   image_width: int, n_val: int, n_packed: int,
                   grad_out: torch.Tensor, res_logt: torch.Tensor,
                   res_stop: torch.Tensor,
-                  logt_first: torch.Tensor | None = None) -> torch.Tensor:
+                  logt_first: torch.Tensor | None = None,
+                  with_color: bool = True,
+                  values_only: bool = False) -> torch.Tensor:
     """Launch the backward kernel on CUDA tensors: (n_pairs, 6 + n_val)
     pair gradients as composite_bwd_plain returns them, except that rows
     of invalid pairs (past tile_start[-1]) are left unwritten. With
     `logt_first` (num_tiles * 256 float32), the kernel also writes each
-    pixel's log T reconstructed back to its tile's first pair."""
-    global BWD_LAUNCHES
+    pixel's log T reconstructed back to its tile's first pair. With
+    `values_only`, the geometry columns are exact zeros."""
     _require_cuda("composite_bwd", "composite_bwd_plain", payload=payload,
                   sorted_gauss=sorted_gauss, tile_start=tile_start,
                   grad_out=grad_out, res_logt=res_logt, res_stop=res_stop)
-    if (n_val, n_packed) not in BWD_SUPPORTED:
-        raise ValueError(f"no backward instantiation for n_val={n_val}, "
-                         f"n_packed={n_packed}; have {sorted(BWD_SUPPORTED)}")
+    layout = (n_val, n_packed, with_color)
+    if layout not in BWD_SUPPORTED or (values_only and with_color):
+        raise ValueError(f"no backward instantiation for (n_val, n_packed, "
+                         f"with_color)={layout}, values_only={values_only}; "
+                         f"have {sorted(BWD_SUPPORTED)}, values-only for "
+                         "the layouts without colour")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
-                           image_width, n_val, n_packed)
+                           image_width, n_val, n_packed, with_color)
     if grad_out.shape != (image_height, image_width, 1 + n_val) or \
             grad_out.dtype != torch.float32:
         raise ValueError(f"grad_out must be float32 (H, W, {1 + n_val})")
@@ -650,14 +698,15 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
         rc = lib.trase_composite_bwd(
             payload.data_ptr(), sorted_gauss.data_ptr(),
             tile_start.data_ptr(), th * tw, tw, image_height, image_width,
-            n_val, grad_out.data_ptr(), res_logt.data_ptr(),
+            n_val, n_packed, int(with_color), int(values_only),
+            grad_out.data_ptr(), res_logt.data_ptr(),
             res_stop.data_ptr(), LOG_ALPHA_MAX, LOG_ALPHA_EPS,
             dpair.data_ptr(),
             None if logt_first is None else logt_first.data_ptr(),
             _stream(dev))
     if rc != 0:
         raise RuntimeError(f"composite_bwd launch failed: cudaError {rc}")
-    BWD_LAUNCHES += 1
+    _count_layout(("composite_bwd", *layout, values_only))
     return dpair
 
 
@@ -665,7 +714,6 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
                       tile_start: torch.Tensor, n: int) -> torch.Tensor:
     """Launch the reduce kernel on CUDA tensors: (n, words) per-gaussian
     gradients as reduce_pair_grads_plain returns them."""
-    global REDUCE_LAUNCHES
     _require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
                   dpair=dpair, inv=inv, tile_start=tile_start)
     if inv.dtype != torch.int32 or tile_start.dtype != torch.int32 or \
@@ -685,55 +733,59 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
             out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"reduce_pair_grads launch failed: cudaError {rc}")
-    REDUCE_LAUNCHES += 1
+    _count_layout(("reduce_pair_grads", words))
     return out
 
 
 def composite(payload, sorted_gauss, tile_start, image_height, image_width,
-              n_val, n_packed=0, residuals=False):
+              n_val, n_packed=0, with_color=True, residuals=False):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = composite_plain if payload.device.type == "cpu" else composite_fwd
     return fn(payload, sorted_gauss, tile_start, image_height, image_width,
-              n_val, n_packed, residuals=residuals)
+              n_val, n_packed, with_color=with_color, residuals=residuals)
 
 
 class _Composite(torch.autograd.Function):
     """The compositor under autograd: the forward keeps the per-pixel
     residuals, the backward emits the (N, 6 + n_val) payload gradient
     through composite_bwd + reduce_pair_grads (CUDA tensors) or their
-    plain versions (CPU tensors). Counterpart of pallas_composite's
-    custom VJP (rasterize_pallas.py:1322-1391)."""
+    plain versions (CPU tensors); with `values_only`, its geometry columns
+    are zero. Counterpart of pallas_composite's custom VJP
+    (rasterize_pallas.py:1322-1391)."""
 
     @staticmethod
     def forward(ctx, payload, sorted_gauss, sorted_pid, tile_start,
-                image_height, image_width, n_val, n_packed):
-        kpay = (pack_feature_words(payload, n_val, n_packed) if n_packed
-                else payload)
+                image_height, image_width, n_val, n_packed, with_color,
+                values_only):
+        kpay = (pack_feature_words(payload, n_val, n_packed, with_color)
+                if n_packed else payload)
         out, logt, stop = composite(kpay, sorted_gauss, tile_start,
                                     image_height, image_width, n_val,
-                                    n_packed, residuals=True)
+                                    n_packed, with_color, residuals=True)
         ctx.save_for_backward(kpay, sorted_gauss, sorted_pid, tile_start,
                               logt, stop)
         ctx.dims = (image_height, image_width, n_val, n_packed,
-                    payload.shape[0])
+                    payload.shape[0], with_color, values_only)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         kpay, sorted_gauss, sorted_pid, tile_start, logt, stop = \
             ctx.saved_tensors
-        image_height, image_width, n_val, n_packed, n = ctx.dims
+        image_height, image_width, n_val, n_packed, n, with_color, \
+            values_only = ctx.dims
         grad_out = grad_out.contiguous()
         args = (kpay, sorted_gauss, tile_start, image_height, image_width,
                 n_val, n_packed, grad_out, logt, stop)
+        mode = dict(with_color=with_color, values_only=values_only)
         inv = inverse_pairs(sorted_pid)
         if kpay.device.type == "cpu":
-            dpair = composite_bwd_plain(*args)
+            dpair = composite_bwd_plain(*args, **mode)
             dpayload = reduce_pair_grads_plain(dpair, inv, tile_start, n)
         else:
-            dpair = composite_bwd(*args)
+            dpair = composite_bwd(*args, **mode)
             dpayload = reduce_pair_grads(dpair, inv, tile_start, n)
-        return dpayload, None, None, None, None, None, None, None
+        return (dpayload,) + (None,) * 9
 
 
 class CompositeInputs(NamedTuple):
@@ -744,18 +796,19 @@ class CompositeInputs(NamedTuple):
     n_val: int
     n_packed: int  # > 0: the kernel composites bf16-packed features
     overflow: torch.Tensor  # (2,) f32
+    with_color: bool  # False: the values are the features alone
 
 
 def composite_inputs(proj: ProjectedGaussians,
                      extra_channels: torch.Tensor | None, image_height: int,
-                     image_width: int,
-                     cfg: RasterConfig = RasterConfig()) -> CompositeInputs:
+                     image_width: int, cfg: RasterConfig = RasterConfig(),
+                     with_color: bool = True) -> CompositeInputs:
     """Binning, payload and the packing decision: what the compositor
     takes. Features pack when cfg.pack_features is set and their count
     is even (pack_feature_words turns the payload into the kernel's
     packed layout)."""
     bins = build_tile_bins(proj, image_height, image_width, cfg)
-    payload, n_val = build_payload(proj, extra_channels)
+    payload, n_val = build_payload(proj, extra_channels, with_color)
     n_packed = 0
     if (cfg.pack_features and extra_channels is not None
             and extra_channels.shape[1] % 2 == 0):
@@ -763,7 +816,23 @@ def composite_inputs(proj: ProjectedGaussians,
     sorted_gauss = torch.div(bins.sorted_pid, cfg.pairs_per_gaussian,
                              rounding_mode="floor").to(torch.int32)
     return CompositeInputs(payload, sorted_gauss, bins.sorted_pid,
-                           bins.tile_start, n_val, n_packed, bins.overflow)
+                           bins.tile_start, n_val, n_packed, bins.overflow,
+                           with_color)
+
+
+def check_card_backward(layout, values_only: bool = False) -> None:
+    """Raise NotImplementedError for a (n_val, n_packed, with_color)
+    layout that has no backward kernel on the card: feature channels
+    beside colour (36 values) under autograd lie on no training path of
+    trase_tpu (the GAUSSIAN step renders no features, the FEATURE step no
+    colour) and are not ported; neither is values-only with colour."""
+    if tuple(layout) not in BWD_SUPPORTED or (values_only and layout[2]):
+        raise NotImplementedError(
+            f"the compositor backward on the card covers rgb + depth and "
+            f"32 features without colour, not (n_val, n_packed, "
+            f"with_color)={tuple(layout)}, values_only={values_only}: "
+            "feature channels beside colour under autograd (36 values) "
+            "lie on no training path and are not ported")
 
 
 def rasterize_tiled(
@@ -774,45 +843,52 @@ def rasterize_tiled(
     image_width: int,
     cfg: RasterConfig = RasterConfig(),
     with_color: bool = True,
+    grad_values_only: bool = False,
 ):
     """Counterpart of rasterize_tiled_pallas: render (3,H,W), depth
     (1,H,W), alpha (1,H,W), overflow, overflow_half and, with
     extra_channels (N, F), feats (F,H,W) + feats_hwc (H,W,F). rgb gets
     the background (render = rgb + (1 - acc) bg); features do not.
     Differentiable in every projected input when autograd records: the
-    forward then keeps its residuals for the backward kernels."""
-    if not with_color:
-        raise NotImplementedError(
-            "with_color=False (features-only path) belongs to the FEATURE "
-            "slice of the port")
+    forward then keeps its residuals for the backward kernels.
+
+    with_color=False (requires extra_channels) composites only the
+    features and alpha, the FEATURE step's path: no render / depth, and
+    feats_acc_hwc, the unsliced (H, W, 1 + F) [acc | feats] image.
+    grad_values_only=True promises that only the value gradients (the
+    features') are consumed: the backward then emits exact zeros for
+    mean2d, conic and opacity and skips their chain."""
     ci = composite_inputs(proj, extra_channels, image_height, image_width,
-                          cfg)
+                          cfg, with_color)
     if torch.is_grad_enabled() and ci.payload.requires_grad:
-        if ci.payload.device.type == "cuda" and \
-                (ci.n_val, ci.n_packed) not in BWD_SUPPORTED:
-            raise NotImplementedError(
-                "the compositor backward on the card covers rgb + depth; "
-                "feature channels under autograd belong to the FEATURE "
-                "slice of the port")
+        if ci.payload.device.type == "cuda":
+            check_card_backward((ci.n_val, ci.n_packed, with_color),
+                                grad_values_only)
         hwc = _Composite.apply(ci.payload, ci.sorted_gauss, ci.sorted_pid,
                                ci.tile_start, image_height, image_width,
-                               ci.n_val, ci.n_packed)
+                               ci.n_val, ci.n_packed, with_color,
+                               grad_values_only)
     else:
-        payload = (pack_feature_words(ci.payload, ci.n_val, ci.n_packed)
+        payload = (pack_feature_words(ci.payload, ci.n_val, ci.n_packed,
+                                      with_color)
                    if ci.n_packed else ci.payload)
         hwc = composite(payload, ci.sorted_gauss, ci.tile_start,
-                        image_height, image_width, ci.n_val, ci.n_packed)
+                        image_height, image_width, ci.n_val, ci.n_packed,
+                        with_color)
     acc = hwc[..., 0]
-    rgb = hwc[..., 1:4] + (1.0 - acc)[..., None] * bg_color[None, None, :]
     result = {
         "alpha": acc[None],
         "overflow": ci.overflow[0],
         "overflow_half": ci.overflow[1],
-        "render": rgb.permute(2, 0, 1),
-        "depth": hwc[..., -1][None],
     }
+    if with_color:
+        rgb = hwc[..., 1:4] + (1.0 - acc)[..., None] * bg_color[None, None, :]
+        result["render"] = rgb.permute(2, 0, 1)
+        result["depth"] = hwc[..., -1][None]
+    else:
+        result["feats_acc_hwc"] = hwc
     if extra_channels is not None:
-        feats_hwc = hwc[..., 4:-1]
+        feats_hwc = hwc[..., 4:-1] if with_color else hwc[..., 1:]
         result["feats_hwc"] = feats_hwc
         result["feats"] = feats_hwc.permute(2, 0, 1)
     return result

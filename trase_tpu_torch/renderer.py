@@ -6,13 +6,16 @@ gaussian_renderer/__init__.py:37-155): applies the deformation deltas
 projection stage, normalizes the 32-dim segmentation features, masks
 gaussians by zeroing their opacity, and returns the reference's output
 keys. The device is the tensors' own: CUDA tensors composite through the
-CUDA kernel, CPU tensors through its plain version. Under autograd the
+CUDA kernels, CPU tensors through their plain versions. Under autograd the
 render is differentiable in the gaussian parameters, the deformation
 deltas and ``mean2d_offset`` (the screen-space gradient carrier that
 densification reads).
 
-FEATURE-slice options (feature smoothing, the features-only path,
-values-only gradients) and object composition raise NotImplementedError.
+The FEATURE step's options: KNN feature smoothing (``smooth_map``), the
+features-only path (``with_color=False``: no SH, no render / depth, and
+the unsliced [acc | feats] image) and values-only gradients
+(``grad_values_only``). Object composition (``render_composite``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from . import resolve_device
 from .models import gaussians as G
+from .ops.knn import smooth_features
 from .ops.projection import CameraBuffers, compute_cov3d, project_gaussians
 from .ops.rasterize import RasterConfig
 from .ops.rasterize_cuda import rasterize_tiled
@@ -92,7 +96,9 @@ def render(
     override_color: torch.Tensor | None = None,
     mask: torch.Tensor | None = None,
     norm_gaussian_features: bool = True,
-    smooth_map=None,
+    smooth_map: torch.Tensor | None = None,
+    smooth_perm: torch.Tensor | None = None,
+    smooth_generator: torch.Generator | None = None,
     mean2d_offset=None,
     with_features: bool = True,
     with_color: bool = True,
@@ -107,17 +113,21 @@ def render(
     `aux_alive`: (C,) bool alive-mask; `mask`: optional (C,) bool
     keep-mask (False = removed, reference `render(mask=...)`);
     `mean2d_offset`: (C, 2) zeros whose gradient is the densification
-    signal (added to the projected means before binning).
+    signal (added to the projected means before binning); `smooth_map`:
+    (C, K) neighbour indices to enable feature smoothing, over the
+    neighbour slots `smooth_perm` or, without it, a permutation drawn
+    from `smooth_generator` (see ops.knn.smooth_features).
+
+    `with_color=False` (requires with_features) composites only the
+    features and alpha and skips SH: no render / depth keys, and
+    render_gaussian_features_acc_hwc, the unsliced (H, W, 1 + 32)
+    [acc | feats] image. `grad_values_only=True` promises that only the
+    gradients of the composited values are consumed (the FEATURE step
+    after densification): geometry, opacity and mean2d_offset then get
+    exact zeros from the compositor.
     """
-    if smooth_map is not None:
-        raise NotImplementedError("feature smoothing belongs to the "
-                                  "FEATURE slice of the port")
-    if not with_color:
-        raise NotImplementedError("with_color=False belongs to the "
-                                  "FEATURE slice of the port")
-    if grad_values_only:
-        raise NotImplementedError("grad_values_only belongs to the "
-                                  "FEATURE slice of the port")
+    if not with_color and not with_features:
+        raise ValueError("with_color=False requires with_features=True")
     H, W = camera.image_height, camera.image_width
 
     means3d, scales, rots = apply_deformation(
@@ -128,7 +138,14 @@ def render(
         opacity = torch.where(mask, opacity, zero)
 
     cov3d = compute_cov3d(scales, rots, scaling_modifier)
-    if override_color is not None:
+    if not with_color:
+        # colour is never composited: a zero placeholder skips SH
+        proj = project_gaussians(
+            means3d, cov3d, opacity, camera.buffers, H, W,
+            colors_precomp=torch.zeros((means3d.shape[0], 3),
+                                       dtype=means3d.dtype,
+                                       device=means3d.device))
+    elif override_color is not None:
         proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
                                  H, W, colors_precomp=override_color)
     else:
@@ -141,23 +158,31 @@ def render(
     extra = None
     if with_features:
         feats = params.gaussian_features
+        if smooth_map is not None:
+            feats = smooth_features(feats, smooth_map, perm=smooth_perm,
+                                    generator=smooth_generator)
         if norm_gaussian_features:
             # safe norm: dead slots hold all-zero features
             feats = feats / torch.sqrt(
                 torch.sum(feats * feats, dim=-1, keepdim=True) + 1e-12)
         extra = feats
 
-    out = rasterize_tiled(proj, extra, bg_color, H, W, raster_cfg)
+    out = rasterize_tiled(proj, extra, bg_color, H, W, raster_cfg,
+                          with_color=with_color,
+                          grad_values_only=grad_values_only)
     result = {
         "visibility_filter": proj.radius > 0,
         "radii": proj.radius,
         "alpha": out["alpha"],
         "overflow": out["overflow"],
         "overflow_half": out["overflow_half"],
-        "render": out["render"],
-        "depth": out["depth"],
     }
+    if with_color:
+        result["render"] = out["render"]
+        result["depth"] = out["depth"]
     if with_features:
         result["render_gaussian_features"] = out["feats"]
         result["render_gaussian_features_hwc"] = out["feats_hwc"]
+    if not with_color:
+        result["render_gaussian_features_acc_hwc"] = out["feats_acc_hwc"]
     return result

@@ -1,15 +1,17 @@
-"""Training CLI of the port: the GAUSSIAN phase on the card.
+"""Training CLI of the port: a whole TRASE run on the card.
 
     python -m trase_tpu_torch.train -s <data> -m <model> --iterations N
 
-Counterpart of the root train.py (reference train.py:497-525) for runs
-shorter than ``--warm_up_3d_features`` (default 10000): the
-Deformable-3DGS stage, with densification and opacity resets. Same flag
-groups (Model / Optimization / Pipeline) and cfg persistence under the
-model path; the snapshot at each --save_iterations (and at the last
-iteration) is what ``python -m trase_tpu_torch.render`` and the root
-render.py read. Runs on the card (``--device cuda``, the default) or,
-with ``--device cpu``, on the CPU through the kernels' plain versions.
+Counterpart of the root train.py (reference train.py:497-525): the
+Deformable-3DGS stage with densification and opacity resets, then, from
+``--warm_up_3d_features`` on (default 10000) when the dataset has SAM
+masks, GAUSSIAN and FEATURE blocks alternating every
+``--iterative_opt_interval`` steps. Same flag groups (Model /
+Optimization / Pipeline) and cfg persistence under the model path; the
+snapshot at each --save_iterations (and at the last iteration) is what
+``python -m trase_tpu_torch.render`` and the root render.py read. Runs
+on the card (``--device cuda``, the default) or, with ``--device cpu``,
+on the CPU through the kernels' plain versions.
 """
 from __future__ import annotations
 
