@@ -8,7 +8,7 @@ JSON line per phase:
 
 1. device       the card's name and power limit (nvidia-smi), torch's view;
 2. build        nvcc builds csrc/*.cu for sm_90a, one process per source,
-                all started together; build seconds;
+                all started together; build seconds and ptxas lines;
 3. compare      the CUDA compositor against its plain PyTorch version
                 (composite_plain) on the same inputs, for 4 values
                 (rgb+depth), 36 (+32 features) and 36 with bf16-packed
@@ -26,15 +26,30 @@ JSON line per phase:
                 full and values-only (geometry exactly 0, values equal to
                 the full mode's), unpacked and packed at the small scene
                 and packed at the full one;
+   deform-mlp   the fused deform MLP kernel (deform_mlp) against its plain
+                version and the float32 module at 300 rows and at the
+                bench scene's 131072; times of the kernel, the plain
+                version, the cuBLAS bf16 chain and the module, the bound;
 4. render       the bench scene of bench.py (100k gaussians in a 131072
                 capacity, SH degree 3, 32-dim features, DeformNetwork
                 8x256, 1008x1344, K=6, seeded): deform_step ->
                 renderer.render with and without features, warm-up then
                 timed frames; checks the outputs and that the compositor
-                kernel ran once per render;
+                kernel ran once per render; then the same frame with
+                deform_step(fused=True): one deform_mlp launch per frame,
+                its time and its image against the float32-deform frame;
 5. cli          writes a small Blender-format dataset and a model
                 directory with the port's own writers and runs
                 trase_tpu_torch.render;
+   segment-cli  on phase 5's dataset and a copy of its model directory
+                with a feature field grouped by position: the cluster CLI
+                (k-means on the card; HDBSCAN where sklearn is installed),
+                the render CLI with --segment_ids and --text_prompt_mask,
+                and the metrics CLI against a benchmark folder written from
+                the dataset's masks; PNG counts, launches per view, finite
+                metrics;
+   kmeans       kmeans_cluster on the bench scene's 100k x 32 features,
+                k = 64, 50 iterations, on the card;
 6. train-step   the same scene through engine.trainer.gaussian_phase_step
                 (bf16 deform stack on, lambda_dssim 0.2, gt zeros): warm-up
                 then timed steps; checks finiteness, a falling loss and
@@ -51,9 +66,9 @@ JSON line per phase:
                 with densify and opacity reset inside the run, crossing
                 warm_up_3d_features into FEATURE blocks in both arms, then
                 trase_tpu_torch.render on its snapshot;
-8. profile      torch.profiler over a few frames of phase 4 and a few steps
-                of phase 6 and of each FEATURE arm: device busy time by
-                kernel and the idle share;
+8. profile      torch.profiler over a few frames of phase 4 (float32 and
+                fused deform) and a few steps of phase 6 and of each
+                FEATURE arm: device busy time by kernel and the idle share;
 9. kernels      one object per kernel: launches, error against the plain
                 version, times and the bound, with one variant per
                 instantiation a path launches.
@@ -78,6 +93,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
 # kernel vs plain: same expressions, same order, -fmad=false; only libm
 # ulps and the sign of zero may differ. Depth sums reach ~10, so 1e-4.
 TOL = {"render": 1e-5, "feats": 1e-5, "alpha": 1e-5, "depth": 1e-4}
@@ -86,6 +102,13 @@ TOL = {"render": 1e-5, "feats": 1e-5, "alpha": 1e-5, "depth": 1e-4}
 # magnitude. The reduce kernel sums in the plain version's order: exact.
 BWD_TOL = 1e-4
 LOGT_FIRST_TOL = 1e-3  # |T reconstructed at a tile's first pair - 1|
+# the fused deform MLP: bf16 operands with float32 sums in another order
+# than the plain version's, so activations near a bf16 rounding boundary
+# round the other way: max abs difference over each head's largest
+# magnitude; both against the float32 module within the budget of
+# tests/test_rasterize_pallas.py::test_fused_deform_matches_flax
+MLP_TOL, MLP_MODULE_TOL = 1e-2, 2e-2
+MLP_HEADS = ("d_xyz", "d_rot", "d_scale")
 WARMUP, FRAMES = 3, 10
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 CLI_ITERATIONS = 300
@@ -105,7 +128,13 @@ KERNELS = {
                       "trase_tpu/ops/rasterize_pallas.py:817"),
     "reduce_pair_grads": ("trase_tpu_torch/csrc/composite_bwd.cu",
                           "trase_tpu/ops/rasterize_pallas.py:1195"),
+    "deform_mlp": ("trase_tpu_torch/csrc/deform_mlp.cu",
+                   "trase_tpu/ops/mlp_pallas.py:41"),
 }
+# k-means at scale: the bench scene's features, the cluster CLI's k
+KMEANS_K, KMEANS_ITERS = 64, 50
+# the segment CLI's k-means on phase 5's 2000 gaussians, grouped in 4
+SEGMENT_K = 8
 GEOM_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "log_op": (5, 6)}
 
 
@@ -134,11 +163,11 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def deltas(params, net, fid):
+def deltas(params, net, fid, fused=False):
     from trase_tpu_torch.models.deform import deform_step
 
     t = torch.full((params.xyz.shape[0], 1), fid, device=params.xyz.device)
-    return deform_step(net, params.xyz, t)
+    return deform_step(net, params.xyz, t, fused=fused)
 
 
 def projected(params, aux, cam, d, with_features):
@@ -174,10 +203,12 @@ def kernel_inputs(proj, feats, H, W, cfg, pack, with_color=True):
     return payload, ci.sorted_gauss, ci.tile_start, ci.n_val, ci.n_packed
 
 
-def stage_ms(params, aux, cam, net, cfg, with_features, pack, frames=5):
+def stage_ms(params, aux, cam, net, cfg, with_features, pack, frames=5,
+             fused=False):
     """Device time of each stage of one frame, from CUDA events recorded
     between the stages on the current stream (launch gaps inside a stage
-    count to it), averaged over `frames` frames after one warm-up."""
+    count to it), averaged over `frames` frames after one warm-up; the
+    deform stage through the fused MLP when `fused`."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     names = ("deform", "project", "bin_payload", "composite")
@@ -186,7 +217,7 @@ def stage_ms(params, aux, cam, net, cfg, with_features, pack, frames=5):
     for i in range(frames + 1):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        d = deltas(params, net, 0.5)
+        d = deltas(params, net, 0.5, fused)
         ev[1].record()
         proj, feats = projected(params, aux, cam, d, with_features)
         ev[2].record()
@@ -547,14 +578,134 @@ def bound(prefix, nbytes, ops):
             else "operations"}
 
 
+def mlp_bound(n, in_dim, kin):
+    """The fused MLP's least time at n rows: bytes (emb read, the three
+    heads written, the packed weights read once) over the memory rate;
+    operations (the hidden stack's multiply-adds at the bf16 tensor-core
+    peak, the float32 head's at the float32 peak, on separate units)."""
+    hidden = in_dim * 256 + 4 * 256 * 256 + (in_dim + 256) * 256 \
+        + 2 * 256 * 256
+    head = 256 * 10
+    nbytes = (4 * n * in_dim + 4 * n * 10
+              + 2 * (2 * 256 * kin + 7 * 256 * 256)
+              + 4 * (8 * 256 + 256 * 10 + 10))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(2 * n * hidden / BF16_FLOPS_PER_S,
+                 2 * n * head / F32_FLOPS_PER_S) * 1e3
+    return {"bytes": nbytes, "flops": 2 * n * (hidden + head),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def cublas_chain(w):
+    """The library yardstick for the fused MLP (timed here, never called
+    by the port): the same chain as 11 PyTorch calls through cuBLAS, 8 bf16
+    F.linear whose bf16 products get the float32 bias before each bf16
+    rounding, then the 3 float32 heads."""
+    import torch.nn.functional as F
+
+    d = w.in_dim
+    mats = ([w.w0[:, :d].contiguous()] + [w.w_hidden[i] for i in range(4)]
+            + [torch.cat([w.ws_in[:, :d], w.w_hidden[4]], 1).contiguous()]
+            + [w.w_hidden[5], w.w_hidden[6]])
+    cols = ((0, 3), (3, 7), (7, 10))
+    heads = [(w.wh[:, a:b].T.contiguous(), w.bh[a:b]) for a, b in cols]
+
+    def run(emb):
+        inp = emb.to(torch.bfloat16)
+        h = inp
+        for i, m in enumerate(mats):
+            if i == 5:
+                h = torch.cat([inp, h], 1)
+            h = torch.relu(F.linear(h, m).float() + w.bias[i]).to(
+                torch.bfloat16)
+        hf = h.float()
+        return tuple(F.linear(hf, hw, hb) for hw, hb in heads)
+
+    def gemms(inputs):
+        """The chain's 11 products alone, on fixed inputs of each width:
+        what cuBLAS takes without the bias / ReLU / rounding passes."""
+        for x, m in zip(inputs[:8], mats):
+            F.linear(x, m)
+        for hw, hb in heads:
+            F.linear(inputs[8], hw, hb)
+
+    run.gemms = gemms
+    return run
+
+
+def compare_mlp(label, net, xyz, t, timed):
+    """The fused deform MLP kernel against its plain version on one
+    embedding (MLP_TOL of each head's scale), and both against the float32
+    module (MLP_MODULE_TOL); with `timed`, the kernel, the plain version,
+    the cuBLAS chain and the module timed and the bound reckoned."""
+    from trase_tpu_torch.models.deform import deform_step, frequency_embed
+    from trase_tpu_torch.ops import mlp_cuda as M
+
+    emb = torch.cat([frequency_embed(xyz, net.multires),
+                     frequency_embed(t, net.t_multires)], 1).contiguous()
+    w = M.pack_fused_weights(net)
+    got = M.deform_mlp_cuda(w, emb)
+    torch.cuda.synchronize()
+    ref = M.deform_mlp_plain(w, emb)
+    chain = cublas_chain(w)
+    with torch.no_grad():
+        module = deform_step(net, xyz, t)
+        lib = chain(emb)
+
+    def rel(a, b):
+        return {h: float((x - y).abs().max()) / (float(y.abs().max()) + 1e-12)
+                for h, x, y in zip(MLP_HEADS, a, b)}
+
+    row = {"phase": "compare", "kernel": "deform_mlp", "scene": label,
+           "rows": emb.shape[0], "in_dim": w.in_dim,
+           "kernel_vs_plain": rel(got, ref),
+           "kernel_vs_module": rel(got, module),
+           "plain_vs_module": rel(ref, module),
+           "library_vs_plain": rel(lib, ref),
+           "max_abs_diff": max(float((x - y).abs().max())
+                               for x, y in zip(got, ref)),
+           "tol": {"kernel_vs_plain": MLP_TOL, "vs_module": MLP_MODULE_TOL}}
+    if timed:
+        row["ms"] = cuda_ms(lambda: M.deform_mlp_cuda(w, emb), 20)
+        row["plain_ms"] = cuda_ms(lambda: M.deform_mlp_plain(w, emb), 5)
+        with torch.no_grad():
+            row["library_ms"] = cuda_ms(lambda: chain(emb), 20)
+            n, bf = emb.shape[0], torch.bfloat16
+            h = torch.ones((n, 256), dtype=bf, device=emb.device)
+            ins = ([emb.to(bf)] + [h] * 4
+                   + [torch.ones((n, w.in_dim + 256), dtype=bf,
+                                 device=emb.device)] + [h] * 2 + [h.float()])
+            row["library_gemms_ms"] = cuda_ms(lambda: chain.gemms(ins), 20)
+            row["module_ms"] = cuda_ms(lambda: deform_step(net, xyz, t), 5)
+        row["pack_ms"] = cuda_ms(lambda: M.pack_fused_weights(net), 20)
+        row.update(mlp_bound(emb.shape[0], w.in_dim, w.w0.shape[1]))
+    emit(row)
+    bad = [k for k in ("kernel_vs_plain",)
+           if not max(row[k].values()) <= MLP_TOL]
+    bad += [k for k in ("kernel_vs_module", "plain_vs_module")
+            if not max(row[k].values()) <= MLP_MODULE_TOL]
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        bad.append("non-finite kernel output")
+    if bad:
+        raise AssertionError(f"deform_mlp on {label}: {bad}")
+    return row
+
+
 def counts():
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     totals = dict.fromkeys(("composite_fwd", "composite_bwd",
-                            "reduce_pair_grads"), 0)
+                            "reduce_pair_grads", "deform_mlp"), 0)
     for key, n in RC.LAYOUT_LAUNCHES.items():
         totals[key[0]] += n
     return totals
+
+
+def compositor(n):
+    """Launch counts of a training path: each compositor kernel n times."""
+    return dict.fromkeys(("composite_fwd", "composite_bwd",
+                          "reduce_pair_grads"), n)
 
 
 def layout_counts():
@@ -742,15 +893,21 @@ def run(dev: torch.device) -> None:
                                      pack=pack, with_color=False)
     bwd_rows += bench_bwd
     kb = bench_bwd[0]
+    # the fused deform MLP: a ragged tile, then the bench scene's capacity
+    mlp_rows = [
+        compare_mlp("small", net, params.xyz[:300],
+                    torch.full((300, 1), 0.42, device=dev), False),
+        compare_mlp("bench", net, params.xyz,
+                    torch.full((cap, 1), 0.5, device=dev), True)]
 
     # 4. the serving path: deform_step -> renderer.render, counted
     from trase_tpu_torch.models.deform import deform_step
 
     bg = torch.zeros(3, device=dev)
 
-    def frame(fid, with_features):
+    def frame(fid, with_features, fused=False):
         t = torch.full((cap, 1), fid, device=dev)
-        d = deform_step(net, params.xyz, t)
+        d = deform_step(net, params.xyz, t, fused=fused)
         return render(cam, params, aux.alive, bg, *d, sh_degree=3,
                       with_features=with_features, raster_cfg=cfg)
 
@@ -783,10 +940,36 @@ def run(dev: torch.device) -> None:
     layouts["render"] = layout_counts()
     # serving keeps the no-residual forward and launches no backward
     assert launches["render"] == {"composite_fwd": calls, "composite_bwd": 0,
-                                  "reduce_pair_grads": 0}, launches
+                                  "reduce_pair_grads": 0,
+                                  "deform_mlp": 0}, launches
+    # the same frame through deform_step(fused=True): one deform_mlp
+    # launch per frame
+    reset_counts()
     with torch.no_grad():
+        for i in range(WARMUP):
+            frame(0.1 * i, False, fused=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(FRAMES):
+            out_f = frame(i / FRAMES, False, fused=True)
+        torch.cuda.synchronize()
+        frame_ms["fused"] = (time.perf_counter() - t0) / FRAMES * 1e3
+    launches["render_fused"] = counts()
+    layouts["render_fused"] = layout_counts()
+    n_fused = WARMUP + FRAMES
+    assert launches["render_fused"] == {
+        "composite_fwd": n_fused, "composite_bwd": 0, "reduce_pair_grads": 0,
+        "deform_mlp": n_fused}, launches["render_fused"]
+    for k in ("render", "depth", "alpha"):
+        assert bool(torch.isfinite(out_f[k]).all()), f"non-finite fused {k}"
+    with torch.no_grad():
+        img_f32 = frame(0.5, False)["render"]
+        img_fused = frame(0.5, False, fused=True)["render"]
         stages = stage_ms(params, aux, cam, net, cfg, False, False)
         stages_feats = stage_ms(params, aux, cam, net, cfg, True, True)
+        stages_fused = stage_ms(params, aux, cam, net, cfg, False, False,
+                                fused=True)
+    fused_diff = (img_fused - img_f32).abs()
     k4, k36 = full[(4, 0, True)], full[(36, 16, True)]
     emit({"phase": "render", "gaussians": n, "capacity": cap,
           "height": H, "width": W, "pairs_per_gaussian": 6,
@@ -799,6 +982,11 @@ def run(dev: torch.device) -> None:
           k36["plain_ms"], "bound_ms": k4["bound_ms"],
           "bound_ms_with_features": k36["bound_ms"],
           "stage_ms": stages, "stage_ms_with_features": stages_feats,
+          "fused_frames": n_fused, "launches_fused": launches["render_fused"],
+          "frame_ms_fused": frame_ms["fused"],
+          "stage_ms_fused": stages_fused,
+          "fused_vs_f32_image_max_abs_diff": float(fused_diff.max()),
+          "fused_vs_f32_image_mean_abs_diff": float(fused_diff.mean()),
           "overflow": float(out["overflow"]),
           "alpha_mean": float(out["alpha"].mean())})
 
@@ -820,10 +1008,19 @@ def run(dev: torch.device) -> None:
     layouts["cli"] = layout_counts()
     assert launches["cli"]["composite_fwd"] == 2 * (n_train + n_test) + 2, \
         launches["cli"]
+    assert launches["cli"]["deform_mlp"] == 0, launches["cli"]
     emit({"phase": "cli", "png_counts": png_counts,
           "launches": launches["cli"],
           "launches_per_view": launches["cli"]["composite_fwd"]
           / (n_train + n_test)})
+
+    # 5b. the segmentation pipeline: cluster -> render --segment_ids ->
+    # metrics, then k-means at the bench scene's size
+    seg = segment_cli_phase(tmp.name, src, mdl, it, n_train, n_test, dev)
+    launches["segment_cli"] = seg.pop("launches")
+    layouts["segment_cli"] = seg.pop("layouts")
+    emit({"phase": "segment-cli", **seg})
+    emit({"phase": "kmeans", **kmeans_phase(params, n, dev)})
 
     # 6. the training step on the bench scene
     train = train_step_phase(params, aux, cam, net, cfg, dev)
@@ -850,6 +1047,9 @@ def run(dev: torch.device) -> None:
             emit({"phase": "profile", "path": "render",
                   "with_features": with_features,
                   **profile_frames(lambda: frame(0.5, with_features))})
+        emit({"phase": "profile", "path": "render", "with_features": False,
+              "fused": True,
+              **profile_frames(lambda: frame(0.5, False, fused=True))})
     emit({"phase": "profile", "path": "train-step",
           **profile_frames(train_step_fn(params, aux, cam, net, cfg, dev,
                                          carry=False), frames=3)})
@@ -861,14 +1061,15 @@ def run(dev: torch.device) -> None:
                   carry=False), frames=3)})
 
     # 9. kernels
-    emit(kernel_table(rows, bwd_rows, full, kb, launches, layouts,
+    emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                       time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 
 
-def kernel_table(rows, bwd_rows, full, kb, launches, layouts, seconds):
+def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
+                 seconds):
     """The kernels line: one object per kernel with its headline numbers
     (the GAUSSIAN layout, as in earlier runs) and one variant per
     instantiation, with its launches summed over the paths' counts."""
@@ -956,6 +1157,20 @@ def kernel_table(rows, bwd_rows, full, kb, launches, layouts, seconds):
              bound_ms=kb["reduce_bound_ms"], bound_by=kb["reduce_bound_by"],
              library_ms=kb["reduce_library_ms"], variants=red_variants),
     ]
+    mb = mlp_rows[-1]
+    entries.append(dict(
+        name="deform_mlp", launches=launches["render_fused"]["deform_mlp"],
+        max_abs_err=max(r["max_abs_diff"] for r in mlp_rows),
+        max_rel_err=max(max(r["kernel_vs_plain"].values())
+                        for r in mlp_rows),
+        ms=mb["ms"], plain_ms=mb["plain_ms"], bound_ms=mb["bound_ms"],
+        bound_by=mb["bound_by"], library_ms=mb["library_ms"],
+        library="cuBLAS bf16 chain (8 F.linear + 3 float32 heads)",
+        module_ms=mb["module_ms"], rows=mb["rows"],
+        launches_by_path={
+            p: c["deform_mlp"] if "deform_mlp" in c
+            else {arm: v["deform_mlp"] for arm, v in c.items()}
+            for p, c in launches.items()}))
     for e in entries:
         e["route"] = "cuda"
         e["source"], e["replaces"] = KERNELS[e["name"]]
@@ -974,6 +1189,151 @@ def check_pngs(mdl, it, n_train, n_test):
             assert got == want, (split_name, s, got, want)
             got_counts[f"{split_name}/{s}"] = got
     return got_counts
+
+
+def segment_cli_phase(root, src, mdl, it, n_train, n_test, dev) -> dict:
+    """The segmentation pipeline through the port's CLIs on phase 5's
+    dataset and a copy of its model directory whose feature field is
+    grouped by position (4 quadrants in x, y, one direction each plus
+    noise): the cluster CLI (k-means on the card, SEGMENT_K clusters;
+    HDBSCAN too where sklearn is installed), the render CLI with
+    --segment_ids (the largest k-means cluster) and --text_prompt_mask
+    (the image's central square), and the metrics CLI against a benchmark
+    folder of the test views' first dataset mask. Checks every stream's
+    PNG count, the compositor's launches per view, no deform_mlp launch
+    and finite metrics, mIoU and mAcc in [0, 1]."""
+    import importlib.util
+    import shutil
+
+    from PIL import Image
+
+    from trase_tpu_torch import metrics_segmentation as metrics_cli
+    from trase_tpu_torch import render as cli
+    from trase_tpu_torch.cluster import __main__ as cluster_cli
+    from trase_tpu_torch.cluster import load_clusters
+    from trase_tpu_torch.data.masks import decode_mask_file
+    from trase_tpu_torch.models.gaussians_io import (load_gaussian_ply,
+                                                     save_gaussian_ply)
+
+    seg = os.path.join(root, "segment")
+    shutil.copytree(mdl, seg)
+    cdir = os.path.join(seg, "point_cloud", f"iteration_{it}")
+    ply = os.path.join(cdir, "point_cloud.ply")
+    params, aux, n, _ = load_gaussian_ply(ply, sh_degree=3, device=dev)
+    xyz = params.xyz[:n]
+    med = xyz.median(dim=0).values
+    group = (2 * (xyz[:, 0] > med[0]).long() + (xyz[:, 1] > med[1]).long())
+    gen = torch.Generator().manual_seed(7)
+    dirs = torch.nn.functional.normalize(torch.randn(4, 32, generator=gen),
+                                         dim=1).to(dev)
+    feats = params.gaussian_features.clone()
+    feats[:n] = dirs[group] + 0.05 * torch.randn(n, 32, generator=gen).to(dev)
+    save_gaussian_ply(ply, params._replace(gaussian_features=feats),
+                      aux.alive)
+
+    t0 = time.perf_counter()
+    cluster_cli.main(["-m", seg, "--kmeans", "--k", str(SEGMENT_K),
+                      "--device", dev.type])
+    out = {"gaussians": n, "kmeans_k": SEGMENT_K,
+           "kmeans_cli_s": time.perf_counter() - t0}
+    if importlib.util.find_spec("sklearn") is not None:
+        t0 = time.perf_counter()
+        cluster_cli.main(["-m", seg])
+        hd, _ = load_clusters(os.path.join(cdir, "clusters.pt"))
+        out["hdbscan"] = {"ran": True, "seconds": time.perf_counter() - t0,
+                          "clusters": int(len(np.unique(hd)))}
+    else:
+        out["hdbscan"] = {"ran": False, "why": "sklearn is not installed"}
+    ids, _ = load_clusters(os.path.join(cdir, "clusters_kmeans.pt"))
+    sid = int(np.bincount(ids).argmax())
+    mask = np.zeros((64, 64), np.uint8)
+    mask[16:48, 16:48] = 255
+    mask_png = os.path.join(root, "center.png")
+    Image.fromarray(mask).save(mask_png)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["-s", src, "-m", seg, "--iteration", str(it),
+              "--pairs_per_gaussian", "6", "--use_kmeans", "--segment_ids",
+              str(sid), "--text_prompt_mask", mask_png, "--threshold", "50",
+              "--device", dev.type])
+    out["render_cli_s"] = time.perf_counter() - t0
+    launches, layouts = counts(), layout_counts()
+    text = "text_prompt_center_objects"
+    pngs, videos = {}, 0
+    for split_name, nv in (("train", n_train), ("test", n_test)):
+        base = os.path.join(seg, split_name, f"ours_{it}")
+        for s in ("renders", "gt", "canonical", "rendered_feats",
+                  "pointcloud", "gaussian_feats", "gaussian_clusters",
+                  "segmentation", "pred_masks", "segment_objects", text):
+            got = len([f for f in os.listdir(os.path.join(base, s))
+                       if f.endswith(".png")])
+            want = 1 if s == "canonical" else nv
+            assert got == want, (split_name, s, got, want)
+            pngs[f"{split_name}/{s}"] = got
+        videos += len([f for f in os.listdir(base) if f.endswith(".mp4")])
+    # per view: renders, rendered_feats, segmentation, pred_masks,
+    # segment_objects, the text-prompt object (2); canonical once per split
+    views = n_train + n_test
+    assert launches == dict(composite_fwd=7 * views + 2, composite_bwd=0,
+                            reduce_pair_grads=0, deform_mlp=0), launches
+
+    bench = os.path.join(root, "benchmark")
+    for sub in ("gt_masks", "gt_masks_object"):
+        os.makedirs(os.path.join(bench, sub))
+    for i in range(n_test):
+        m = decode_mask_file(os.path.join(src, "images", "masks",
+                                          f"test_{i:04d}.npz"))[0]
+        with Image.open(os.path.join(src, "images",
+                                     f"test_{i:04d}.png")) as im:
+            img = np.asarray(im.convert("RGB"))
+        Image.fromarray((m * 255).astype(np.uint8)).save(
+            os.path.join(bench, "gt_masks", f"{i:05d}.png"))
+        Image.fromarray((img * m[..., None]).astype(np.uint8)).save(
+            os.path.join(bench, "gt_masks_object", f"{i:05d}.png"))
+    t0 = time.perf_counter()
+    metrics_cli.main(["-m", seg, "--benchmark_path", bench, "--device",
+                      dev.type])
+    out["metrics_cli_s"] = time.perf_counter() - t0
+    with open(os.path.join(seg, "results.json")) as f:
+        results = json.load(f)[f"ours_{it}"]
+    for k in ("mIOU", "mACC"):
+        assert 0.0 <= results[k] <= 1.0, (k, results[k])
+    for k in ("SSIM", "PSNR"):
+        assert np.isfinite(results[k]), (k, results[k])
+    out.update(segment_id=sid, segment_size=int((ids == sid).sum()),
+               png_counts=pngs, videos=videos, results=results,
+               launches=launches, layouts=layouts,
+               launches_per_view=(launches["composite_fwd"] - 2) / views)
+    return out
+
+
+def kmeans_phase(params, n, dev) -> dict:
+    """kmeans_cluster on the bench scene's n x 32 features (KMEANS_K
+    clusters, KMEANS_ITERS iterations, on the card): host-clock seconds of
+    the whole call and of the k-means++ init on the host, and the Lloyd
+    iterations' device time (CUDA events)."""
+    from trase_tpu_torch.cluster import clustering as CL
+
+    feats = params.gaussian_features[:n].cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, _, centers = CL.kmeans_cluster(feats, k=KMEANS_K,
+                                        iters=KMEANS_ITERS, device=dev)
+    seconds = time.perf_counter() - t0
+    assert ids.shape == (n,) and 0 <= ids.min() and ids.max() < KMEANS_K
+    assert np.isfinite(centers).all()
+    xn = CL._normalize(feats).astype(np.float32)
+    t0 = time.perf_counter()
+    init = CL.kmeans_init(xn, KMEANS_K, 0)
+    init_s = time.perf_counter() - t0
+    x = torch.from_numpy(xn).to(dev)
+    c0 = torch.from_numpy(init).to(dev)
+    return {"points": n, "k": KMEANS_K, "iterations": KMEANS_ITERS,
+            "seconds": seconds, "init_seconds": init_s,
+            "lloyd_ms": cuda_ms(lambda: CL.lloyd(x, c0, KMEANS_ITERS), 2),
+            "nonempty_clusters": int((np.bincount(
+                ids, minlength=KMEANS_K) > 0).sum())}
 
 
 def train_state(params, aux, net):
@@ -1031,7 +1391,7 @@ def train_step_phase(params, aux, cam, net, cfg, dev) -> dict:
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     launches, layouts = counts(), layout_counts()
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
-    assert launches == dict.fromkeys(launches, n_steps), launches
+    assert launches == dict(compositor(n_steps), deform_mlp=0), launches
     assert layouts == {"composite_fwd/4/0/1/1": n_steps,
                        "composite_bwd/4/0/1/0": n_steps,
                        "reduce_pair_grads/10": n_steps}, layouts
@@ -1181,7 +1541,7 @@ def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
         launches, layouts = counts(), layout_counts()
-        assert launches == dict.fromkeys(launches, n_steps), launches
+        assert launches == dict(compositor(n_steps), deform_mlp=0), launches
         want = {"composite_fwd/32/16/0/1": n_steps,
                 f"composite_bwd/32/16/0/{int(not stats)}": n_steps,
                 "reduce_pair_grads/38": n_steps}
@@ -1274,7 +1634,7 @@ def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
         TT.feature_phase_step = feature
     seconds = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
-    assert launches == dict.fromkeys(launches, it), launches
+    assert launches == dict(compositor(it), deform_mlp=0), launches
     block = CLI_INTERVAL + 1
     n_feature = 2 * block
     n_stats = block + CLI_DENSIFY_UNTIL - (CLI_FEATURE_FROM + 2 * block)

@@ -1,8 +1,9 @@
-"""The CUDA kernels (trase_tpu_torch/csrc/composite_fwd.cu, composite_bwd.cu)
-against their plain PyTorch versions on the card, in the GAUSSIAN step's
-layout (rgb + depth) and the FEATURE step's (32 features alone, unpacked
-and bf16-packed, full and values-only backward). Imports no jax, so it
-runs on the machine with the card:
+"""The CUDA kernels (trase_tpu_torch/csrc/composite_fwd.cu, composite_bwd.cu,
+deform_mlp.cu) against their plain PyTorch versions on the card: the
+compositor in the GAUSSIAN step's layout (rgb + depth) and the FEATURE
+step's (32 features alone, unpacked and bf16-packed, full and values-only
+backward), and the fused deform MLP. Imports no jax, so it runs on the
+machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -228,3 +229,39 @@ def test_cuda_features_only_backward_matches_plain(pack):
     assert not bool(got[True][:, :6].any())
     assert torch.equal(got[True][:, 6:], got[False][:, 6:])
     assert bool(got[False][:, :6].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,model_type", [
+    (300, "DeformNetwork"), (4096 + 7, "DeformNetwork"),
+    (300, "DeformStaticNetwork"), (300, "DeformDynamicNetwork")])
+def test_deform_mlp_matches_plain(n, model_type):
+    """The fused deform MLP kernel against fused_deform_mlp_plain on the
+    same embedding (ragged last tiles; input widths 84, 68 and 128): bf16
+    operands with float32 sums in another order, so an activation near a
+    bf16 rounding boundary may round the other way: 1e-2 of each head's
+    scale. One launch, counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.models.deform import (
+        deform_step, frequency_embed, init_deform, make_deform_network)
+    from trase_tpu_torch.ops import mlp_cuda as TM
+
+    net = init_deform(make_deform_network(model_type, device="cuda"),
+                      torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    xyz = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                       device="cuda")
+    t = torch.full((n, 1), 0.42, device="cuda")
+    emb = torch.cat([frequency_embed(xyz, net.multires),
+                     frequency_embed(t, net.t_multires)], 1)
+    key = ("deform_mlp",)
+    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    got = deform_step(net, xyz, t, fused=True)
+    torch.cuda.synchronize()
+    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
+    ref = TM.fused_deform_mlp_plain(net, emb)
+    for a, b in zip(ref, got):
+        assert b.shape == a.shape and bool(torch.isfinite(b).all())
+        err = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-6)
+        assert err <= 1e-2, err

@@ -1,11 +1,13 @@
 """trase_tpu_torch — the PyTorch / CUDA port of ``trase_tpu``.
 
 A second package beside the JAX reference, mirroring its module names so
-each counterpart is easy to find. Plain tensor code is PyTorch; the
-Pallas compositor and its gradient are hand-written CUDA kernels for
-Hopper (``ops/rasterize_cuda.py`` + ``csrc/composite_fwd.cu``,
-``csrc/composite_bwd.cu``). The package imports torch and numpy only:
-never jax, flax or ``trase_tpu``.
+each counterpart is easy to find. Plain tensor code is PyTorch; every
+Pallas kernel of trase_tpu is a hand-written CUDA kernel for Hopper: the
+compositor and its gradient (``ops/rasterize_cuda.py`` +
+``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) and the fused
+deform MLP (``ops/mlp_cuda.py`` + ``csrc/deform_mlp.cu``). The package
+imports torch and numpy only (sklearn for HDBSCAN clustering): never
+jax, flax or ``trase_tpu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where every kernel is replaced by its plain PyTorch version.

@@ -13,7 +13,9 @@ deform/iteration_N/deform.pkl) load with ``load_flax_params``;
 ``flax_variables`` writes them back in that layout. ``dtype=
 torch.bfloat16`` runs the hidden stack in bf16 (the GAUSSIAN training
 step always does, as trase_tpu's does); parameters, the frequency
-embedding and the output heads stay float32.
+embedding and the output heads stay float32. ``deform_step(fused=True)``
+runs the standard network's inference through the fused MLP kernel
+(ops/mlp_cuda.py).
 """
 from __future__ import annotations
 
@@ -202,10 +204,27 @@ def flax_variables(model: DeformNetwork) -> dict:
 
 
 def deform_step(model: DeformNetwork, xyz: torch.Tensor, t: torch.Tensor,
-                features: torch.Tensor | None = None, dtype=None):
+                features: torch.Tensor | None = None, dtype=None,
+                fused: bool = False):
     """Functional `DeformModel.step` (scene/deform_model.py:34-35):
     (d_xyz, d_rotation, d_scaling) for every gaussian at time `t`;
-    `dtype=torch.bfloat16` runs the hidden stack in bf16."""
+    `dtype=torch.bfloat16` runs the hidden stack in bf16.
+
+    `fused=True` (inference only) runs the standard architecture through
+    the fused MLP (ops/mlp_cuda.py): the kernel csrc/deform_mlp.cu on
+    CUDA tensors, its plain version on CPU tensors; the embedding is
+    built here in float32, as trase_tpu builds it. Variants the kernel
+    does not compute (fused_available) take the module path, as in
+    trase_tpu."""
+    if fused and features is None:
+        from ..ops import mlp_cuda
+
+        if mlp_cuda.fused_available(model):
+            emb = torch.cat([frequency_embed(xyz, model.multires),
+                             frequency_embed(t, model.t_multires)], dim=-1)
+            fn = (mlp_cuda.fused_deform_mlp_plain
+                  if emb.device.type == "cpu" else mlp_cuda.fused_deform_mlp)
+            return fn(model, emb)
     if model.feature_dim:
         return model(xyz, t, features, dtype=dtype)
     return model(xyz, t, dtype=dtype)

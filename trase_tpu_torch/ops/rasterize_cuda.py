@@ -26,6 +26,10 @@ and serving) or the features alone (``with_color=False``, the FEATURE
 step), each with the features unpacked or bf16-packed two per word. The
 backward also has a values-only mode (``grad_values_only``): exact zeros
 for the geometry, the FEATURE step's after densification ends.
+
+``build_library`` builds every csrc/*.cu source, the fused deform MLP's
+(ops/mlp_cuda.py) included, and ``LAYOUT_LAUNCHES`` counts every kernel's
+launches.
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ BWD_SUPPORTED = frozenset({(4, 0, True), (32, 0, False), (32, 16, False)})
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("composite_fwd", "composite_bwd")}
+           for name in ("composite_fwd", "composite_bwd", "deform_mlp")}
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
@@ -75,7 +79,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches made by the wrappers (the CUDA path only), by
 # instantiation: one is added where each kernel is launched, nowhere else.
 # Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
-# for the compositor kernels, (kernel, words) for the reduce.
+# for the compositor kernels, (kernel, words) for the reduce and
+# ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py).
 LAYOUT_LAUNCHES: dict = {}
 
 _LIBS: dict = {}
@@ -581,6 +586,9 @@ _ARGTYPES = {
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                       + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
                       + [ctypes.c_void_p] * 3),
+    "deform_mlp": ("trase_deform_mlp",
+                   [ctypes.c_void_p] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 10),
 }
 
 

@@ -1,20 +1,23 @@
 """Offline rendering CLI of the port: ``python -m trase_tpu_torch.render``.
 
 Counterpart of the repository's root render.py: loads a model directory
-written by the JAX trainer (point_cloud/iteration_N/point_cloud.ply,
-deform/iteration_N/deform.pkl, cfg_args.json), runs the deform MLP per
-view and renders on the card (``--device cuda``, the default) or on the
-CPU (``--device cpu``). Per split it writes the streams
+(point_cloud/iteration_N/point_cloud.ply, deform/iteration_N/deform.pkl,
+cfg_args.json and, where the cluster CLI wrote them, clusters.pt /
+clusters_kmeans.pt), runs the deform MLP per view and renders on the card
+(``--device cuda``, the default) or on the CPU (``--device cpu``). Per
+split, at the same paths and names as render.py, it writes under
+<model>/<split>/ours_<iter>/
 
-    <model>/<split>/ours_<iter>/renders/      deformed view
-    <model>/<split>/ours_<iter>/gt/           ground truth
-    <model>/<split>/ours_<iter>/rendered_feats/  PCA of the 3D features
-                                                  (+ gaussian_feats3d.npy)
-    <model>/<split>/ours_<iter>/canonical/    undeformed first view
+    renders/  gt/  canonical/ (first view, undeformed)
+    rendered_feats/ (PCA of the 3D features, + gaussian_feats3d.npy)
+    pointcloud/  gaussian_feats/  gaussian_clusters/  (one-pixel splats)
+    segmentation/ (cluster colours rendered)
+    pred_masks/ + segment_objects/     with --segment_ids (Mask-Benchmark)
+    text_prompt_<tag>_objects/         with --text_prompt_mask <png>
 
-at the same paths and names as render.py. Its cluster, segmentation,
---segment_ids, text-prompt, point-cloud and video streams are not ported
-yet: they are skipped with a printed note.
+and an mp4 of every stream (video_<stream>.mp4). ``--text_prompt``
+needs Grounded-SAM, which is not part of the port: it prints
+trase_tpu's warning and uses --text_prompt_mask when one is given.
 """
 from __future__ import annotations
 
@@ -27,9 +30,43 @@ import torch
 from . import resolve_device
 from .config import ModelParams, PipelineParams, get_combined_args
 
-SKIPPED_STREAMS = ("pointcloud, gaussian_feats, gaussian_clusters, "
-                   "segmentation, segment_objects, pred_masks, "
-                   "text-prompt objects and videos")
+
+def load_cluster_table(cdir: str, capacity: int, use_kmeans: bool):
+    """(ids (capacity,) int64, -1 past the file's rows; rgb (capacity, 3)
+    float32) from clusters.pt, else clusters_kmeans.pt (only the latter
+    with `use_kmeans`), or (None, None) without either (render.py:55-71)."""
+    from .cluster import load_clusters
+
+    for name in (("clusters_kmeans.pt",) if use_kmeans
+                 else ("clusters.pt", "clusters_kmeans.pt")):
+        p = os.path.join(cdir, name)
+        if os.path.exists(p) or os.path.exists(p + ".npz"):
+            ids, rgb = load_clusters(p)
+            cluster_ids = np.full(capacity, -1, np.int64)
+            cluster_ids[:len(ids)] = ids
+            cluster_rgb = np.zeros((capacity, 3), np.float32)
+            cluster_rgb[:len(rgb)] = rgb
+            print(f"Load clusters from {name}")
+            return cluster_ids, cluster_rgb
+    print("[Warning] No clusters found...")
+    return None, None
+
+
+def select_gaussians(cluster_ids, feats, ids, score_threshold):
+    """Union over `ids` of each cluster's members whose feature lies
+    within `score_threshold` cosine of the cluster's mean feature
+    (render.py:163-176, 218-226); None when no id has a member."""
+    from .cluster import postprocessing
+
+    selected = None
+    for sid in ids:
+        pre = cluster_ids == sid
+        if not pre.any():
+            continue
+        post = pre & postprocessing(feats, feats[pre].mean(axis=0),
+                                    score_threshold=score_threshold)
+        selected = post if selected is None else selected | post
+    return selected
 
 
 @torch.no_grad()
@@ -37,9 +74,11 @@ def render_sets(args):
     from .data.scene import Scene
     from .models.deform import deform_step, load_flax_params, make_deform_network
     from .models.gaussians_io import load_checkpoint
+    from .ops.knn import knn
     from .ops.rasterize import RasterConfig
     from .renderer import render
-    from .viz import AsyncImageWriter, feature3d_to_rgb
+    from .viz import (AsyncImageWriter, feature3d_to_rgb, point_splat, to8b,
+                      write_video)
 
     device = resolve_device(args.device)
     dataset = ModelParams.extract(args)
@@ -50,11 +89,9 @@ def render_sets(args):
     n = scene.n_gaussians
     capacity = params.xyz.shape[0]
 
-    print(f"[note] not ported yet, skipped: {SKIPPED_STREAMS}")
-    if getattr(args, "segment_ids", None) is not None \
-            or args.text_prompt or args.text_prompt_mask:
-        print("[note] --segment_ids / --text_prompt / --text_prompt_mask "
-              "are not ported yet; ignored")
+    cluster_ids, cluster_rgb = load_cluster_table(
+        os.path.join(dataset.model_path, "point_cloud", f"iteration_{it}"),
+        capacity, args.use_kmeans)
 
     deform_net = make_deform_network(
         args.model_type, is_blender=dataset.is_blender,
@@ -68,32 +105,73 @@ def render_sets(args):
         print(f"[Warning] no deform weights at {dpath}; rendering "
               "canonical only")
 
-    bg = torch.tensor([1.0, 1.0, 1.0] if dataset.white_background
-                      else [0.0, 0.0, 0.0], dtype=torch.float32,
-                      device=device)
+    white = dataset.white_background
+    bg = torch.tensor([1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0],
+                      dtype=torch.float32, device=device)
     cfg = RasterConfig(pairs_per_gaussian=args.pairs_per_gaussian,
                        max_per_tile=args.max_per_tile,
                        pack_features=args.pack_features)
     feats = params.gaussian_features
+    feats_np = feats.cpu().numpy()
     pca_full = torch.zeros((capacity, 3), dtype=torch.float32, device=device)
     pca_full[:n] = feature3d_to_rgb(feats[:n])
+    pca_np = pca_full[:n].cpu().numpy()
+    cluster_rgb_t = None
+    if cluster_rgb is not None:
+        cluster_rgb_t = torch.from_numpy(cluster_rgb).to(device)
+    ones = torch.ones((capacity, 3), dtype=torch.float32, device=device)
 
-    def render_frame(d, cam, override_color=None):
-        return render(cam.to_render_camera(device), params, aux.alive, bg,
-                      *d, is_6dof=dataset.is_6dof,
-                      sh_degree=dataset.sh_degree,
-                      override_color=override_color, with_features=False,
-                      raster_cfg=cfg)
+    def render_frame(d, cam, override_color=None, mask=None, bg_color=None):
+        return render(cam.to_render_camera(device), params, aux.alive,
+                      bg if bg_color is None else bg_color, *d,
+                      is_6dof=dataset.is_6dof, sh_degree=dataset.sh_degree,
+                      override_color=override_color, mask=mask,
+                      with_features=False, raster_cfg=cfg)
+
+    def binarized(img):
+        """(3,H,W) -> 0/1 image and its per-pixel inlier mask
+        (render.py:296-299)."""
+        buf = img.cpu().numpy().copy()
+        buf[buf < 0.5] = 0
+        buf[buf != 0] = 1
+        return buf, buf.mean(axis=0).astype(bool)
 
     def run_split(name, views):
         if not views:
             return
         base = os.path.join(dataset.model_path, name, f"ours_{it}")
-        for s in ("renders", "gt", "rendered_feats", "canonical"):
+        streams = ["renders", "gt", "rendered_feats", "canonical",
+                   "pointcloud", "gaussian_clusters", "segmentation",
+                   "gaussian_feats", "segment_objects", "pred_masks"]
+        text_stream = None
+        if args.text_prompt or args.text_prompt_mask:
+            tag = args.text_prompt or os.path.splitext(
+                os.path.basename(args.text_prompt_mask))[0]
+            text_stream = f"text_prompt_{tag}_objects"
+            streams.append(text_stream)
+        for s in streams:
             os.makedirs(os.path.join(base, s), exist_ok=True)
+        videos = {s: [] for s in streams}
         writer = AsyncImageWriter(multithread=args.multithread_save)
+
+        def save(stream, idx, img, video=True):
+            writer.submit(os.path.join(base, stream, f"{idx:05d}.png"), img)
+            if video:
+                videos[stream].append(to8b(img))
+
         np.save(os.path.join(base, "rendered_feats", "gaussian_feats3d.npy"),
-                feats[:n].cpu().numpy())
+                feats_np[:n])
+        H, W = views[0].image_height, views[0].image_width
+
+        segmented_mask = None
+        # a saved cfg merged by get_combined_args drops unset options
+        segment_ids = getattr(args, "segment_ids", None)
+        if segment_ids is not None and cluster_ids is not None:
+            sel = select_gaussians(cluster_ids, feats_np, segment_ids,
+                                   args.score_threshold)
+            if sel is not None:
+                segmented_mask = torch.from_numpy(sel).to(device)
+        text_mask = None
         print(f"Rendering {name}: {len(views)} views")
         for idx, view in enumerate(views):
             if has_deform:
@@ -108,16 +186,49 @@ def render_sets(args):
                 d = (0.0, 0.0, 0.0)
 
             out = render_frame(d, view)
-            writer.submit(os.path.join(base, "renders", f"{idx:05d}.png"),
-                          out["render"])
-            rf = render_frame(d, view, override_color=pca_full)
-            writer.submit(os.path.join(base, "rendered_feats",
-                                       f"{idx:05d}.png"), rf["render"])
+            save("renders", idx, out["render"])
+            deformed = params.xyz + (d[0] if has_deform else 0.0)
+
+            # text prompt -> 3D cluster lookup on the first frame
+            if idx == 0 and (args.text_prompt_mask or args.text_prompt):
+                mask2d = _resolve_text_mask(args)
+                if mask2d is not None and cluster_ids is not None:
+                    pts3d = _unproject(mask2d, out["depth"][0].cpu().numpy(),
+                                       view)
+                    _, nn_idx = knn(torch.as_tensor(
+                        pts3d, dtype=torch.float32, device=device),
+                        deformed, k=1)
+                    cls = cluster_ids[nn_idx[:, 0].cpu().numpy()]
+                    counts = np.bincount(cls[cls >= 0])
+                    text_cls_ids = np.nonzero(
+                        counts > args.threshold)[0].tolist()
+                    print("Text prompt cls id: ", text_cls_ids)
+                    sel = select_gaussians(cluster_ids, feats_np,
+                                           text_cls_ids,
+                                           args.score_threshold)
+                    if sel is not None:
+                        text_mask = torch.from_numpy(sel).to(device)
+
+            save("rendered_feats", idx,
+                 render_frame(d, view, override_color=pca_full)["render"])
+
+            # point splats of the deformed means
+            dn = deformed[:n].cpu().numpy()
+            fp = view.to_render_camera(device).buffers.full_proj
+            save("pointcloud", idx, point_splat(dn, fp, H, W, None, white))
+            save("gaussian_feats", idx,
+                 point_splat(dn, fp, H, W, pca_np, white))
+            if cluster_rgb is not None:
+                save("gaussian_clusters", idx, point_splat(
+                    dn, fp, H, W, cluster_rgb[:n], white))
+                save("segmentation", idx, render_frame(
+                    d, view, override_color=cluster_rgb_t)["render"])
+
             if idx == 0:
-                canon = render_frame((0.0, 0.0, 0.0), view)
-                writer.submit(os.path.join(base, "canonical",
-                                           f"{idx:05d}.png"),
-                              canon["render"])
+                save("canonical", idx,
+                     render_frame((0.0, 0.0, 0.0), view)["render"],
+                     video=False)
+
             gt = view.image
             if gt is None and view.image_path:
                 from PIL import Image as PILImage
@@ -126,13 +237,69 @@ def render_sets(args):
                     gt = np.asarray(im.convert("RGB"),
                                     np.float32).transpose(2, 0, 1) / 255.0
             if gt is not None:
-                writer.submit(os.path.join(base, "gt", f"{idx:05d}.png"), gt)
+                save("gt", idx, gt)
+
+            # --segment_ids -> pred_masks + segment_objects
+            # (render.py:289-309)
+            if segmented_mask is not None:
+                buf, inlier = binarized(render_frame(
+                    d, view, override_color=ones, mask=segmented_mask,
+                    bg_color=torch.zeros_like(bg))["render"])
+                save("pred_masks", idx, buf)
+                so = render_frame(d, view, mask=segmented_mask)[
+                    "render"].cpu().numpy().copy()
+                so[:, ~inlier] = 1.0 if white else 0.0
+                save("segment_objects", idx, so)
+
+            # the text-prompt object (render.py:311-328): binarized white
+            # render -> inlier mask -> masked RGB on the background colour
+            if text_mask is not None and text_stream is not None:
+                _, t_inlier = binarized(render_frame(
+                    d, view, override_color=ones, mask=text_mask)["render"])
+                to_img = render_frame(d, view, mask=text_mask)[
+                    "render"].cpu().numpy().copy()
+                to_img[:, ~t_inlier] = 1.0 if white else 0.0
+                save(text_stream, idx, to_img)
+
         writer.close()
+        for s, frames in videos.items():
+            if frames:
+                write_video(os.path.join(base, f"video_{s}.mp4"), frames)
 
     if not args.skip_train:
         run_split("train", scene.get_train_cameras())
     if not args.skip_test:
         run_split("test", scene.get_test_cameras())
+
+
+def _resolve_text_mask(args):
+    """The 2D text mask: a mask PNG (--text_prompt_mask). Grounded-SAM
+    (--text_prompt) is not part of the port; it warns as trase_tpu does
+    where those packages are absent."""
+    if args.text_prompt:
+        print("[Warning] Grounded-SAM unavailable; pass "
+              "--text_prompt_mask <png> instead")
+    if args.text_prompt_mask:
+        from PIL import Image as PILImage
+
+        with PILImage.open(args.text_prompt_mask) as im:
+            return np.asarray(im.convert("L")) > 127
+    return None
+
+
+def _unproject(mask2d, depth, view):
+    """World points of the masked pixels from the rendered depth
+    (render.py:360-374), on the host in float64."""
+    rc = view.to_render_camera("cpu")
+    H, W = view.image_height, view.image_width
+    ys, xs = np.nonzero(mask2d)
+    d = depth[ys, xs]
+    znear, zfar = view.znear, view.zfar
+    z = zfar / (zfar - znear) * d - zfar * znear / (zfar - znear)
+    uvz = np.stack([((xs - 0.5) / W * 2 - 1) * d,
+                    ((ys - 0.5) / H * 2 - 1) * d, z, d], axis=1)
+    inv = np.linalg.inv(rc.buffers.full_proj.numpy())
+    return (uvz @ inv)[:, :3]
 
 
 def main(argv=None):

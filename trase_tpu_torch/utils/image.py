@@ -1,16 +1,28 @@
-"""Bilinear resize as two matrix products (the FEATURE loss's resample).
+"""Image metrics and the bilinear resize as two matrix products.
 
-Counterpart of trase_tpu/utils/image.py:54-87 (``_lerp_matrix``,
-``bilinear_resize_mm``): torch.nn.functional.interpolate(mode="bilinear",
-align_corners=False, antialias=False), the reference's feature-image
-resample (train.py:284), written as two contractions against static
-2-tap lerp matrices, so that its gradient is two dense products too.
+Counterpart of trase_tpu/utils/image.py: ``mse`` / ``psnr`` (:13-19,
+reference utils/image_utils.py: per image, flattened over pixels,
+keeping the batch dimension) and, at :54-87, ``_lerp_matrix`` /
+``bilinear_resize_mm``, the FEATURE loss's resample:
+torch.nn.functional.interpolate(mode="bilinear", align_corners=False,
+antialias=False), the reference's feature-image resample (train.py:284),
+written as two contractions against static 2-tap lerp matrices, so that
+its gradient is two dense products too.
 float32 products with TF32 off (trase_tpu_torch turns it off at import).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def mse(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    return ((img1 - img2) ** 2).reshape(img1.shape[0], -1).mean(
+        1, keepdim=True)
+
+
+def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    return 20 * torch.log10(1.0 / torch.sqrt(mse(img1, img2)))
 
 
 def _lerp_matrix(out_size: int, in_size: int) -> np.ndarray:

@@ -1,9 +1,11 @@
 """Visualization helpers for the render CLI.
 
-Counterpart of trase_tpu/viz.py:15,69-112 (reference render.py:46-106):
-QR+SVD PCA of 3D gaussian features to RGB, float-to-uint8 conversion
-and the threaded PNG writer. The point splat and video streams belong
-to a later slice.
+Counterpart of trase_tpu/viz.py:15-150 (reference render.py:46-106,
+246-296): QR+SVD PCA of 3D gaussian features (``feature3d_to_rgb``) and of
+a rendered feature map (``feature_to_rgb``), the one-pixel point splat of
+the pointcloud / gaussian_clusters / gaussian_feats streams, float-to-
+uint8 conversion, the threaded PNG writer, mp4 videos and the jet
+colormap. The polyline overlay (``draw_polylines``) belongs to the viewer.
 """
 from __future__ import annotations
 
@@ -22,12 +24,50 @@ def feature3d_to_rgb(x: torch.Tensor, n_components: int = 3) -> torch.Tensor:
     return (pca - pca.min()) / (pca.max() - pca.min() + 1e-12)
 
 
+def feature_to_rgb(feats: torch.Tensor, n_components: int = 3) -> torch.Tensor:
+    """(F, H, W) rendered feature map -> (3, H, W) PCA visualization."""
+    f, h, w = feats.shape
+    rgb = feature3d_to_rgb(feats.reshape(f, -1).T, n_components)  # (HW, 3)
+    return rgb.T.reshape(3, h, w)
+
+
+def _np(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def point_splat(points3d, full_proj, image_height: int, image_width: int,
+                colors=None, white_background: bool = False) -> np.ndarray:
+    """One-pixel point rendering (render.py:246-296) on the host:
+    points3d (N, 3) deformed positions, full_proj (4, 4) row-vector
+    projection, colors (N, 3) or None (white on black, black on white).
+    Returns (3, H, W) float32."""
+    pts = _np(points3d)
+    hom = np.concatenate([pts, np.ones_like(pts[:, :1])], axis=1)
+    p = hom @ _np(full_proj)
+    xy = p[:, :2] / (p[:, 3:4] + 1e-9)
+    xy = (xy + 1) / 2 * np.array([image_width, image_height])
+
+    bg = 1.0 if white_background else 0.0
+    img = np.full((3, image_height, image_width), bg, np.float32)
+    ok = ((xy[:, 0] > 0) & (xy[:, 0] < image_width)
+          & (xy[:, 1] > 0) & (xy[:, 1] < image_height) & (p[:, 3] > 0))
+    xs = xy[ok, 0].astype(np.int64)
+    ys = xy[ok, 1].astype(np.int64)
+    if colors is None:
+        img[:, ys, xs] = 0.0 if white_background else 1.0
+    else:
+        c = _np(colors)[ok]
+        img[0, ys, xs] = c[:, 0]
+        img[1, ys, xs] = c[:, 1]
+        img[2, ys, xs] = c[:, 2]
+    return img
+
+
 def to8b(x) -> np.ndarray:
     """(3,H,W) float (array or tensor) -> (H,W,3) uint8 (render.py:106)."""
-    if torch.is_tensor(x):
-        x = x.detach().cpu().numpy()
-    return (255 * np.clip(np.asarray(x), 0, 1)).astype(np.uint8).transpose(
-        1, 2, 0)
+    return (255 * np.clip(_np(x), 0, 1)).astype(np.uint8).transpose(1, 2, 0)
 
 
 def save_image(path: str, img) -> None:
@@ -66,3 +106,45 @@ class AsyncImageWriter:
             f.result()
         if self._pool is not None:
             self._pool.shutdown()
+
+
+def write_video(path: str, frames, fps: int = 30) -> None:
+    """frames: list of (H,W,3) uint8; every second frame to an mp4, via
+    imageio where it is installed, else cv2; a failed write is reported
+    and skipped, as trase_tpu's."""
+    if not frames:
+        return
+    try:
+        import imageio
+
+        imageio.mimwrite(path, frames[::2], fps=fps, quality=8)
+        return
+    except Exception:  # noqa: BLE001 — no imageio, or no ffmpeg backend
+        pass
+    try:
+        import cv2
+
+        h, w = frames[0].shape[:2]
+        vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (w, h))
+        for f in frames[::2]:
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
+    except Exception as e:  # noqa: BLE001
+        print(f"[viz] video write failed ({e}); skipping {path}")
+
+
+def jet_colors(n: int) -> np.ndarray:
+    """(n, 3) jet colormap in [0,1] (reference gui.py:1168 cm 'jet');
+    matplotlib's where it is installed, else the piecewise-linear jet."""
+    try:
+        from matplotlib import cm
+
+        return np.array([cm.get_cmap("jet")(i / max(1, n - 1))[:3]
+                         for i in range(n)], np.float32)
+    except Exception:  # noqa: BLE001 — matplotlib-free fallback
+        x = np.linspace(0.0, 1.0, n, dtype=np.float32)
+        r = np.clip(1.5 - np.abs(4 * x - 3), 0, 1)
+        g = np.clip(1.5 - np.abs(4 * x - 2), 0, 1)
+        b = np.clip(1.5 - np.abs(4 * x - 1), 0, 1)
+        return np.stack([r, g, b], axis=1)
