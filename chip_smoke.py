@@ -24,8 +24,14 @@ JSON line per phase:
                 reverse walk reconstructs at each tile's first pair against
                 log 1 = 0: 4 values at both scenes; 32 features alone,
                 full and values-only (geometry exactly 0, values equal to
-                the full mode's), unpacked and packed at the small scene
-                and packed at the full one;
+                the full mode's), unpacked and packed at both scenes;
+                each kernel launched twice (bit-identical); at the full
+                scene the median and range of 5 rounds of 20 launches each
+                (device time, queued behind a sleep kernel; the reduce and
+                index_add_ interleaved, also paced by the host), the
+                bounds, and the backward's shuffle floor from its 8-pair
+                sub-batches (beside that of a warp-wide all-reduce per
+                word, from the (pair, warp) steps with a counted lane);
    deform-mlp   the fused deform MLP kernel (deform_mlp) against its plain
                 version and the float32 module at 300 rows and at the
                 bench scene's 131072; times of the kernel, the plain
@@ -102,6 +108,15 @@ TOL = {"render": 1e-5, "feats": 1e-5, "alpha": 1e-5, "depth": 1e-4}
 # magnitude. The reduce kernel sums in the plain version's order: exact.
 BWD_TOL = 1e-4
 LOGT_FIRST_TOL = 1e-3  # |T reconstructed at a tile's first pair - 1|
+# the backward's shuffle floor, a model beside its time: one warp-wide
+# shuffle per SM per clock (CUDA C Programming Guide, arithmetic throughput
+# table, cc 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost clock; the
+# kernel's pairs per staged batch and per product sub-batch, warps per tile
+SMS, SM_CLOCK_HZ = 132, 1.98e9
+BWD_BATCH, BWD_SUB, BWD_WARPS = 64, 8, 8
+# repeated kernel timing: rounds, launches per round; a sleep kernel of
+# ~20 ms at 1.98 GHz holds the stream while the host enqueues a round
+TIMING_REPS, TIMING_ITERS, SLEEP_CYCLES = 5, 20, 40_000_000
 # the fused deform MLP: bf16 operands with float32 sums in another order
 # than the plain version's, so activations near a bf16 rounding boundary
 # round the other way: max abs difference over each head's largest
@@ -161,6 +176,41 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Device time per call of fn() over `iters` back-to-back calls (CUDA
+    events): a sleep kernel holds the stream while the host enqueues the
+    calls, so the host's time per call cannot pace the device, as it
+    does in cuda_ms for a kernel shorter than its wrapper's host time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def repeated_ms(fns: dict, timer=queued_ms) -> dict:
+    """{name: {"median", "min", "max", "rounds"}} ms per call over
+    TIMING_REPS rounds; each round times every fn in turn (interleaved),
+    TIMING_ITERS calls each."""
+    times = {k: [] for k in fns}
+    for _ in range(TIMING_REPS):
+        for k, fn in fns.items():
+            times[k].append(timer(fn, TIMING_ITERS))
+    return {k: {"median": float(np.median(v)), "min": min(v), "max": max(v),
+                "rounds": v} for k, v in times.items()}
+
+
+def shuffle_floor_ms(steps: int, shuffles: int) -> float:
+    """The least time of `shuffles` warp shuffles in each of `steps`."""
+    return steps * shuffles / (SMS * SM_CLOCK_HZ) * 1e3
 
 
 def deltas(params, net, fid, fused=False):
@@ -439,8 +489,9 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
     """Forward residuals, backward kernel and reduce kernel against their
     plain versions on one input and one seeded cotangent, one row per
     backward mode (full; and values-only for the features-only layouts);
-    with `timed`, also times each and reckons the bounds from this
-    input's counts."""
+    each kernel launched twice (bit-identical results). With `timed`, also
+    times each (medians of repeated rounds) and reckons the bounds and the
+    backward's shuffle floor from this input's counts."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     ci = RC.composite_inputs(proj, feats, H, W, cfg._replace(
@@ -471,12 +522,16 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
         first = torch.empty_like(logt)
         dpair = RC.composite_bwd(*args, g, logt, stop, logt_first=first,
                                  **mode)
+        again = RC.composite_bwd(*args, g, logt, stop, **mode)
         torch.cuda.synchronize()
         stats = {}
         ref_pair = RC.composite_bwd_plain(*args, g, logt, stop, stats=stats,
                                           **mode)
         dpay = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
+        dpay_again = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
         torch.cuda.synchronize()
+        same = {"composite_bwd": torch.equal(again[:nv], dpair[:nv]),
+                "reduce_pair_grads": torch.equal(dpay_again, dpay)}
         same_input = RC.reduce_pair_grads_plain(dpair, inv, ci.tile_start, n)
         chain = RC.reduce_pair_grads_plain(ref_pair, inv, ci.tile_start, n)
         checked = {k: v for k, v in groups.items()
@@ -504,9 +559,11 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                "t_first_max_err": float((first.exp() - 1.0).abs().max()),
                "logt_first_vs_plain": float(
                    (first - stats["logt_first"]).abs().max()),
+               "bit_identical_relaunch": same,
                "tol": {"fwd": TOL["depth"], "bwd_rel": BWD_TOL,
                        "reduce": 0.0, "t_first": LOGT_FIRST_TOL}}
         bad = [k for k, v in pair_rel.items() if not v <= BWD_TOL]
+        bad += [f"{k} not bit-identical" for k, v in same.items() if not v]
         bad += [k for k, v in gauss_rel.items() if not v <= BWD_TOL]
         if values_only:
             row["geometry_max_abs"] = float(dpair[:nv, :6].abs().max())
@@ -519,8 +576,14 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                 bad.append("values-only contract")
         full_pair = dpair
         if timed:
-            row["bwd_ms"] = cuda_ms(lambda: RC.composite_bwd(
-                *args, g, logt, stop, **mode), 20)
+            t = repeated_ms({"composite_bwd": lambda: RC.composite_bwd(
+                *args, g, logt, stop, **mode)})["composite_bwd"]
+            row["bwd_ms"] = t["median"]
+            row["bwd_ms_repeats"] = t
+            walk = stop.reshape(-1, 256).amax(dim=1)
+            row["walk"] = {"tiles": walk.numel(), "max": int(walk.max()),
+                           "mean": float(walk.float().mean()),
+                           "p99": float(walk.float().quantile(0.99))}
             row["bwd_plain_ms"] = cuda_ms(lambda: RC.composite_bwd_plain(
                 *args, g, logt, stop, **mode), 1)
             nbytes = (nv * (4 * kpay.shape[1] + 4) + nv * 4 * words
@@ -528,14 +591,30 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                       + 4 * ci.tile_start.numel())
             per_counted = (5 + 2 * n_val) if values_only else 35 + 4 * n_val
             ops = 16 * stats["evaluated"] + per_counted * stats["counted"]
+            # the kernel's shuffles: every warp takes every 8-pair
+            # sub-batch below its tile's largest stop, and the geometry
+            # moments (and rgb + depth beside them) take two xor steps each
+            # in it; values-only takes none. A model of the design this
+            # kernel replaced: a warp-wide all-reduce (5 shuffles) per word
+            # summed, in every (pair, warp) step with a counted lane
+            sub_steps = BWD_WARPS * int(
+                ((walk // BWD_BATCH) * (BWD_BATCH // BWD_SUB)
+                 + (walk % BWD_BATCH + BWD_SUB - 1) // BWD_SUB).sum())
+            shuffles = 0 if values_only else 2 * (6 + (n_val if with_color
+                                                       else 0))
+            summed = words - 6 if values_only else words
             row.update(bwd_bytes=nbytes, bwd_ops=ops,
                        evaluated=stats["evaluated"], counted=stats["counted"],
+                       warp_steps=stats["warp_steps"],
+                       sub_batch_steps=sub_steps,
+                       shuffles_per_sub_batch=shuffles,
+                       shuffle_floor_ms=shuffle_floor_ms(sub_steps, shuffles),
+                       all_reduce_model_floor_ms=shuffle_floor_ms(
+                           stats["warp_steps"], 5 * summed),
                        **bound("bwd", nbytes, ops))
             if not values_only:
                 row["fwd_residuals_ms"] = cuda_ms(lambda: RC.composite_fwd(
                     *args, with_color=with_color, residuals=True), 20)
-                row["reduce_ms"] = cuda_ms(lambda: RC.reduce_pair_grads(
-                    dpair, inv, ci.tile_start, n), 20)
                 row["reduce_plain_ms"] = cuda_ms(
                     lambda: RC.reduce_pair_grads_plain(
                         dpair, inv, ci.tile_start, n), 3)
@@ -543,8 +622,16 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                 prows = dpair[:nv].contiguous()
                 acc = torch.zeros((n, words), device=dpair.device)
                 # the same sums as one PyTorch call (a yardstick only)
-                row["reduce_library_ms"] = cuda_ms(
-                    lambda: acc.index_add_(0, idx, prows), 20)
+                pair = {"reduce_pair_grads": lambda: RC.reduce_pair_grads(
+                    dpair, inv, ci.tile_start, n),
+                        "index_add_": lambda: acc.index_add_(0, idx, prows)}
+                # device time back to back, and as cuda_ms times them:
+                # launched as fast as the host enqueues them
+                t = repeated_ms(pair)
+                row["reduce_ms_repeats"] = {
+                    "queued": t, "host_paced": repeated_ms(pair, cuda_ms)}
+                row["reduce_ms"] = t["reduce_pair_grads"]["median"]
+                row["reduce_library_ms"] = t["index_add_"]["median"]
                 k = inv.numel() // n
                 rbytes = 4 * inv.numel() + nv * 4 * words + n * 4 * words
                 row.update(reduce_words=words, reduce_bytes=rbytes,
@@ -1107,7 +1194,8 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
             launches=launched(key),
             max_abs_err=max(r["bwd_max_abs_diff"].values()),
             max_rel_err=max(r["bwd_max_rel_diff"].values()),
-            ms=r["bwd_ms"], plain_ms=r["bwd_plain_ms"],
+            ms=r["bwd_ms"], ms_repeats=r["bwd_ms_repeats"],
+            plain_ms=r["bwd_plain_ms"],
             bound_ms=r["bwd_bound_ms"], bound_by=r["bwd_bound_by"],
             evaluated=r["evaluated"], counted=r["counted"]))
         if "reduce_ms" in r:
@@ -1127,7 +1215,8 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                 plain_ms=r["reduce_plain_ms"],
                 bound_ms=r["reduce_bound_ms"],
                 bound_by=r["reduce_bound_by"],
-                library_ms=r["reduce_library_ms"]))
+                library_ms=r["reduce_library_ms"],
+                ms_repeats=r["reduce_ms_repeats"]))
     fwd_err = max(max(r["max_abs_diff"].values()) for r in rows)
     fwd_err = max([fwd_err] + [max(r["fwd_residuals"]["image"],
                                    r["fwd_residuals"]["logt"])

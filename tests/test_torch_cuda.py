@@ -2,8 +2,10 @@
 deform_mlp.cu) against their plain PyTorch versions on the card: the
 compositor in the GAUSSIAN step's layout (rgb + depth) and the FEATURE
 step's (32 features alone, unpacked and bf16-packed, full and values-only
-backward), and the fused deform MLP. Imports no jax, so it runs on the
-machine with the card:
+backward), each backward instantiation on scenes built for its edges
+(long tiles, warps that stop far apart, empty tiles, early stops), the
+reduce at both widths, and the fused deform MLP. Imports no jax, so it
+runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -229,6 +231,186 @@ def test_cuda_features_only_backward_matches_plain(pack):
     assert not bool(got[True][:, :6].any())
     assert torch.equal(got[True][:, 6:], got[False][:, 6:])
     assert bool(got[False][:, :6].any())
+
+
+def _edge_scene(device, n_feat=32):
+    """Projected splats placed by hand at 48x64 (3x4 tiles) for the
+    backward's edges: tile 0 holds 400 faint wide splats (walks of 360-395
+    pairs: more than two 64-pair batches) behind 6 opaque ones that cover
+    only its first pixel rows (its warp 0 stops at pair 4, the other warps
+    past 350); tiles 5 and 6 hold 20 ordinary splats; the other 9 tiles are
+    empty; 4 invalid gaussians emit no pair."""
+    rng = np.random.default_rng(8)
+    parts = []
+
+    def add(n, mx, my, conic, op, radius, depth, valid=True):
+        parts.append(dict(mean2d=np.stack([mx, my], 1),
+                          conic=np.tile(conic, (n, 1)), opacity=op,
+                          radius=np.full(n, radius), depth=depth,
+                          valid=np.full(n, valid)))
+
+    add(400, rng.uniform(6, 10, 400), rng.uniform(6, 10, 400),
+        [0.004, 0.0, 0.004], rng.uniform(0.02, 0.04, 400), 5.0,
+        rng.uniform(2.0, 5.0, 400))
+    add(6, np.full(6, 8.0), np.full(6, 0.5), [0.001, 0.0, 1.0],
+        np.full(6, 0.999), 7.0, 1.0 + 0.01 * np.arange(6))
+    add(20, rng.uniform(20, 44, 20), rng.uniform(20, 28, 20),
+        [0.08, 0.01, 0.08], rng.uniform(0.3, 0.9, 20), 4.0,
+        rng.uniform(2.0, 5.0, 20))
+    add(4, rng.uniform(0, 64, 4), rng.uniform(0, 48, 4), [0.05, 0.0, 0.05],
+        np.full(4, 0.9), 4.0, np.full(4, 3.0), valid=False)
+    cat = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    n = len(cat["depth"])
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    proj = TP.ProjectedGaussians(
+        mean2d=t(cat["mean2d"]), depth=t(cat["depth"]),
+        conic=t(cat["conic"]), radius=t(cat["radius"]),
+        color=t(rng.uniform(size=(n, 3))), opacity=t(cat["opacity"]),
+        valid=t(cat["valid"], torch.bool))
+    f = rng.normal(size=(n, n_feat))
+    return proj, t(f / np.linalg.norm(f, axis=1, keepdims=True))
+
+
+def _saturated_scene(H, W, device):
+    """tests/test_torch_rasterize.py::saturated_scene through the port's
+    projection (the mirror of test_zombie_window_grads): large, nearly
+    opaque splats stacked in depth; every central pixel stops early."""
+    from trase_tpu_torch.renderer import make_render_camera
+
+    rng = np.random.default_rng(3)
+    n = 24
+    means = np.zeros((n, 3), np.float32)
+    means[:, :2] = rng.uniform(-0.3, 0.3, size=(n, 2))
+    means[:, 2] = np.linspace(-1.0, 1.0, n)
+    scales = np.full((n, 3), 1.2, np.float32)
+    quats = np.tile(np.array([[1.0, 0, 0, 0]], np.float32), (n, 1))
+    colors = rng.uniform(size=(n, 3)).astype(np.float32)
+    opac = rng.uniform(0.9, 0.985, size=n).astype(np.float32)
+    f = rng.normal(size=(n, 32)).astype(np.float32)
+    fov = np.deg2rad(60.0)
+    cam = make_render_camera(np.eye(3), np.array([0.0, 0.0, 5.0]), fov, fov,
+                             H, W, device=device)
+
+    def t(x):
+        return torch.tensor(x, device=device)
+
+    proj = TP.project_gaussians(t(means), TP.compute_cov3d(t(scales), t(quats)),
+                                t(opac), cam.buffers, H, W,
+                                colors_precomp=t(colors))
+    return proj, t(f / np.linalg.norm(f, axis=1, keepdims=True))
+
+
+def _bwd_scene(name):
+    """(proj, feats, H, W, K) of a backward scene, on the card."""
+    if name == "edges":
+        return (*_edge_scene("cuda"), 48, 64, 8)
+    if name == "saturated":
+        return (*_saturated_scene(32, 48, "cuda"), 32, 48, 64)
+    return (*_scene(400, 96, 128, 32, "cuda"), 96, 128, 16)
+
+
+# (n_val, n_packed, with_color, values_only): every backward instantiation
+BWD_LAYOUTS = [(4, 0, True, False), (32, 0, False, False),
+               (32, 0, False, True), (32, 16, False, False),
+               (32, 16, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", BWD_LAYOUTS,
+                         ids=["-".join(map(str, x)) for x in BWD_LAYOUTS])
+@pytest.mark.parametrize("scene", ["edges", "saturated", "random"])
+def test_backward_instantiations_match_plain(scene, layout):
+    """Each backward instantiation against composite_bwd_plain on scenes
+    with a tile longer than two 64-pair batches, warps of one tile that
+    stop ~90x apart, empty tiles and invalid pairs ("edges"), the
+    saturated early-stop scene, and a random one: within 1e-5 of each
+    column's scale (256-pixel sums in another order, the feature words'
+    products fused into their sums), zero rows from the tile's largest
+    stop on; a second launch gives the same bits; values-only gives exact
+    zero geometry and the full mode's value columns bit for bit; the
+    reduce equals its plain version bit for bit, twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_val, n_packed, with_color, values_only = layout
+    proj, feats, H, W, K = _bwd_scene(scene)
+    ci = TRC.composite_inputs(proj, None if with_color else feats, H, W,
+                              TR.RasterConfig(pairs_per_gaussian=K,
+                                              pack_features=n_packed > 0),
+                              with_color)
+    assert (ci.n_val, ci.n_packed) == (n_val, n_packed)
+    payload = ci.payload
+    if n_packed:
+        payload = TRC.pack_feature_words(payload, n_val, n_packed,
+                                         with_color)
+    args = (payload, ci.sorted_gauss, ci.tile_start, H, W, n_val, n_packed)
+    _, logt, stop = TRC.composite_fwd(*args, with_color=with_color,
+                                      residuals=True)
+    g = torch.randn((H, W, 1 + n_val),
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    mode = dict(with_color=with_color, values_only=values_only)
+    first = torch.empty_like(logt)
+    dpair = TRC.composite_bwd(*args, g, logt, stop, logt_first=first, **mode)
+    again = TRC.composite_bwd(*args, g, logt, stop, **mode)
+    inv = TRC.inverse_pairs(ci.sorted_pid)
+    n = ci.payload.shape[0]
+    dpay = TRC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
+    dpay_again = TRC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
+    torch.cuda.synchronize()
+    stats = {}
+    ref = TRC.composite_bwd_plain(*args, g, logt, stop, stats=stats, **mode)
+    nv = int(ci.tile_start[-1])
+    scale = ref[:nv].abs().amax(dim=0) + 1e-6
+    assert float(((dpair[:nv] - ref[:nv]).abs() / scale).max()) < 1e-5
+    assert torch.equal(again[:nv], dpair[:nv])
+    assert float((first - stats["logt_first"]).abs().max()) < 1e-5
+    assert dpay.shape == (n, 6 + n_val)
+    assert torch.equal(dpay, TRC.reduce_pair_grads_plain(
+        dpair, inv, ci.tile_start, n))
+    assert torch.equal(dpay_again, dpay)
+    walk = stop.reshape(-1, 256).amax(dim=1)
+    for t, w in enumerate(walk.tolist()):  # no gradient from the stop on
+        lo, hi = int(ci.tile_start[t]) + w, int(ci.tile_start[t + 1])
+        assert not bool(dpair[lo:hi].any())
+    if values_only:
+        full = TRC.composite_bwd(*args, g, logt, stop, with_color=with_color)
+        torch.cuda.synchronize()
+        assert not bool(dpair[:nv, :6].any())
+        assert torch.equal(dpair[:nv, 6:], full[:nv, 6:])
+    if scene == "edges":
+        warps = stop.reshape(-1, 8, 32).amax(dim=2)
+        lens = ci.tile_start[1:] - ci.tile_start[:-1]
+        assert int(walk[0]) > 128 and int(warps[0, 0]) < 8
+        assert int(warps[0, 1:].min()) > 300
+        assert int((lens == 0).sum()) == 9 and nv < ci.sorted_gauss.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [10, 38])
+@pytest.mark.parametrize("k", [6, 16, 64])
+def test_reduce_matches_plain_bitwise(words, k):
+    """The reduce kernel on random rows through a random permutation,
+    with a third of the positions invalid (at or past n_valid): bit for
+    bit its plain version (the same sums in k order), at the layouts'
+    widths and at K below, at and above the 32 positions a warp loads at
+    once; a ragged last warp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 1000 + 3
+    gen = torch.Generator().manual_seed(k + words)
+    dpair = torch.randn((n * k, words), generator=gen).cuda()
+    inv = torch.randperm(n * k, generator=gen).to(torch.int32).cuda()
+    tile_start = torch.tensor([0, (2 * n * k) // 3], dtype=torch.int32,
+                              device="cuda")
+    key = ("reduce_pair_grads", words)
+    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    got = TRC.reduce_pair_grads(dpair, inv, tile_start, n)
+    torch.cuda.synchronize()
+    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
+    assert torch.equal(got, TRC.reduce_pair_grads_plain(dpair, inv,
+                                                        tile_start, n))
 
 
 @pytest.mark.cuda

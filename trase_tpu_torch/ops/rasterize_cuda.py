@@ -419,8 +419,10 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     the ranks in reverse from each tile's largest stop index, all tiles
     of a chunk at once; only the 256-pixel sums associate differently.
     With `stats`, adds the pair-pixel evaluations ("evaluated": below the
-    tile's largest stop) and counted pairs ("counted") to it, and sets
-    "logt_first": each pixel's log T reconstructed back to the tile's
+    tile's largest stop), counted pair-pixels ("counted") and (pair, warp)
+    steps with a counted lane ("warp_steps": the pair's sums the kernel's
+    warps take, a warp being 32 consecutive pixels of the tile) to it, and
+    sets "logt_first": each pixel's log T reconstructed back to the tile's
     first pair (0 up to rounding).
     """
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
@@ -441,7 +443,7 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     logt_first = torch.zeros((num_tiles, PIX), dtype=torch.float32,
                              device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    evaluated = counted_n = 0
+    evaluated = counted_n = warp_steps = 0
     for t0 in range(0, num_tiles, tile_chunk):
         t1 = min(num_tiles, t0 + tile_chunk)
         tiles = torch.arange(t0, t1, device=dev)
@@ -490,10 +492,13 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
             if stats is not None:
                 evaluated += PIX * int(active.sum())
                 counted_n += int(counted.sum())
+                warp_steps += int(counted.reshape(-1, PIX // 32, 32).any(
+                    dim=2).sum())
         logt_first[t0:t1] = logt
     if stats is not None:
         stats["evaluated"] = stats.get("evaluated", 0) + evaluated
         stats["counted"] = stats.get("counted", 0) + counted_n
+        stats["warp_steps"] = stats.get("warp_steps", 0) + warp_steps
         stats["logt_first"] = logt_first.reshape(-1)
     return dpair
 
@@ -730,9 +735,12 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
     if n <= 0 or inv.shape[0] % n or inv.shape[0] != dpair.shape[0]:
         raise ValueError(f"{inv.shape[0]} pairs do not split over {n} "
                          "gaussians or do not match dpair")
+    words = dpair.shape[1]
+    if words % 2 or words > 64:
+        raise ValueError(f"the reduce kernel sums rows of an even number of "
+                         f"words up to 64 (float2 lanes), not {words}")
     lib = _library("composite_bwd")
     dev = dpair.device
-    words = dpair.shape[1]
     out = torch.empty((n, words), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.trase_reduce_pair_grads(
