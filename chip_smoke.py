@@ -9,14 +9,24 @@ JSON line per phase:
 1. device       the card's name and power limit (nvidia-smi), torch's view;
 2. build        nvcc builds csrc/*.cu for sm_90a, one process per source,
                 all started together; build seconds and ptxas lines;
+   fwd-sass     cuobjdump of the forward's library: its SASS saved beside
+                it (<library>.sass, named in the row); per instantiation its
+                registers and spill bytes (a spill fails), and the SASS
+                instructions of its compositing loop per evaluated and
+                per contributing pair-pixel, and its MUFU instructions;
 3. compare      the CUDA compositor against its plain PyTorch version
-                (composite_plain) on the same inputs, for 4 values
-                (rgb+depth), 36 (+32 features) and 36 with bf16-packed
-                features, and for the FEATURE step's 32 features alone,
-                unpacked and packed, with and without residual outputs
-                (bit for bit), at a small random scene and at the full
+                (composite_plain) on the same inputs, bit for bit, for 4
+                values (rgb+depth), 36 (+32 features) and 36 with
+                bf16-packed features, and for the FEATURE step's 32
+                features alone, unpacked and packed, with and without
+                residual outputs, at a small random scene and at the full
                 scene of phase 4; plus the small scene's render against
-                the all-pairs oracle;
+                the all-pairs oracle; at the full scene the kernel's median
+                and range of 5 interleaved rounds of 20 queued launches,
+                its host-paced time, the bound, and the issue floor (the
+                loop's SASS instructions over 4 warp-instructions per SM
+                per clock) and MUFU floor (16 per SM per clock) of this
+                scene's evaluated and contributing pair-pixels;
    compare-bwd  the forward's residual outputs, the backward kernel
                 (composite_bwd) and the reduce kernel (reduce_pair_grads)
                 against their plain versions on the same inputs and
@@ -88,6 +98,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -100,9 +111,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
-# kernel vs plain: same expressions, same order, -fmad=false; only libm
-# ulps and the sign of zero may differ. Depth sums reach ~10, so 1e-4.
-TOL = {"render": 1e-5, "feats": 1e-5, "alpha": 1e-5, "depth": 1e-4}
+# forward kernel vs plain: the same expressions in the same order, built
+# with -fmad=false: image, log T and stop index bit for bit
+FWD_TOL = 0.0
 # backward kernel vs plain: same per-pixel terms, 256-pixel sums in
 # another order: max abs difference over each column group's largest
 # magnitude. The reduce kernel sums in the plain version's order: exact.
@@ -136,6 +147,10 @@ FEATURE_MASKS, FEATURE_PIXELS, SMOOTH_K = 8, 4096, 16
 # (densify stats), GAUSSIAN 200-249, FEATURE 250-299 (stats to 259, then
 # values-only), GAUSSIAN 300
 CLI_FEATURE_FROM, CLI_INTERVAL, CLI_DENSIFY_UNTIL = 150, 49, 260
+# the forward's instantiations in its mangled names: composite_fwd_kernel
+# <n_val, n_packed, with_color, residuals>
+FWD_KERNEL_RE = re.compile(
+    r"composite_fwd_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E")
 KERNELS = {
     "composite_fwd": ("trase_tpu_torch/csrc/composite_fwd.cu",
                       "trase_tpu/ops/rasterize_pallas.py:590"),
@@ -206,6 +221,178 @@ def repeated_ms(fns: dict, timer=queued_ms) -> dict:
             times[k].append(timer(fn, TIMING_ITERS))
     return {k: {"median": float(np.median(v)), "min": min(v), "max": max(v),
                 "rounds": v} for k, v in times.items()}
+
+
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit binary beside the nvcc that builds the kernels."""
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    return os.path.join(os.path.dirname(RC._nvcc()), name)
+
+
+def fwd_sass(lib: str, save: bool = True) -> dict:
+    """The forward library through cuobjdump: with `save`, its SASS
+    written beside it (<library>.sass), and per instantiation key (n_val,
+    n_packed, with_color, residuals) its registers, stack and local
+    (spill) bytes and its SASS counts (sass_counts)."""
+    def run(*a):
+        return subprocess.run([cuda_tool("cuobjdump"), *a, lib],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+
+    sass = run("-sass")
+    if save:
+        with open(os.path.splitext(lib)[0] + ".sass", "w") as f:
+            f.write(sass)
+    out, name = {}, None
+    for line in run("-res-usage").splitlines():
+        m = FWD_KERNEL_RE.search(line)
+        if "Function" in line:
+            name = fwd_key(m) if m else None
+        elif name and "REG:" in line:
+            use = dict(kv.split(":", 1) for kv in line.split())
+            out[name] = {"registers": int(use["REG"]),
+                         "stack": int(use["STACK"]),
+                         "local": int(use["LOCAL"])}
+    for name, body in sass_functions(sass).items():
+        if name in out:
+            out[name].update(sass_counts(body))
+    return out
+
+
+SASS_INS_RE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+
+
+def sass_counts(body: list) -> dict:
+    """Instructions and MUFU instructions by op in one function's SASS,
+    and those of its compositing loop (compositing_loop)."""
+    ins = [(int(m.group(1), 16), m.group(2))
+           for m in map(SASS_INS_RE.search, body) if m]
+    mufu = {}
+    for _, i in ins:
+        m = re.search(r"MUFU\.(\w+)", i)
+        if m:
+            mufu[m.group(1)] = mufu.get(m.group(1), 0) + 1
+    return {"sass_instructions": len(ins), "mufu": mufu,
+            **compositing_loop(ins)}
+
+
+def compositing_loop(ins: list) -> dict:
+    """SASS instructions of one walk through the compositing loop, per
+    pixel a thread carries: the innermost loop that holds MUFU.EX2, two of
+    them per pixel (the alpha and the weight). Through its blocks, in
+    address order, the longest path from the loop's head back to it that
+    enters no block holding a MUFU or, after the first MUFU, a shared
+    load (every pixel evaluated and skipped) gives the instructions per
+    evaluated pair-pixel; the longest path of all (every pixel
+    contributing, the values accumulated) less that one, per
+    contributing pair-pixel, and its MUFU instructions. Predicated
+    instructions count, as they issue. {} if there is no such loop."""
+    def target(i):
+        m = re.search(r"\bBRA\b.*(0x[0-9a-f]+)$", i)
+        return int(m.group(1), 16) if m else None
+
+    loops = [(a, target(i)) for a, i in ins
+             if target(i) is not None and target(i) <= a]
+    loops = [(a, t) for a, t in loops
+             if any(t <= b <= a and "MUFU.EX2" in i for b, i in ins)]
+    if not loops:
+        return {}
+    end, head = min(loops, key=lambda x: x[0] - x[1])
+    body = [(a, i) for a, i in ins if head <= a <= end]
+    leaders = {head} | {target(i) for _, i in body
+                        if target(i) is not None and head < target(i) <= end}
+    leaders |= {body[k + 1][0] for k, (_, i) in enumerate(body[:-1])
+                if target(i) is not None or "EXIT" in i}
+    blocks, cur = [], None
+    for a, i in body:
+        if a in leaders:
+            cur = []
+            blocks.append(cur)
+        cur.append((a, i))
+    first_mufu = min(a for a, i in body if "MUFU" in i)
+    starts = [b[0][0] for b in blocks]
+    NEG = (-1, 0)
+
+    def longest(allowed):
+        best = [NEG] * len(blocks)
+        for k in range(len(blocks) - 1, -1, -1):
+            if not allowed(k):
+                continue
+            a, i = blocks[k][-1]
+            t = target(i)
+            succ = []
+            if t is not None and t <= head:
+                succ.append((0, 0))  # back to the head: the walk is done
+            elif t is not None and t <= end:
+                succ.append(best[starts.index(t)])
+            conditional = i.startswith("@") and not i.startswith("@PT ")
+            if (t is None and "EXIT" not in i) or conditional:
+                if k + 1 < len(blocks):
+                    succ.append(best[k + 1])
+            succ = [s for s in succ if s[0] >= 0]
+            if succ:
+                n, mu = max(succ)
+                best[k] = (n + len(blocks[k]), mu + sum(
+                    "MUFU" in x for _, x in blocks[k]))
+        return best[0]
+
+    def evaluates(k):
+        return k == 0 or not any(
+            "MUFU" in i or (a > first_mufu and re.search(r"\bLDS\b", i))
+            for a, i in blocks[k])
+
+    every, skipped = longest(lambda k: True), longest(evaluates)
+    ppt = sum("MUFU.EX2" in i for _, i in body) // 2
+    if skipped[0] < 0 or every[0] < 0 or ppt < 1:
+        return {}
+    return {"loop_pixels_per_thread": ppt,
+            "per_evaluated": skipped[0] / ppt,
+            "per_contributing": (every[0] - skipped[0]) / ppt,
+            "mufu_per_contributing": (every[1] - skipped[1]) / ppt}
+
+
+def fwd_floors(sass, key, stats, prefix="") -> dict:
+    """The instantiation's registers and local (spill) bytes, and, where
+    its SASS counts per pair-pixel are known, its issue floor (4
+    warp-instructions per SM per clock, every lane busy) and MUFU floor
+    (16 lanes per SM per clock) for this run's evaluated and contributing
+    pair-pixels."""
+    s = (sass or {}).get(key)
+    if not s:
+        return {}
+    out = {f"{prefix}registers": s["registers"],
+           f"{prefix}local_bytes": s["local"]}
+    if "per_evaluated" in s:
+        n_eval, n_contrib = stats["evaluated"], stats["contributing"]
+        issue = s["per_evaluated"] * n_eval + s["per_contributing"] * n_contrib
+        mufu = s["mufu_per_contributing"] * n_contrib
+        out.update({
+            f"{prefix}sass_per_evaluated": s["per_evaluated"],
+            f"{prefix}sass_per_contributing": s["per_contributing"],
+            f"{prefix}mufu_per_contributing": s["mufu_per_contributing"],
+            f"{prefix}issue_floor_ms":
+                issue / (SMS * 4 * 32 * SM_CLOCK_HZ) * 1e3,
+            f"{prefix}mufu_floor_ms": mufu / (SMS * 16 * SM_CLOCK_HZ) * 1e3})
+    return out
+
+
+def fwd_key(m) -> tuple:
+    n_val, n_packed, color, res = m.groups()
+    return int(n_val), int(n_packed), color == "1", res == "1"
+
+
+def sass_functions(sass: str) -> dict:
+    """{instantiation key: [SASS lines]} of the forward kernel's functions
+    in a cuobjdump -sass listing."""
+    out, body = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = FWD_KERNEL_RE.search(line)
+            body = out.setdefault(fwd_key(m), []) if m else None
+        elif body is not None:
+            body.append(line)
+    return out
 
 
 def shuffle_floor_ms(steps: int, shuffles: int) -> float:
@@ -318,11 +505,14 @@ def split(hwc, with_color=True):
             "feats": hwc[..., 4:-1], "depth": hwc[..., -1]}
 
 
-def compare(label, proj, feats, H, W, cfg, pack, timed, with_color=True):
-    """Kernel vs plain on one input; with `timed`, also times both and
-    reckons the bound from this input's bytes and pair-pixel work. The
-    features-only layouts (with_color=False) must agree bit for bit, with
-    and without the residual outputs."""
+def compare(label, proj, feats, H, W, cfg, pack, timed, with_color=True,
+            sass=None):
+    """Kernel vs plain on one input, bit for bit, and for the features-only
+    layouts (with_color=False) the residual instantiation too; with
+    `timed`, also times both (the kernel as medians of queued rounds
+    beside its host-paced time) and reckons the bound and, from `sass`
+    (fwd_sass), the issue and MUFU floors from this input's pair-pixel
+    work."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     args = kernel_inputs(proj, feats, H, W, cfg, pack, with_color)
@@ -338,11 +528,10 @@ def compare(label, proj, feats, H, W, cfg, pack, timed, with_color=True):
     for k, g in split(got, with_color).items():
         if g.numel():
             errs[k] = float((g - split(ref, with_color)[k]).abs().max())
-    tol = TOL if with_color else dict.fromkeys(TOL, 0.0)
-    bad = {k: e for k, e in errs.items() if not e <= tol[k]}
+    bad = {k: e for k, e in errs.items() if not e <= FWD_TOL}
     row = {"phase": "compare", "scene": label, "n_val": n_val,
            "n_packed": n_packed, "with_color": with_color,
-           "max_abs_diff": errs, "tol": tol, "pairs": int(tile_start[-1])}
+           "max_abs_diff": errs, "tol": FWD_TOL, "pairs": int(tile_start[-1])}
     if not with_color:
         res, logt, stop = RC.composite_fwd(*args[:3], H, W, n_val, n_packed,
                                            residuals=True, **kw)
@@ -356,8 +545,14 @@ def compare(label, proj, feats, H, W, cfg, pack, timed, with_color=True):
         if any(row["residuals"].values()):
             bad["residuals"] = row["residuals"]
     if timed:
-        row["ms"] = cuda_ms(lambda: RC.composite_fwd(
-            *args[:3], H, W, n_val, n_packed, **kw), 20)
+        fns = {"ms": lambda: RC.composite_fwd(
+            *args[:3], H, W, n_val, n_packed, **kw)}
+        if not with_color:
+            fns["ms_residuals"] = lambda: RC.composite_fwd(
+                *args[:3], H, W, n_val, n_packed, residuals=True, **kw)
+        for k, t in repeated_ms(fns).items():
+            row[k], row[f"{k}_repeats"] = t["median"], t
+            row[f"{k}_host_paced"] = cuda_ms(fns[k], TIMING_ITERS)
         row["plain_ms"] = cuda_ms(lambda: RC.composite_plain(
             *args[:3], H, W, n_val, n_packed, **kw), 1)
         pairs = int(tile_start[-1])
@@ -366,13 +561,15 @@ def compare(label, proj, feats, H, W, cfg, pack, timed, with_color=True):
         ops = 16 * stats["evaluated"] + (8 + 2 * n_val) * stats["contributing"]
         row.update(bytes=nbytes, ops=ops, evaluated=stats["evaluated"],
                    contributing=stats["contributing"],
-                   **bound(None, nbytes, ops))
+                   **bound(None, nbytes, ops),
+                   **fwd_floors(sass, (n_val, n_packed, with_color, False),
+                                stats))
         if not with_color:
-            row["ms_residuals"] = cuda_ms(lambda: RC.composite_fwd(
-                *args[:3], H, W, n_val, n_packed, residuals=True, **kw), 20)
             rbytes = nbytes + 8 * logt.numel()
             row.update(bytes_residuals=rbytes, **bound(
-                "residuals", rbytes, ops))
+                "residuals", rbytes, ops), **fwd_floors(
+                    sass, (n_val, n_packed, False, True), stats,
+                    "residuals_"))
     emit(row)
     if bad:
         raise AssertionError(f"kernel disagrees with plain on {label} "
@@ -485,7 +682,7 @@ def write_cli_inputs(root, params, aux, net, device, n_train=3, n_test=2,
 
 
 def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
-                with_color=True):
+                with_color=True, sass=None):
     """Forward residuals, backward kernel and reduce kernel against their
     plain versions on one input and one seeded cotangent, one row per
     backward mode (full; and values-only for the features-only layouts);
@@ -503,8 +700,9 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
     out, logt, stop = RC.composite_fwd(*args, with_color=with_color,
                                        residuals=True)
     torch.cuda.synchronize()
+    fstats = {}
     ref_out, ref_logt, ref_stop = RC.composite_plain(
-        *args, with_color=with_color, residuals=True)
+        *args, with_color=with_color, residuals=True, stats=fstats)
     fwd = {"image": float((out - ref_out).abs().max()),
            "logt": float((logt - ref_logt).abs().max()),
            "stop_mismatches": int((stop != ref_stop).sum())}
@@ -560,7 +758,7 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                "logt_first_vs_plain": float(
                    (first - stats["logt_first"]).abs().max()),
                "bit_identical_relaunch": same,
-               "tol": {"fwd": TOL["depth"], "bwd_rel": BWD_TOL,
+               "tol": {"fwd": FWD_TOL, "bwd_rel": BWD_TOL,
                        "reduce": 0.0, "t_first": LOGT_FIRST_TOL}}
         bad = [k for k, v in pair_rel.items() if not v <= BWD_TOL]
         bad += [f"{k} not bit-identical" for k, v in same.items() if not v]
@@ -613,8 +811,25 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                            stats["warp_steps"], 5 * summed),
                        **bound("bwd", nbytes, ops))
             if not values_only:
-                row["fwd_residuals_ms"] = cuda_ms(lambda: RC.composite_fwd(
-                    *args, with_color=with_color, residuals=True), 20)
+                fwd_fn = lambda: RC.composite_fwd(  # noqa: E731
+                    *args, with_color=with_color, residuals=True)
+                t = repeated_ms({"fwd": fwd_fn})["fwd"]
+                row.update(fwd_residuals_ms=t["median"],
+                           fwd_residuals_ms_repeats=t,
+                           fwd_residuals_ms_host_paced=cuda_ms(
+                               fwd_fn, TIMING_ITERS),
+                           **fwd_floors(sass, (n_val, n_packed, with_color,
+                                               True), fstats,
+                                        "fwd_residuals_"))
+                fbytes = (nv * (4 * kpay.shape[1] + 4)
+                          + 4 * ci.tile_start.numel()
+                          + 4 * H * W * (1 + n_val) + 8 * logt.numel())
+                fops = 16 * fstats["evaluated"] + (8 + 2 * n_val) * fstats[
+                    "contributing"]
+                row.update(fwd_residuals_bytes=fbytes,
+                           fwd_evaluated=fstats["evaluated"],
+                           fwd_contributing=fstats["contributing"],
+                           **bound("fwd_residuals", fbytes, fops))
                 row["reduce_plain_ms"] = cuda_ms(
                     lambda: RC.reduce_pair_grads_plain(
                         dpair, inv, ci.tile_start, n), 3)
@@ -638,8 +853,8 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                            reduce_ops=n * k * words,
                            **bound("reduce", rbytes, n * k * words))
         emit(row)
-        if fwd["stop_mismatches"] or not fwd["image"] <= TOL["depth"] \
-                or not fwd["logt"] <= TOL["depth"]:
+        if fwd["stop_mismatches"] or not fwd["image"] <= FWD_TOL \
+                or not fwd["logt"] <= FWD_TOL:
             bad.append("forward residuals")
         if row["reduce_max_abs_diff"] != 0.0:
             bad.append("reduce")
@@ -918,11 +1133,19 @@ def run(dev: torch.device) -> None:
           "cuda": torch.version.cuda})
 
     # 2. build
-    for name, (lib, seconds, log) in RC.build_library().items():
+    libs = RC.build_library()
+    for name, (lib, seconds, log) in libs.items():
         emit({"phase": "build", "source": name, "library": os.path.relpath(lib),
               "seconds": seconds,
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
+    sass = fwd_sass(libs["composite_fwd"][0])
+    emit({"phase": "fwd-sass", "saved": os.path.relpath(
+              os.path.splitext(libs["composite_fwd"][0])[0] + ".sass"),
+          "instantiations": {"/".join(str(int(x)) for x in k): v
+                             for k, v in sorted(sass.items())}})
+    spills = {k: v for k, v in sass.items() if v["local"] or v["stack"]}
+    assert not spills, f"forward instantiations spill: {spills}"
 
     # 3. kernels vs plain (and the small scene vs the oracle)
     rows = []
@@ -971,13 +1194,14 @@ def run(dev: torch.device) -> None:
             bproj, bfeats = projected(params, aux, cam,
                                       deltas(params, net, 0.5), with_features)
             r = compare("bench", bproj, bfeats, H, W, cfg, pack, True,
-                        with_color)
+                        with_color, sass)
             full[(r["n_val"], r["n_packed"], with_color)] = r
             rows.append(r)
-        bench_bwd = compare_bwd("bench", bproj, None, H, W, cfg, True)
+        bench_bwd = compare_bwd("bench", bproj, None, H, W, cfg, True,
+                                sass=sass)
         for pack in (True, False):
             bench_bwd += compare_bwd("bench", bproj, bfeats, H, W, cfg, True,
-                                     pack=pack, with_color=False)
+                                     pack=pack, with_color=False, sass=sass)
     bwd_rows += bench_bwd
     kb = bench_bwd[0]
     # the fused deform MLP: a ragged tile, then the bench scene's capacity
@@ -1165,6 +1389,10 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                 for c in (lc.values() if "densify_stats" in lc else [lc])]
         return sum(c.get(key, 0) for c in flat)
 
+    def picked(r, prefix):  # a variant's measured times (the floors, a
+        keys = ("ms_repeats", "ms_host_paced")  # model, stay in its row)
+        return {k: r[prefix + k] for k in keys if prefix + k in r}
+
     fwd_variants = []
     for (n_val, n_packed, color), r in full.items():
         key = f"composite_fwd/{n_val}/{n_packed}/{int(color)}"
@@ -1176,12 +1404,15 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
         fwd_variants.append(dict(same, residuals=False,
                                  launches=launched(key + "/0"), ms=r["ms"],
                                  bound_ms=r["bound_ms"],
-                                 bound_by=r["bound_by"]))
+                                 bound_by=r["bound_by"], **picked(r, "")))
         if not color:
             fwd_variants.append(dict(
                 same, residuals=True, launches=launched(key + "/1"),
                 ms=r["ms_residuals"], bound_ms=r["residuals_bound_ms"],
-                bound_by=r["residuals_bound_by"]))
+                bound_by=r["residuals_bound_by"], **{
+                    k.replace("ms_residuals", "ms"): v for k, v in r.items()
+                    if k.startswith("ms_residuals_")},
+                **picked(r, "residuals_")))
     bwd_variants, red_variants = [], []
     for r in bwd_rows:
         if "bwd_ms" not in r:
@@ -1207,7 +1438,12 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                                       f"{r['n_packed']}/1/1"),
                     ms=r["fwd_residuals_ms"],
                     max_abs_err=max(r["fwd_residuals"]["image"],
-                                    r["fwd_residuals"]["logt"])))
+                                    r["fwd_residuals"]["logt"]),
+                    bound_ms=r["fwd_residuals_bound_ms"],
+                    bound_by=r["fwd_residuals_bound_by"],
+                    evaluated=r["fwd_evaluated"],
+                    contributing=r["fwd_contributing"],
+                    **picked(r, "fwd_residuals_")))
             red_variants.append(dict(
                 words=r["reduce_words"], n_packed=r["n_packed"],
                 launches=launched(f"reduce_pair_grads/{r['reduce_words']}"),

@@ -1,11 +1,10 @@
 """The CUDA kernels (trase_tpu_torch/csrc/composite_fwd.cu, composite_bwd.cu,
-deform_mlp.cu) against their plain PyTorch versions on the card: the
-compositor in the GAUSSIAN step's layout (rgb + depth) and the FEATURE
-step's (32 features alone, unpacked and bf16-packed, full and values-only
-backward), each backward instantiation on scenes built for its edges
-(long tiles, warps that stop far apart, empty tiles, early stops), the
-reduce at both widths, and the fused deform MLP. Imports no jax, so it
-runs on the machine with the card:
+deform_mlp.cu) against their plain PyTorch versions on the card: every
+forward instantiation bit for bit and every backward instantiation on
+scenes built for their edges (long tiles, warps that stop far apart,
+empty tiles, early stops, ragged image sides), the compositor's
+gradients under autograd, the reduce at both widths, and the fused deform
+MLP. Imports no jax, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -47,61 +46,11 @@ def _scene(n, H, W, n_feat, device):
     return proj, feats
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_feat,pack", [(0, False), (32, False), (32, True)])
-def test_cuda_kernel_matches_plain(n_feat, pack):
-    """Same expressions in the same order (built with -fmad=false), so
-    only libm ulps and the sign of zero may differ: 1e-5 absolute, 1e-4
-    on the depth channel (sums reach ~10)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    H, W = 96, 128
-    proj, feats = _scene(400, H, W, n_feat, "cuda")
-    ci = TRC.composite_inputs(proj, feats, H, W, TR.RasterConfig(
-        pairs_per_gaussian=16, pack_features=pack))
-    assert ci.n_packed == (n_feat // 2 if pack else 0)
-    payload = ci.payload
-    if ci.n_packed:
-        payload = TRC.pack_feature_words(payload, ci.n_val, ci.n_packed)
-    args = (payload, ci.sorted_gauss, ci.tile_start, H, W, ci.n_val,
-            ci.n_packed)
-    key = ("composite_fwd", ci.n_val, ci.n_packed, True, False)
-    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
-    got = TRC.composite_fwd(*args)
-    torch.cuda.synchronize()
-    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
-    ref = TRC.composite_plain(*args)
-    diff = (got - ref).abs()
-    assert float(diff[..., :-1].max()) <= 1e-5
-    assert float(diff[..., -1].max()) <= 1e-4
-    assert float(got[..., 0].max()) > 0.5  # the scene covers the image
-
-
 def _inputs(n, H, W, K=16):
     proj, _ = _scene(n, H, W, 0, "cuda")
     ci = TRC.composite_inputs(proj, None, H, W,
                               TR.RasterConfig(pairs_per_gaussian=K))
     return ci
-
-
-@pytest.mark.cuda
-def test_cuda_residuals_match_plain():
-    """The residual instantiation: same image as without residuals, and
-    per-pixel log T and stop index equal to the plain version's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    H, W = 96, 128
-    ci = _inputs(400, H, W)
-    args = (ci.payload, ci.sorted_gauss, ci.tile_start, H, W, 4, 0)
-    out, logt, stop = TRC.composite_fwd(*args, residuals=True)
-    plain = TRC.composite_fwd(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(out, plain)
-    _, ref_logt, ref_stop = TRC.composite_plain(*args, residuals=True)
-    assert torch.equal(stop, ref_stop)
-    assert float((logt - ref_logt).abs().max()) <= 1e-5
-    lens = (ci.tile_start[1:] - ci.tile_start[:-1]).repeat_interleave(256)
-    assert bool((stop < lens).any()) or bool((stop == lens).all())
 
 
 @pytest.mark.cuda
@@ -173,26 +122,6 @@ def _feature_inputs(pack, H=96, W=128, n=400):
         payload = TRC.pack_feature_words(payload, 32, 16, with_color=False)
     return ci, (payload, ci.sorted_gauss, ci.tile_start, H, W, 32,
                 ci.n_packed)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("pack", [False, True])
-def test_cuda_features_only_forward_matches_plain(pack):
-    """The features-only instantiations, with and without residuals: the
-    same image bit for bit as the plain version (the same expressions in
-    the same order), and the plain version's log T and stop index."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    _, args = _feature_inputs(pack)
-    out = TRC.composite_fwd(*args, with_color=False)
-    res, logt, stop = TRC.composite_fwd(*args, with_color=False,
-                                        residuals=True)
-    torch.cuda.synchronize()
-    ref, ref_logt, ref_stop = TRC.composite_plain(*args, with_color=False,
-                                                  residuals=True)
-    assert torch.equal(out, ref) and torch.equal(res, ref)
-    assert torch.equal(stop, ref_stop) and torch.equal(logt, ref_logt)
-    assert float(out[..., 0].max()) > 0.5
 
 
 @pytest.mark.cuda
@@ -304,12 +233,76 @@ def _saturated_scene(H, W, device):
 
 
 def _bwd_scene(name):
-    """(proj, feats, H, W, K) of a backward scene, on the card."""
+    """(proj, feats, H, W, K) of a test scene, on the card; "ragged" has
+    sides that are not multiples of 16."""
     if name == "edges":
         return (*_edge_scene("cuda"), 48, 64, 8)
     if name == "saturated":
         return (*_saturated_scene(32, 48, "cuda"), 32, 48, 64)
+    if name == "ragged":
+        return (*_scene(400, 90, 117, 32, "cuda"), 90, 117, 16)
     return (*_scene(400, 96, 128, 32, "cuda"), 96, 128, 16)
+
+
+# (n_val, n_packed, with_color, residuals): every forward instantiation
+FWD_LAYOUTS = [(4, 0, True, False), (4, 0, True, True), (36, 0, True, False),
+               (36, 16, True, False), (32, 0, False, False),
+               (32, 0, False, True), (32, 16, False, False),
+               (32, 16, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", FWD_LAYOUTS,
+                         ids=["-".join(map(str, x)) for x in FWD_LAYOUTS])
+@pytest.mark.parametrize("scene", ["edges", "saturated", "random", "ragged"])
+def test_forward_instantiations_match_plain(scene, layout):
+    """Each forward instantiation against composite_plain, bit for bit
+    (the same expressions in the same order, built with -fmad=false): the
+    image and, with residuals, each pixel's log T and stop index, which
+    the backward reads by index alone. Scenes: walks of 360-395 pairs that
+    cross several batches, a warp that stops at pair 4, empty tiles and
+    invalid pairs ("edges"), the saturated early-stop scene, a random one
+    and a random one whose sides are not multiples of 16. One launch,
+    counted; the residual instantiation's image equals the plain
+    instantiation's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_val, n_packed, with_color, residuals = layout
+    proj, feats, H, W, K = _bwd_scene(scene)
+    ci = TRC.composite_inputs(proj, None if n_val == 4 else feats, H, W,
+                              TR.RasterConfig(pairs_per_gaussian=K,
+                                              pack_features=n_packed > 0),
+                              with_color)
+    assert (ci.n_val, ci.n_packed) == (n_val, n_packed)
+    payload = ci.payload
+    if n_packed:
+        payload = TRC.pack_feature_words(payload, n_val, n_packed,
+                                         with_color)
+    args = (payload, ci.sorted_gauss, ci.tile_start, H, W, n_val, n_packed)
+    key = ("composite_fwd", n_val, n_packed, with_color, residuals)
+    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    got = TRC.composite_fwd(*args, with_color=with_color,
+                            residuals=residuals)
+    torch.cuda.synchronize()
+    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
+    ref = TRC.composite_plain(*args, with_color=with_color,
+                              residuals=residuals)
+    if residuals:
+        (got, logt, stop), (ref, ref_logt, ref_stop) = got, ref
+        assert torch.equal(stop, ref_stop) and torch.equal(logt, ref_logt)
+        plain = TRC.composite_fwd(*args, with_color=with_color)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain)
+        lens = (ci.tile_start[1:] - ci.tile_start[:-1]).repeat_interleave(
+            256)
+        assert bool((stop <= lens).all())
+    assert got.shape == (H, W, 1 + n_val)
+    assert torch.equal(got, ref)
+    if scene in ("random", "ragged"):
+        assert float(got[..., 0].max()) > 0.5  # the scene covers the image
+    if scene == "edges":
+        lens = ci.tile_start[1:] - ci.tile_start[:-1]
+        assert int(lens.max()) > 2 * 128 and int((lens == 0).sum()) == 9
 
 
 # (n_val, n_packed, with_color, values_only): every backward instantiation

@@ -1,0 +1,147 @@
+"""Times variants of the compositor forward (trase_tpu_torch/csrc/
+composite_fwd.cu) against the repo's build on the card, at chip_smoke.py's
+bench scene: each variant's instantiations held bit for bit against
+composite_plain, then timed as medians of interleaved queued rounds
+(chip_smoke.repeated_ms), one JSON line per layout.
+
+    python tools/fwd_variants.py [--parent OLD.cu] [--variants JSON]
+
+--parent times another source of the kernel (e.g. the parent commit's,
+unpacked with git archive) as variant "parent"; --variants maps a name to
+a list of [old, new] text substitutions in the repo's source, each built
+as its own variant. Builds go to trase_tpu_torch/build/variants/.
+"""
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as CS  # noqa: E402
+from trase_tpu_torch.ops import rasterize_cuda as RC  # noqa: E402
+from trase_tpu_torch.ops.rasterize import RasterConfig  # noqa: E402
+
+# (residuals, with_color, with the 32 features, packed): the launched
+# layouts first
+LAYOUTS = ((False, True, False, False), (True, True, False, False),
+           (False, True, True, False), (False, True, True, True),
+           (False, False, True, False), (False, False, True, True),
+           (True, False, True, False), (True, False, True, True))
+
+
+def build_variants(sources: dict) -> dict:
+    """{name: ctypes library} of each source, built in parallel."""
+    out_dir = os.path.join(RC.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(src)
+        so = os.path.join(out_dir, f"{name}.so")
+        procs[name] = (subprocess.Popen(
+            [RC._nvcc(), *RC.NVCC_FLAGS, "-o", so, cu], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (p, so) in procs.items():
+        log, _ = p.communicate()
+        CS.emit({"variant": name, "rc": p.returncode, "ptxas": [
+            ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "error" in ln]})
+        if p.returncode:
+            continue
+        CS.emit({"variant": name, "sass": {
+            "/".join(str(int(x)) for x in k): v
+            for k, v in sorted(CS.fwd_sass(so, save=False).items())}})
+        lib = ctypes.CDLL(so)
+        fn, argtypes = RC._ARGTYPES["composite_fwd"]
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None)
+    ap.add_argument("--variants", default="{}")
+    a = ap.parse_args(argv)
+    dev = torch.device("cuda")
+    print(CS.nvidia_smi(), flush=True)
+    libs = RC.build_library()
+    sass = CS.fwd_sass(libs["composite_fwd"][0])
+    CS.emit({"fwd-sass": {"/".join(str(int(x)) for x in k): v
+                          for k, v in sorted(sass.items())}})
+    with open(RC.SOURCES["composite_fwd"]) as f:
+        src = f.read()
+    sources = {}
+    if a.parent:
+        with open(a.parent) as f:
+            sources["parent"] = f.read()
+    for name, subs in json.loads(a.variants).items():
+        s = src
+        for old, new in subs:
+            assert old in s, old
+            s = s.replace(old, new)
+        sources[name] = s
+    vlibs = {"repo": RC._library("composite_fwd"), **build_variants(sources)}
+
+    from trase_tpu_torch.models import gaussians as G
+    from trase_tpu_torch.models.deform import init_deform, make_deform_network
+    from trase_tpu_torch.renderer import make_render_camera
+
+    n, cap, H, W = CS.N_GAUSSIANS, CS.CAPACITY, CS.HEIGHT, CS.WIDTH
+    rng = np.random.default_rng(0)
+    pts = (rng.normal(size=(n, 3)) * 1.2).astype(np.float32)
+    pts[:, 2] += 4.0
+    cols = rng.uniform(size=(n, 3)).astype(np.float32)
+    params, aux = G.from_point_cloud(pts, cols, sh_degree=3, capacity=cap,
+                                     dist2=np.full(n, 0.0004, np.float32),
+                                     device=dev)
+    cam = make_render_camera(np.eye(3), np.zeros(3), 1.2, 0.95, H, W,
+                             device=dev)
+    net = init_deform(make_deform_network("DeformNetwork", device=dev),
+                      torch.Generator().manual_seed(0))
+    net.eval()
+    cfg = RasterConfig(pairs_per_gaussian=6)
+    try:
+        with torch.no_grad():
+            proj, feats = CS.projected(params, aux, cam,
+                                       CS.deltas(params, net, 0.5), True)
+            for res, color, with_feats, pack in LAYOUTS:
+                args = CS.kernel_inputs(proj, feats if with_feats else None,
+                                        H, W, cfg, pack, color)
+                kw = dict(with_color=color, residuals=res)
+                ref = RC.composite_plain(*args[:3], H, W, *args[3:], **kw)
+                fns, errs = {}, {}
+                for name, lib in vlibs.items():
+                    def fn(lib=lib):
+                        RC._LIBS["composite_fwd"] = lib
+                        return RC.composite_fwd(*args[:3], H, W, *args[3:],
+                                                **kw)
+                    got = fn()
+                    torch.cuda.synchronize()
+                    pairs = zip(got, ref) if res else [(got, ref)]
+                    errs[name] = [float((x.float() - y.float()).abs().max())
+                                  for x, y in pairs]
+                    fns[name] = fn
+                t = CS.repeated_ms(fns)
+                CS.emit({"layout": [args[3], args[4], color, res],
+                         "max_abs_diff": errs,
+                         "median": {k: v["median"] for k, v in t.items()},
+                         "range": {k: [v["min"], v["max"]]
+                                   for k, v in t.items()}})
+                bad = {k: e for k, e in errs.items() if any(e)}
+                assert not bad, f"variants disagree with plain: {bad}"
+    finally:
+        RC._LIBS["composite_fwd"] = vlibs["repo"]
+
+
+if __name__ == "__main__":
+    main()

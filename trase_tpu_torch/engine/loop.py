@@ -20,12 +20,17 @@ step and leaves the map as it is. The FEATURE step carries the
 densification statistics while ``iteration < densify_until_iter`` and
 runs values-only after.
 
+At each of ``testing_iterations`` it evaluates as trase_tpu's loop does
+(:570-580, :729-801): the L1 and PSNR of five fixed test and train views,
+rendered without features through the bf16 deform stack, and the best
+test PSNR at the end.
+
 Left out: the metrics pipeline and the watchdog (they existed for a
 remote device), the background mask prefetcher (masks decode on the
-host when a camera's stack is not cached), tensorboard, ``evaluate`` and
-training checkpoints. The step's metrics stay on the device; the host
-reads them every 10 iterations (progress line, skipped steps), every
-100 (pair budget), and at a block's end (phase switch).
+host when a camera's stack is not cached), tensorboard and training
+checkpoints. The step's metrics stay on the device; the host reads them
+every 10 iterations (progress line, skipped steps), every 100 (pair
+budget), and at a block's end (phase switch).
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ from ..models.deform import flax_variables, init_deform, make_deform_network
 from ..models.gaussians_io import save_checkpoint
 from ..ops.knn import build_feature_smooth_map, smooth_features
 from ..ops.rasterize import RasterConfig
+from ..renderer import render
+from ..utils.image import psnr
 from . import trainer as T
 
 # densify_and_prune's static budget of clones and of splits per call, the
@@ -125,6 +132,8 @@ class Trainer:
         self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
         self._skipped_seen = 0  # skipped steps the phase counter left out
         self.ema_loss = 0.0
+        self.best_psnr = 0.0
+        self.best_iteration = 0
         self.step_calls = 0
         self.feature_calls = 0
 
@@ -301,8 +310,9 @@ class Trainer:
 
     # ------------------------------------------------------------ train
 
-    def train(self, first_iter: int = 0, saving_iterations=(),
-              progress: bool = True, on_iteration=None):
+    def train(self, first_iter: int = 0, testing_iterations=(),
+              saving_iterations=(), progress: bool = True,
+              on_iteration=None):
         opt = self.opt
         train_cams = self.scene.get_train_cameras()
         has_masks = any(c.masks is not None or c.mask_path
@@ -377,6 +387,12 @@ class Trainer:
                                           "Skipped": skipped})
                     iter_bar.update(10)
 
+            if iteration in testing_iterations:
+                cur = self.evaluate(iteration)
+                if cur > self.best_psnr:
+                    self.best_psnr = cur
+                    self.best_iteration = iteration
+
             if iteration in saving_iterations:
                 self.save_snapshot(iteration)
 
@@ -400,9 +416,52 @@ class Trainer:
         skipped = int(self.skipped)
         if skipped:
             print(f"[train] {skipped} non-finite steps skipped")
+        print(f"Best PSNR = {self.best_psnr} in Iteration "
+              f"{self.best_iteration}")
         if n_iters > 0:
             print(f"[timing] {n_iters} iters in {dt:.1f}s = "
                   f"{n_iters / dt:.2f} it/s")
+
+    # ------------------------------------------------------------- eval
+
+    def evaluate(self, iteration: int) -> float:
+        """Fixed-index test / train PSNR report (trase_tpu loop.py:729-764,
+        reference train.py:421-495): views 5, 10, ... 25 (mod the split's
+        size) of each split, clipped to [0, 1]; prints each split's mean
+        L1 and PSNR and returns the test split's mean PSNR (0 without test
+        views)."""
+        test_psnr = 0.0
+        configs = (("test", self.scene.get_test_cameras()),
+                   ("train", self.scene.get_train_cameras()))
+        for name, cams in configs:
+            if not cams:
+                continue
+            psnrs, l1s = [], []
+            for cam in (cams[i % len(cams)] for i in range(5, 30, 5)):
+                img = torch.clamp(self.render_view(cam), 0.0, 1.0)
+                gt = torch.clamp(self._gt_image(cam), 0.0, 1.0)
+                psnrs.append(float(psnr(img[None], gt[None]).mean()))
+                l1s.append(float(torch.abs(img - gt).mean()))
+            mean_psnr = float(np.mean(psnrs))
+            print(f"\n[ITER {iteration}] Evaluating {name}: "
+                  f"L1 {np.mean(l1s):.6f} PSNR {mean_psnr:.3f}")
+            if name == "test":
+                test_psnr = mean_psnr
+        return test_psnr
+
+    @torch.no_grad()
+    def render_view(self, cam) -> torch.Tensor:
+        """(3, H, W) eval render of one camera (trase_tpu loop.py:766-801):
+        the deform net always on, its hidden stack in bf16, no AST noise,
+        no features."""
+        p = self.state.params
+        d = T.apply_deform(self.deform_net, self.state.deform, p.xyz,
+                           cam.fid, 0.0, True, p.gaussian_features)
+        return render(cam.to_render_camera(self.device), p,
+                      self.state.aux.alive, self.bg_color, *d,
+                      is_6dof=self.args.is_6dof,
+                      sh_degree=self.active_sh_degree, with_features=False,
+                      raster_cfg=self.raster_cfg)["render"]
 
     # ------------------------------------------------------------- save
 

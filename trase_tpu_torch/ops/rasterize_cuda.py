@@ -650,6 +650,9 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                          f"{sorted(BWD_SUPPORTED)}")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed, with_color)
+    if payload.data_ptr() % 8:
+        raise ValueError("payload must be 8-byte aligned (the kernel copies "
+                         "rows 8 bytes at a time)")
     lib = _library("composite_fwd")
     dev = payload.device
     out = torch.empty((image_height, image_width, 1 + n_val),
