@@ -44,8 +44,14 @@ JSON line per phase:
                 word, from the (pair, warp) steps with a counted lane);
    deform-mlp   the fused deform MLP kernel (deform_mlp) against its plain
                 version and the float32 module at 300 rows and at the
-                bench scene's 131072; times of the kernel, the plain
-                version, the cuBLAS bf16 chain and the module, the bound;
+                bench scene's 131072, relaunched bit for bit; its
+                registers and spill bytes (cuobjdump; a spill fails); at
+                131072 the median and range of 5 interleaved queued rounds
+                of the kernel, the cuBLAS bf16 chain, the chain's bare
+                products and, with --mlp-parent, an earlier source of the
+                kernel built beside it; the host-paced time, the plain
+                version's and the module's, the bound, and the weights'
+                packing uncached (pack_ms) and cached (pack_cached_ms);
 4. render       the bench scene of bench.py (100k gaussians in a 131072
                 capacity, SH degree 3, 32-dim features, DeformNetwork
                 8x256, 1008x1344, K=6, seeded): deform_step ->
@@ -53,7 +59,9 @@ JSON line per phase:
                 timed frames; checks the outputs and that the compositor
                 kernel ran once per render; then the same frame with
                 deform_step(fused=True): one deform_mlp launch per frame,
-                its time and its image against the float32-deform frame;
+                its time and its image against the float32-deform frame,
+                and its time when the weights are repacked every frame
+                (frame_ms_fused_repack, the cache dropped before each);
 5. cli          writes a small Blender-format dataset and a model
                 directory with the port's own writers and runs
                 trase_tpu_torch.render;
@@ -89,6 +97,9 @@ JSON line per phase:
                 version, times and the bound, with one variant per
                 instantiation a path launches.
 
+    python3 chip_smoke.py --mlp-parent OLD.cu   # also times OLD.cu, an
+                                                # earlier deform_mlp.cu
+
 The last two lines are the nvidia-smi name/power-limit line and
 {"ok": true, "device": {...}}. Any failed check raises: the script then
 exits non-zero without that line. Without a CUDA device, or without the
@@ -96,6 +107,7 @@ package beside it, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -135,6 +147,11 @@ TIMING_REPS, TIMING_ITERS, SLEEP_CYCLES = 5, 20, 40_000_000
 # tests/test_rasterize_pallas.py::test_fused_deform_matches_flax
 MLP_TOL, MLP_MODULE_TOL = 1e-2, 2e-2
 MLP_HEADS = ("d_xyz", "d_rot", "d_scale")
+# the C interface of the first, wmma design of deform_mlp.cu, for
+# --mlp-parent: emb, n, in_dim, kin, w0, ws_in, w_hidden, bias, wh, bh,
+# d_xyz, d_rot, d_scale, stream
+PARENT_MLP_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 10)
 WARMUP, FRAMES = 3, 10
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
 CLI_ITERATIONS = 300
@@ -244,20 +261,86 @@ def fwd_sass(lib: str, save: bool = True) -> dict:
     if save:
         with open(os.path.splitext(lib)[0] + ".sass", "w") as f:
             f.write(sass)
-    out, name = {}, None
-    for line in run("-res-usage").splitlines():
-        m = FWD_KERNEL_RE.search(line)
-        if "Function" in line:
-            name = fwd_key(m) if m else None
-        elif name and "REG:" in line:
-            use = dict(kv.split(":", 1) for kv in line.split())
-            out[name] = {"registers": int(use["REG"]),
-                         "stack": int(use["STACK"]),
-                         "local": int(use["LOCAL"])}
+    out = {}
+    for fn, use in res_usage(lib).items():
+        m = FWD_KERNEL_RE.search(fn)
+        if m:
+            out[fwd_key(m)] = {k: use[k] for k in ("registers", "stack",
+                                                    "local")}
     for name, body in sass_functions(sass).items():
         if name in out:
             out[name].update(sass_counts(body))
     return out
+
+
+def res_usage(lib: str) -> dict:
+    """{function: {registers, stack, local, shared}} of a library's
+    kernels from cuobjdump -res-usage (local bytes are spills)."""
+    out, name = {}, None
+    for line in subprocess.run(
+            [cuda_tool("cuobjdump"), "-res-usage", lib], capture_output=True,
+            text=True, timeout=300, check=True).stdout.splitlines():
+        if "Function" in line:
+            name = line.split("Function", 1)[1].strip(" :")
+        elif name and "REG:" in line:
+            use = dict(kv.split(":", 1) for kv in line.split()
+                       if ":" in kv)
+            out[name] = {"registers": int(use["REG"]),
+                         "stack": int(use["STACK"]),
+                         "local": int(use["LOCAL"]),
+                         "shared": int(use["SHARED"])}
+    return out
+
+
+def start_nvcc(name: str, source: str):
+    """nvcc on a kernel source from outside the package (an earlier
+    commit's, or a variant), started now into BUILD_DIR/variants/;
+    finish_nvcc waits for it."""
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    out_dir = os.path.join(RC.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    cu = os.path.join(out_dir, f"{name}.cu")
+    with open(cu, "w") as f:
+        f.write(source)
+    so = os.path.join(out_dir, f"{name}.so")
+    return subprocess.Popen([RC._nvcc(), *RC.NVCC_FLAGS, "-o", so, cu],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), so
+
+
+def finish_nvcc(build, fn: str, argtypes):
+    """(ctypes library with `fn` typed, path, ptxas lines) of a
+    start_nvcc build, or (None, path, lines) if nvcc failed."""
+    proc, so = build
+    log, _ = proc.communicate()
+    lines = [ln.strip() for ln in log.splitlines()
+             if any(w in ln for w in ("registers", "spill", "error", "wgmma",
+                                       "setmaxnreg"))]
+    if proc.returncode:
+        return None, so, lines
+    lib = ctypes.CDLL(so)
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+    return lib, so, lines
+
+
+def parent_mlp(lib, fw, emb):
+    """The first deform_mlp design's launch (PARENT_MLP_ARGTYPES) on
+    packed weights (pack_fused_weights): its outputs; not counted."""
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    n = emb.shape[0]
+    outs = [torch.empty((n, c), dtype=torch.float32, device=emb.device)
+            for c in (3, 4, 3)]
+    rc = lib.trase_deform_mlp(
+        emb.data_ptr(), n, fw.in_dim, fw.w0.shape[1], fw.w0.data_ptr(),
+        fw.ws_in.data_ptr(), fw.w_hidden.data_ptr(), fw.bias.data_ptr(),
+        fw.wh.data_ptr(), fw.bh.data_ptr(), *[o.data_ptr() for o in outs],
+        RC._stream(emb.device))
+    if rc != 0:
+        raise RuntimeError(f"parent deform_mlp launch failed: {rc}")
+    return tuple(outs)
 
 
 SASS_INS_RE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
@@ -936,18 +1019,29 @@ def cublas_chain(w):
     return run
 
 
-def compare_mlp(label, net, xyz, t, timed):
+def mlp_rel(a, b):
+    """Max abs difference of each head over its largest magnitude in b."""
+    return {h: float((x - y).abs().max()) / (float(y.abs().max()) + 1e-12)
+            for h, x, y in zip(MLP_HEADS, a, b)}
+
+
+def compare_mlp(label, net, xyz, t, timed, parent=None):
     """The fused deform MLP kernel against its plain version on one
-    embedding (MLP_TOL of each head's scale), and both against the float32
-    module (MLP_MODULE_TOL); with `timed`, the kernel, the plain version,
-    the cuBLAS chain and the module timed and the bound reckoned."""
+    embedding (MLP_TOL of each head's scale), relaunched bit for bit, and
+    both against the float32 module (MLP_MODULE_TOL); with `timed`, the
+    kernel, the cuBLAS chain, its bare products and `parent` (an earlier
+    design's library, if given) in interleaved queued rounds, the
+    kernel host-paced, the plain version and the module timed, the
+    weights' packing uncached and cached, and the bound reckoned."""
     from trase_tpu_torch.models.deform import deform_step, frequency_embed
     from trase_tpu_torch.ops import mlp_cuda as M
 
     emb = torch.cat([frequency_embed(xyz, net.multires),
                      frequency_embed(t, net.t_multires)], 1).contiguous()
     w = M.pack_fused_weights(net)
-    got = M.deform_mlp_cuda(w, emb)
+    dw = M.device_layout(w)
+    got = M.deform_mlp_cuda(dw, emb)
+    again = M.deform_mlp_cuda(dw, emb)
     torch.cuda.synchronize()
     ref = M.deform_mlp_plain(w, emb)
     chain = cublas_chain(w)
@@ -955,40 +1049,53 @@ def compare_mlp(label, net, xyz, t, timed):
         module = deform_step(net, xyz, t)
         lib = chain(emb)
 
-    def rel(a, b):
-        return {h: float((x - y).abs().max()) / (float(y.abs().max()) + 1e-12)
-                for h, x, y in zip(MLP_HEADS, a, b)}
-
     row = {"phase": "compare", "kernel": "deform_mlp", "scene": label,
            "rows": emb.shape[0], "in_dim": w.in_dim,
-           "kernel_vs_plain": rel(got, ref),
-           "kernel_vs_module": rel(got, module),
-           "plain_vs_module": rel(ref, module),
-           "library_vs_plain": rel(lib, ref),
+           "kernel_vs_plain": mlp_rel(got, ref),
+           "kernel_vs_module": mlp_rel(got, module),
+           "plain_vs_module": mlp_rel(ref, module),
+           "library_vs_plain": mlp_rel(lib, ref),
            "max_abs_diff": max(float((x - y).abs().max())
                                for x, y in zip(got, ref)),
+           "relaunch_identical": all(torch.equal(x, y)
+                                     for x, y in zip(got, again)),
            "tol": {"kernel_vs_plain": MLP_TOL, "vs_module": MLP_MODULE_TOL}}
+    if parent is not None:
+        row["parent_vs_plain"] = mlp_rel(parent_mlp(parent, w, emb), ref)
     if timed:
-        row["ms"] = cuda_ms(lambda: M.deform_mlp_cuda(w, emb), 20)
-        row["plain_ms"] = cuda_ms(lambda: M.deform_mlp_plain(w, emb), 5)
         with torch.no_grad():
-            row["library_ms"] = cuda_ms(lambda: chain(emb), 20)
             n, bf = emb.shape[0], torch.bfloat16
             h = torch.ones((n, 256), dtype=bf, device=emb.device)
             ins = ([emb.to(bf)] + [h] * 4
                    + [torch.ones((n, w.in_dim + 256), dtype=bf,
                                  device=emb.device)] + [h] * 2 + [h.float()])
-            row["library_gemms_ms"] = cuda_ms(lambda: chain.gemms(ins), 20)
+            fns = {"kernel": lambda: M.deform_mlp_cuda(dw, emb),
+                   "library": lambda: chain(emb),
+                   "library_gemms": lambda: chain.gemms(ins)}
+            if parent is not None:
+                fns["parent"] = lambda: parent_mlp(parent, w, emb)
+            reps = repeated_ms(fns)
+            for k, v in reps.items():
+                pre = "" if k == "kernel" else f"{k}_"
+                row[f"{pre}ms"] = v["median"]
+                row[f"{pre}ms_repeats"] = v
+            row["ms_host_paced"] = cuda_ms(lambda: M.deform_mlp_cuda(dw, emb),
+                                           20)
+            row["plain_ms"] = cuda_ms(lambda: M.deform_mlp_plain(w, emb), 5)
             row["module_ms"] = cuda_ms(lambda: deform_step(net, xyz, t), 5)
-        row["pack_ms"] = cuda_ms(lambda: M.pack_fused_weights(net), 20)
+        row["pack_ms"] = cuda_ms(
+            lambda: M.device_layout(M.pack_fused_weights(net)), 20)
+        row["pack_cached_ms"] = cuda_ms(lambda: M.fused_weights(net), 20)
         row.update(mlp_bound(emb.shape[0], w.in_dim, w.w0.shape[1]))
     emit(row)
-    bad = [k for k in ("kernel_vs_plain",)
-           if not max(row[k].values()) <= MLP_TOL]
+    bad = [k for k in ("kernel_vs_plain", "parent_vs_plain")
+           if k in row and not max(row[k].values()) <= MLP_TOL]
     bad += [k for k in ("kernel_vs_module", "plain_vs_module")
             if not max(row[k].values()) <= MLP_MODULE_TOL]
     if not all(bool(torch.isfinite(x).all()) for x in got):
         bad.append("non-finite kernel output")
+    if not row["relaunch_identical"]:
+        bad.append("relaunch not bit-identical")
     if bad:
         raise AssertionError(f"deform_mlp on {label}: {bad}")
     return row
@@ -1109,15 +1216,22 @@ class StageTimer:
         return split
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mlp-parent", default=None,
+                    help="an earlier deform_mlp.cu (the wmma design's C interface) "
+                    "to time beside the kernel")
+    a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    run(torch.device("cuda"))
+    run(torch.device("cuda"), a.mlp_parent)
     return 0
 
 
-def run(dev: torch.device) -> None:
+def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     from trase_tpu_torch.models import gaussians as G
     from trase_tpu_torch.models.deform import init_deform, make_deform_network
     from trase_tpu_torch.ops import rasterize_cuda as RC
@@ -1133,12 +1247,28 @@ def run(dev: torch.device) -> None:
           "cuda": torch.version.cuda})
 
     # 2. build
+    parent_build = None
+    if mlp_parent:
+        with open(mlp_parent) as f:
+            parent_build = start_nvcc("deform_mlp_parent", f.read())
     libs = RC.build_library()
     for name, (lib, seconds, log) in libs.items():
         emit({"phase": "build", "source": name, "library": os.path.relpath(lib),
               "seconds": seconds,
               "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]})
+                        if any(w in ln for w in ("registers", "spill",
+                                                 "wgmma", "setmaxnreg"))]})
+    parent = None
+    if parent_build:
+        parent, so, lines = finish_nvcc(parent_build, "trase_deform_mlp",
+                                        PARENT_MLP_ARGTYPES)
+        emit({"phase": "build", "source": mlp_parent, "ptxas": lines,
+              "res_usage": res_usage(so) if parent else None})
+        assert parent is not None, f"{mlp_parent} did not build"
+    mlp_res = res_usage(libs["deform_mlp"][0])
+    emit({"phase": "mlp-res", "res_usage": mlp_res})
+    spills = {k: v for k, v in mlp_res.items() if v["local"] or v["stack"]}
+    assert mlp_res and not spills, f"deform_mlp spills: {spills}"
     sass = fwd_sass(libs["composite_fwd"][0])
     emit({"phase": "fwd-sass", "saved": os.path.relpath(
               os.path.splitext(libs["composite_fwd"][0])[0] + ".sass"),
@@ -1209,7 +1339,8 @@ def run(dev: torch.device) -> None:
         compare_mlp("small", net, params.xyz[:300],
                     torch.full((300, 1), 0.42, device=dev), False),
         compare_mlp("bench", net, params.xyz,
-                    torch.full((cap, 1), 0.5, device=dev), True)]
+                    torch.full((cap, 1), 0.5, device=dev), True, parent)]
+    mlp_rows[-1]["registers"] = max(v["registers"] for v in mlp_res.values())
 
     # 4. the serving path: deform_step -> renderer.render, counted
     from trase_tpu_torch.models.deform import deform_step
@@ -1271,6 +1402,18 @@ def run(dev: torch.device) -> None:
     assert launches["render_fused"] == {
         "composite_fwd": n_fused, "composite_bwd": 0, "reduce_pair_grads": 0,
         "deform_mlp": n_fused}, launches["render_fused"]
+    # the same frames with the weights repacked every frame, as before
+    # fused_weights cached them (not counted: a comparison)
+    from trase_tpu_torch.ops import mlp_cuda as M
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(FRAMES):
+            M._CACHE.clear()
+            frame(i / FRAMES, False, fused=True)
+        torch.cuda.synchronize()
+        frame_ms["fused_repack"] = (time.perf_counter() - t0) / FRAMES * 1e3
     for k in ("render", "depth", "alpha"):
         assert bool(torch.isfinite(out_f[k]).all()), f"non-finite fused {k}"
     with torch.no_grad():
@@ -1295,6 +1438,7 @@ def run(dev: torch.device) -> None:
           "stage_ms": stages, "stage_ms_with_features": stages_feats,
           "fused_frames": n_fused, "launches_fused": launches["render_fused"],
           "frame_ms_fused": frame_ms["fused"],
+          "frame_ms_fused_repack": frame_ms["fused_repack"],
           "stage_ms_fused": stages_fused,
           "fused_vs_f32_image_max_abs_diff": float(fused_diff.max()),
           "fused_vs_f32_image_mean_abs_diff": float(fused_diff.mean()),
@@ -1491,6 +1635,10 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
         ms=mb["ms"], plain_ms=mb["plain_ms"], bound_ms=mb["bound_ms"],
         bound_by=mb["bound_by"], library_ms=mb["library_ms"],
         library="cuBLAS bf16 chain (8 F.linear + 3 float32 heads)",
+        ms_repeats=mb["ms_repeats"], ms_host_paced=mb["ms_host_paced"],
+        library_gemms_ms=mb["library_gemms_ms"],
+        parent_ms=mb.get("parent_ms"), registers=mb["registers"],
+        pack_ms=mb["pack_ms"], pack_cached_ms=mb["pack_cached_ms"],
         module_ms=mb["module_ms"], rows=mb["rows"],
         launches_by_path={
             p: c["deform_mlp"] if "deform_mlp" in c

@@ -406,30 +406,44 @@ def test_reduce_matches_plain_bitwise(words, k):
                                                         tile_start, n))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,model_type", [
-    (300, "DeformNetwork"), (4096 + 7, "DeformNetwork"),
-    (300, "DeformStaticNetwork"), (300, "DeformDynamicNetwork")])
-def test_deform_mlp_matches_plain(n, model_type):
-    """The fused deform MLP kernel against fused_deform_mlp_plain on the
-    same embedding (ragged last tiles; input widths 84, 68 and 128): bf16
-    operands with float32 sums in another order, so an activation near a
-    bf16 rounding boundary may round the other way: 1e-2 of each head's
-    scale. One launch, counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _mlp_inputs(n, model_type, seed=0):
+    """A seeded network of `model_type` on the card and the embedding of
+    n seeded points at t = 0.42."""
     from trase_tpu_torch.models.deform import (
-        deform_step, frequency_embed, init_deform, make_deform_network)
-    from trase_tpu_torch.ops import mlp_cuda as TM
+        frequency_embed, init_deform, make_deform_network)
 
     net = init_deform(make_deform_network(model_type, device="cuda"),
                       torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     xyz = torch.tensor(rng.normal(size=(n, 3)).astype(np.float32),
                        device="cuda")
     t = torch.full((n, 1), 0.42, device="cuda")
     emb = torch.cat([frequency_embed(xyz, net.multires),
                      frequency_embed(t, net.t_multires)], 1)
+    return net, xyz, t, emb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,model_type", [
+    (1, "DeformNetwork"), (63, "DeformNetwork"), (64, "DeformNetwork"),
+    (127, "DeformNetwork"), (128, "DeformNetwork"), (129, "DeformNetwork"),
+    (300, "DeformNetwork"), (4096 + 7, "DeformNetwork"),
+    (131072, "DeformNetwork"),
+    (300, "DeformStaticNetwork"), (4096 + 7, "DeformStaticNetwork"),
+    (300, "DeformDynamicNetwork"), (4096 + 7, "DeformDynamicNetwork")])
+def test_deform_mlp_matches_plain(n, model_type):
+    """The fused deform MLP kernel against fused_deform_mlp_plain on the
+    same embedding (one row, rows around one warpgroup's 64 and one
+    tile's 128, ragged last tiles, the bench capacity; input widths 84,
+    68 and 128): bf16 operands with float32 sums in another order, so an
+    activation near a bf16 rounding boundary may round the other way:
+    1e-2 of each head's scale. One launch, counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.models.deform import deform_step
+    from trase_tpu_torch.ops import mlp_cuda as TM
+
+    net, xyz, t, emb = _mlp_inputs(n, model_type)
     key = ("deform_mlp",)
     before = TRC.LAYOUT_LAUNCHES.get(key, 0)
     got = deform_step(net, xyz, t, fused=True)
@@ -440,3 +454,45 @@ def test_deform_mlp_matches_plain(n, model_type):
         assert b.shape == a.shape and bool(torch.isfinite(b).all())
         err = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-6)
         assert err <= 1e-2, err
+
+
+@pytest.mark.cuda
+def test_deform_mlp_relaunch_bit_identical():
+    """No float atomics and a fixed sum order: a relaunch on the same
+    inputs gives the same bits, at a ragged size over many tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.ops import mlp_cuda as TM
+
+    net, _, _, emb = _mlp_inputs(4096 * 3 + 77, "DeformNetwork")
+    dw = TM.fused_weights(net)
+    first = TM.deform_mlp_cuda(dw, emb)
+    second = TM.deform_mlp_cuda(dw, emb)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", [0, 70, 299])
+def test_deform_mlp_nan_stays_in_its_row(row):
+    """A NaN in one row of emb makes every output of that row NaN (ReLU
+    passes NaN through, as jnp.maximum and torch.relu do) and leaves
+    every other row's outputs bit for bit as without it: rows of one
+    tile and of one warpgroup do not mix."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.ops import mlp_cuda as TM
+
+    net, _, _, emb = _mlp_inputs(300, "DeformNetwork")
+    dw = TM.fused_weights(net)
+    clean = TM.deform_mlp_cuda(dw, emb)
+    bad = emb.clone()
+    bad[row, 5] = float("nan")
+    got = TM.deform_mlp_cuda(dw, bad)
+    torch.cuda.synchronize()
+    others = torch.ones(300, dtype=torch.bool, device="cuda")
+    others[row] = False
+    for a, b in zip(got, clean):
+        assert bool(torch.isnan(a[row]).all())
+        assert torch.equal(a[others], b[others])

@@ -3,8 +3,10 @@ csrc/deform_mlp.cu (ops/mlp_cuda.py: fused_deform_mlp_plain) against
 trase_tpu's Pallas kernel (ops/mlp_pallas.py, interpret mode on the CPU,
 as tests/test_rasterize_pallas.py::test_fused_deform_matches_flax runs
 it) on one flax init carried into the port's network; the fused path
-against the float32 module; the architecture gate; and the weight
-packing against trase_tpu's split of the same flax tree."""
+against the float32 module; the architecture gate; the weight packing
+against trase_tpu's split of the same flax tree; the kernel's device
+layout of it, undone element by element; and the cache of that layout on
+the network."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -153,3 +155,70 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="standard DeformNetwork"):
         TM.pack_fused_weights(TD.make_deform_network(is_6dof=True,
                                                      device="cpu"))
+
+
+def _unswizzle(chunk):
+    """One (256, 64) device chunk back to (256, 64): element (r, k) of the
+    chunk lies in row r's 16-byte group (k // 8) ^ (r % 8), at k % 8."""
+    out = np.empty(chunk.shape, np.float32)
+    for r in range(chunk.shape[0]):
+        for k in range(chunk.shape[1]):
+            out[r, k] = chunk[r, ((k // 8) ^ (r % 8)) * 8 + k % 8]
+    return out
+
+
+@pytest.mark.parametrize("model_type,in_dim", [
+    ("DeformStaticNetwork", 68), ("DeformNetwork", 84),
+    ("DeformDynamicNetwork", 128)])
+def test_device_layout_inverts_to_fused_weights(model_type, in_dim):
+    """device_layout's 32 swizzled chunks, undone by hand, give back
+    pack_fused_weights's tensors exactly: W0 and Ws_in from 2 chunks each
+    (zero past in_dim up to the kernel's 128 input columns), W1..W4, Ws_h,
+    W6, W7 from 4 each, in the kernel's order; biases and heads as they
+    were."""
+    _, _, tnet = _nets(model_type)
+    w = TM.pack_fused_weights(tnet)
+    assert w.in_dim == in_dim
+    dw = TM.device_layout(w)
+    assert dw.chunks.shape == (TM.N_CHUNKS, 256, 64)
+    chunks = [_unswizzle(c) for c in dw.chunks.float().numpy()]
+
+    def take(n):
+        return np.concatenate([chunks.pop(0) for _ in range(n)], axis=1)
+
+    mats = [take(2)] + [take(4) for _ in range(4)] + [take(2)] \
+        + [take(4) for _ in range(3)]
+    assert not chunks
+    kin = w.w0.shape[1]
+    for m, packed in ((mats[0], w.w0), (mats[5], w.ws_in)):
+        np.testing.assert_array_equal(m[:, :kin], packed.float().numpy())
+        assert not m[:, in_dim:].any()
+    for m, i in zip(mats[1:5] + mats[6:], (0, 1, 2, 3, 4, 5, 6)):
+        np.testing.assert_array_equal(m, w.w_hidden[i].float().numpy())
+    for name in ("bias", "wh", "bh"):
+        assert torch.equal(getattr(dw, name), getattr(w, name))
+    assert dw.in_dim == in_dim
+
+
+def test_fused_weights_cache_follows_the_parameters():
+    """fused_weights packs once and returns the same tensors while no
+    parameter changes; an in-place update of one weight and
+    load_flax_params (copy_ into every parameter) each repack, and the
+    repacked chunks equal a fresh device_layout."""
+    _, variables, tnet = _nets()
+    first = TM.fused_weights(tnet)
+    assert TM.fused_weights(tnet) is first
+
+    with torch.no_grad():
+        tnet.linear[3].weight.mul_(2.0)
+    second = TM.fused_weights(tnet)
+    assert second is not first
+    assert not torch.equal(second.chunks, first.chunks)
+    assert torch.equal(second.chunks, TM.device_layout(
+        TM.pack_fused_weights(tnet)).chunks)
+    assert TM.fused_weights(tnet) is second
+
+    TD.load_flax_params(tnet, jax.tree_util.tree_map(np.asarray, variables))
+    third = TM.fused_weights(tnet)
+    assert third is not second
+    assert torch.equal(third.chunks, first.chunks)

@@ -12,10 +12,8 @@ a list of [old, new] text substitutions in the repo's source, each built
 as its own variant. Builds go to trase_tpu_torch/build/variants/.
 """
 import argparse
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -37,32 +35,17 @@ LAYOUTS = ((False, True, False, False), (True, True, False, False),
 
 def build_variants(sources: dict) -> dict:
     """{name: ctypes library} of each source, built in parallel."""
-    out_dir = os.path.join(RC.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, src in sources.items():
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(src)
-        so = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (subprocess.Popen(
-            [RC._nvcc(), *RC.NVCC_FLAGS, "-o", so, cu], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
+    builds = {name: CS.start_nvcc(name, src) for name, src in sources.items()}
+    fn, argtypes = RC._ARGTYPES["composite_fwd"]
     libs = {}
-    for name, (p, so) in procs.items():
-        log, _ = p.communicate()
-        CS.emit({"variant": name, "rc": p.returncode, "ptxas": [
-            ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln or "error" in ln]})
-        if p.returncode:
+    for name, b in builds.items():
+        lib, so, lines = CS.finish_nvcc(b, fn, argtypes)
+        CS.emit({"variant": name, "built": lib is not None, "ptxas": lines})
+        if lib is None:
             continue
         CS.emit({"variant": name, "sass": {
             "/".join(str(int(x)) for x in k): v
             for k, v in sorted(CS.fwd_sass(so, save=False).items())}})
-        lib = ctypes.CDLL(so)
-        fn, argtypes = RC._ARGTYPES["composite_fwd"]
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 

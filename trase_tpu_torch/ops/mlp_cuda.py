@@ -7,6 +7,11 @@ block, in one kernel (``csrc/deform_mlp.cu``, see its header for the
 design and its bound on the card): bf16 operands, float32 accumulation,
 float32 biases added before each bf16 rounding, float32 heads.
 
+``pack_fused_weights`` gives the logical layout (``FusedWeights``) that
+the plain version reads; ``device_layout`` lays it out as the kernel
+streams it (32 swizzled chunks of 256 x 64 bf16), and ``fused_weights``
+caches that on the network until a parameter changes.
+
 ``fused_deform_mlp`` launches the kernel on CUDA tensors and raises for
 anything else; ``fused_deform_mlp_plain`` is the same function in plain
 PyTorch (float32 products of the bf16-rounded operands, TF32 off), the
@@ -15,6 +20,7 @@ CPU path. Neither falls back to the other. Launches are counted in
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -22,6 +28,11 @@ import torch
 from . import rasterize_cuda as RC
 
 HIDDEN = 7  # W1..W4, Ws_h, W6, W7
+# the kernel's weight chunks: 256 output rows x CHUNK_K inputs, bf16, in
+# the 128-byte swizzled order (64 bf16 a row, 16-byte groups permuted by
+# row % 8); the input's K padded to KIN
+WIDTH, CHUNK_K, KIN = 256, 64, 128
+N_CHUNKS = 2 * (KIN // CHUNK_K) + HIDDEN * (WIDTH // CHUNK_K)  # 32
 
 
 def fused_available(model) -> bool:
@@ -82,6 +93,69 @@ def pack_fused_weights(model) -> FusedWeights:
         in_dim=in_dim)
 
 
+class DeviceWeights(NamedTuple):
+    chunks: torch.Tensor  # (32, 256, 64) bf16, swizzled: see device_layout
+    bias: torch.Tensor  # (8, 256) float32
+    wh: torch.Tensor  # (256, 10) float32
+    bh: torch.Tensor  # (10,) float32
+    in_dim: int
+
+
+def _swizzle128(w: torch.Tensor) -> torch.Tensor:
+    """(rows, 64) bf16 -> the same shape in the 128-byte swizzled order
+    wgmma reads: row r's 16-byte group p holds group p ^ (r % 8) of the
+    row. Its own inverse."""
+    rows = w.shape[0]
+    perm = (torch.arange(8, device=w.device)[None, :]
+            ^ (torch.arange(rows, device=w.device) % 8)[:, None])
+    g = w.reshape(rows, 8, 8)
+    return torch.gather(g, 1, perm[:, :, None].expand(rows, 8, 8)).reshape(
+        rows, CHUNK_K)
+
+
+@torch.no_grad()
+def device_layout(weights: FusedWeights) -> DeviceWeights:
+    """The kernel's layout of packed weights, in the order the kernel
+    consumes them: W0 and Ws_in zero-padded to KIN input columns (2
+    chunks each), the hidden (256, 256) matrices 4 chunks each; chunk i
+    of a matrix is its input columns [64 i, 64 i + 64), swizzled. Order:
+    W0, W1..W4, Ws_in, Ws_h, W6, W7."""
+    w = weights
+    if w.in_dim > KIN:
+        raise ValueError(f"the fused kernel takes in_dim <= {KIN}")
+
+    def pad(m):
+        return torch.nn.functional.pad(m, (0, KIN - m.shape[1]))
+
+    mats = ([pad(w.w0)] + [w.w_hidden[i] for i in range(4)]
+            + [pad(w.ws_in), w.w_hidden[4], w.w_hidden[5], w.w_hidden[6]])
+    chunks = [_swizzle128(m[:, k:k + CHUNK_K].contiguous())
+              for m in mats for k in range(0, m.shape[1], CHUNK_K)]
+    return DeviceWeights(torch.stack(chunks).contiguous(), w.bias, w.wh,
+                         w.bh, w.in_dim)
+
+
+# network -> (key, DeviceWeights); the key is every parameter's storage
+# and version counter, so an in-place update or load_flax_params repacks
+_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _params_key(model) -> tuple:
+    return tuple((p.data_ptr(), p._version) for p in model.parameters())
+
+
+def fused_weights(model) -> DeviceWeights:
+    """device_layout(pack_fused_weights(model)), cached on the network
+    while no parameter has been replaced or changed in place."""
+    key = _params_key(model)
+    hit = _CACHE.get(model)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    dw = device_layout(pack_fused_weights(model))
+    _CACHE[model] = (key, dw)
+    return dw
+
+
 def _split(out: torch.Tensor):
     return out[:, 0:3], out[:, 3:7], out[:, 7:10]
 
@@ -114,29 +188,26 @@ def deform_mlp_plain(weights: FusedWeights, emb: torch.Tensor):
     return _split(h @ w.wh + w.bh)
 
 
-def deform_mlp_cuda(weights: FusedWeights, emb: torch.Tensor):
+def deform_mlp_cuda(weights: DeviceWeights, emb: torch.Tensor):
     """Launch the kernel on CUDA tensors: (d_xyz, d_rot, d_scale) as
     deform_mlp_plain returns them. Raises for CPU tensors, for shapes the
     kernel does not take and when the launch fails."""
     w = weights
-    RC._require_cuda("deform_mlp", "deform_mlp_plain", emb=emb, w0=w.w0,
-                     ws_in=w.ws_in, w_hidden=w.w_hidden, bias=w.bias,
-                     wh=w.wh, bh=w.bh)
-    kin = _kin(w.in_dim)
+    RC._require_cuda("deform_mlp", "deform_mlp_plain", emb=emb,
+                     chunks=w.chunks, bias=w.bias, wh=w.wh, bh=w.bh)
     n = emb.shape[0]
     if emb.dtype != torch.float32 or emb.dim() != 2 or \
             emb.shape[1] != w.in_dim:
         raise ValueError(f"emb must be float32 (N, {w.in_dim})")
-    shapes = {"w0": (256, kin), "ws_in": (256, kin),
-              "w_hidden": (HIDDEN, 256, 256), "bias": (8, 256),
-              "wh": (256, 10), "bh": (10,)}
-    for name, shape in shapes.items():
+    shapes = {"chunks": ((N_CHUNKS, WIDTH, CHUNK_K), torch.bfloat16),
+              "bias": ((8, 256), torch.float32),
+              "wh": ((256, 10), torch.float32),
+              "bh": ((10,), torch.float32)}
+    for name, (shape, dtype) in shapes.items():
         t = getattr(w, name)
-        want = torch.bfloat16 if name in ("w0", "ws_in", "w_hidden") \
-            else torch.float32
-        if tuple(t.shape) != shape or t.dtype != want:
-            raise ValueError(f"{name} must be {want} {shape} (the layout "
-                             "pack_fused_weights writes)")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {shape} (the layout "
+                             "device_layout writes)")
     if n == 0:
         raise ValueError("emb has no rows")
     lib = RC._library("deform_mlp")
@@ -145,10 +216,9 @@ def deform_mlp_cuda(weights: FusedWeights, emb: torch.Tensor):
             for c in (3, 4, 3)]
     with torch.cuda.device(dev):
         rc = lib.trase_deform_mlp(
-            emb.data_ptr(), n, w.in_dim, kin, w.w0.data_ptr(),
-            w.ws_in.data_ptr(), w.w_hidden.data_ptr(), w.bias.data_ptr(),
-            w.wh.data_ptr(), w.bh.data_ptr(), *[o.data_ptr() for o in outs],
-            RC._stream(dev))
+            emb.data_ptr(), n, w.in_dim, w.chunks.data_ptr(),
+            w.bias.data_ptr(), w.wh.data_ptr(), w.bh.data_ptr(),
+            *[o.data_ptr() for o in outs], RC._stream(dev))
     if rc != 0:
         raise RuntimeError(f"deform_mlp launch failed: cudaError {rc}")
     RC._count_layout(("deform_mlp",))
@@ -157,7 +227,7 @@ def deform_mlp_cuda(weights: FusedWeights, emb: torch.Tensor):
 
 def fused_deform_mlp(model, emb: torch.Tensor):
     """The kernel on a standard DeformNetwork's weights (CUDA tensors)."""
-    return deform_mlp_cuda(pack_fused_weights(model), emb.contiguous())
+    return deform_mlp_cuda(fused_weights(model), emb.contiguous())
 
 
 def fused_deform_mlp_plain(model, emb: torch.Tensor):

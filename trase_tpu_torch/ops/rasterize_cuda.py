@@ -592,8 +592,8 @@ _ARGTYPES = {
                       + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
                       + [ctypes.c_void_p] * 3),
     "deform_mlp": ("trase_deform_mlp",
-                   [ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 10),
+                   [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 8),
 }
 
 
