@@ -90,6 +90,23 @@ JSON line per phase:
                 with densify and opacity reset inside the run, crossing
                 warm_up_3d_features into FEATURE blocks in both arms, then
                 trase_tpu_torch.render on its snapshot;
+   synthetic    data/synthetic.py's write_synthetic_dataset at 256x256,
+                the fast GT (the compositor kernel, two launches a view)
+                against the oracle GT: PNGs within two 8-bit levels, masks
+                differing on at most 0.5 % of pixels, the same JSON and
+                points3d.ply; then the fast GT at 1008x1008, seconds per
+                view and launches;
+   resume       on a dataset the writer wrote (8 train, 2 test views at
+                256x256, n_times rig, masks): the train CLI to 2M with
+                --checkpoint_iterations M, past warm_up_3d_features; a run
+                with --start_checkpoint chkpntM.pkl to 2M, with
+                --profile_iters over 3 of its iterations. The loaded state,
+                Adam moments, phase machine and generator states equal the
+                saved bit for bit; the resumed run's compositor launches
+                match iterations M+1..2M; its final test PSNR lies within
+                a stated band of the uninterrupted run's; the trace names
+                the three compositor kernels; save_ckpt and load_ckpt
+                seconds and the checkpoint's MB;
 8. profile      torch.profiler over a few frames of phase 4 (float32 and
                 fused deform) and a few steps of phase 6 and of each
                 FEATURE arm: device busy time by kernel and the idle share;
@@ -182,6 +199,25 @@ KERNELS = {
 KMEANS_K, KMEANS_ITERS = 64, 50
 # the segment CLI's k-means on phase 5's 2000 gaussians, grouped in 4
 SEGMENT_K = 8
+# the synthetic writer: fast GT against the oracle GT, then (train, test)
+# views at 1008x1008. Masks: tests/test_torch_synthetic.py's 0.5 %. PNGs:
+# 2 levels, not that test's 1 (32x32, where they are equal): at 256x256 a
+# few pixels per view lie just outside a gaussian's exact-support rect
+# with alpha just above 1/255, which the tiled compositor culls and the
+# oracle composites (the culling behind tests/test_rasterize_pallas.py's
+# 2e-3 oracle bound; tests/test_torch_synthetic.py checks 2 at 256x256)
+SYN_PNG_LEVELS, SYN_MASK_SHARE = 2, 0.005
+SYN_SIZE, SYN_BIG_SIZE, SYN_BIG_VIEWS = 256, 1008, (4, 1)
+# resume: a checkpoint at M of a 2M run at RESUME_SIZE; GAUSSIAN 1-29, then
+# FEATURE and GAUSSIAN blocks of 15 from 30 (FEATURE 60-74: the checkpoint
+# falls in one); the trace over iterations 91-93 of the resumed run. The
+# band of its final test PSNR against the uninterrupted run's: the card's
+# smoothing-gather backward (index_put with accumulate, atomics) sums the
+# FEATURE steps' feature gradients in no fixed order, and through the
+# densify statistics a difference can reach the gaussians' colours.
+RESUME_M, RESUME_FEATURE_FROM, RESUME_PROFILE_FROM = 60, 30, 90
+RESUME_SIZE = 256
+RESUME_PSNR_BAND = 0.5
 GEOM_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "log_op": (5, 6)}
 
 
@@ -1494,6 +1530,16 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     launches["train_cli"] = cli_row["launches"]
     layouts["train_cli"] = cli_row.pop("layouts")
     emit({"phase": "train-cli", **cli_row})
+
+    # 7b. the synthetic dataset writer, then a checkpointed run resumed
+    syn = synthetic_phase(tmp.name, dev)
+    launches["synthetic"] = syn.pop("launches")
+    layouts["synthetic"] = syn.pop("layouts")
+    emit({"phase": "synthetic", **syn})
+    res = resume_phase(tmp.name, dev)
+    launches["resume"] = res.pop("launches")
+    layouts["resume"] = res.pop("layouts")
+    emit({"phase": "resume", **res})
     tmp.cleanup()
 
     # 8. where a frame's and a step's device time goes
@@ -2129,6 +2175,221 @@ def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
             len(events["reset"]), "n_alive": trainer._n_alive_cache,
             "capacity": int(trainer.state.params.xyz.shape[0]),
             "png_counts": pngs}
+
+
+def compare_datasets(a, b) -> dict:
+    """Two synthetic dataset directories of the same views: the largest
+    8-bit difference of their PNGs and the largest share of mask pixels
+    that differ; their transforms JSON and points3d.ply must be equal."""
+    from PIL import Image
+
+    from trase_tpu_torch.data.masks import decode_mask_file
+
+    png, mask, views = 0, 0.0, 0
+    for split_name in ("train", "test"):
+        with open(os.path.join(a, f"transforms_{split_name}.json")) as f:
+            ja = json.load(f)
+        with open(os.path.join(b, f"transforms_{split_name}.json")) as f:
+            assert json.load(f) == ja, split_name
+        for frame in ja["frames"]:
+            name = os.path.basename(frame["file_path"])
+            ia, ib = (np.asarray(Image.open(os.path.join(d, "images",
+                                                         f"{name}.png")),
+                                 np.int32) for d in (a, b))
+            ma, mb = (decode_mask_file(os.path.join(d, "images", "masks",
+                                                    f"{name}.npz"))
+                      for d in (a, b))
+            assert ma.shape == mb.shape and ma.any(), name
+            png = max(png, int(np.abs(ia - ib).max()))
+            mask = max(mask, float((ma != mb).mean()))
+            views += 1
+    plys = []
+    for d in (a, b):
+        with open(os.path.join(d, "points3d.ply"), "rb") as f:
+            plys.append(f.read())
+    assert plys[0] == plys[1], "points3d.ply differs"
+    return {"views": views, "png_max_levels": png, "mask_max_share": mask}
+
+
+def synthetic_phase(root, dev) -> dict:
+    """The port's synthetic writer on the card: 256x256 with the fast GT
+    (the compositor kernel, two launches a view) against the oracle GT,
+    PNGs within one 8-bit level and masks differing on at most 0.5 % of
+    pixels; then the fast GT at 1008x1008, seconds per view."""
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    fast, oracle = (os.path.join(root, n) for n in ("syn_fast", "syn_oracle"))
+    reset_counts()
+    t0 = time.perf_counter()
+    write_synthetic_dataset(fast, image_size=SYN_SIZE, fast_gt=True,
+                            device=dev)
+    torch.cuda.synchronize()
+    fast_s = time.perf_counter() - t0
+    launches, layouts = counts(), layout_counts()
+    t0 = time.perf_counter()
+    write_synthetic_dataset(oracle, image_size=SYN_SIZE, fast_gt=False,
+                            device=dev)
+    oracle_s = time.perf_counter() - t0
+    row = compare_datasets(oracle, fast)
+    n_views = row["views"]
+    assert launches == dict(compositor(0), composite_fwd=2 * n_views,
+                            deform_mlp=0), launches
+    assert row["png_max_levels"] <= SYN_PNG_LEVELS, row
+    assert row["mask_max_share"] <= SYN_MASK_SHARE, row
+    big = os.path.join(root, "syn_1008")
+    reset_counts()
+    t0 = time.perf_counter()
+    write_synthetic_dataset(big, n_train=SYN_BIG_VIEWS[0],
+                            n_test=SYN_BIG_VIEWS[1], image_size=SYN_BIG_SIZE,
+                            fast_gt=True, device=dev)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    big_views = sum(SYN_BIG_VIEWS)
+    big_launches = counts()
+    assert big_launches == dict(compositor(0), composite_fwd=2 * big_views,
+                                deform_mlp=0), big_launches
+    from PIL import Image
+
+    with Image.open(os.path.join(big, "images", "train_0000.png")) as im:
+        assert im.size == (SYN_BIG_SIZE, SYN_BIG_SIZE)
+    for k, v in layout_counts().items():  # the path's launches: both runs
+        layouts[k] = layouts.get(k, 0) + v
+    launches["composite_fwd"] += big_launches["composite_fwd"]
+    return {"size": SYN_SIZE, **row, "png_tol": SYN_PNG_LEVELS,
+            "mask_tol": SYN_MASK_SHARE, "seconds_fast": fast_s,
+            "seconds_oracle": oracle_s, "s_per_view_fast": fast_s / n_views,
+            "s_per_view_oracle": oracle_s / n_views,
+            "size_big": SYN_BIG_SIZE, "views_big": big_views, "seconds_big": big_s,
+            "s_per_view_big": big_s / big_views,
+            "launches_big": big_launches, "launches": launches,
+            "layouts": layouts}
+
+
+def _flat_state(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _run_state(tr) -> dict:
+    """What a resume restores besides the state tensors: SH degree, the
+    phase machine, the generators (feature_gen on the card) and the
+    skipped-step counters."""
+    return {"sh": tr.active_sh_degree,
+            "phase": (tr.opt_state.state, tr.opt_state.iterations),
+            "np_rng": tr.np_rng.bit_generator.state,
+            "densify_gen": tr.densify_gen.get_state().numpy().tobytes(),
+            "feature_gen": tr.feature_gen.get_state().numpy().tobytes(),
+            "feature_gen_device": tr.feature_gen.device.type,
+            "skipped": (int(tr.skipped), tr._skipped_seen)}
+
+
+def resume_phase(root, dev) -> dict:
+    """The train CLI's run state on the card, on a dataset the port's
+    writer wrote (8 train and 2 test views at 256x256, the n_times rig,
+    with masks): (a) a run to 2M with --checkpoint_iterations M, past
+    warm_up_3d_features into FEATURE blocks before M; (b) a run resumed
+    from chkpnt<M>.pkl to 2M, with --profile_iters over 3 of its
+    iterations. Checks: (b)'s loaded state, Adam moments, phase machine
+    and generator states equal (a)'s at M bit for bit; (b) launches each
+    compositor kernel once per iteration M+1..2M (and the forward once
+    per evaluated view); its final test PSNR within RESUME_PSNR_BAND dB of
+    (a)'s; the trace names the three compositor kernels."""
+    from trase_tpu_torch import train as train_cli
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+    from trase_tpu_torch.engine import loop as TL
+    from trase_tpu_torch.engine import trainer as TT
+
+    src = os.path.join(root, "resume_data")
+    write_synthetic_dataset(src, n_train=8, n_test=2, image_size=RESUME_SIZE,
+                            n_times=4, fast_gt=True, device=dev)
+    m = RESUME_M
+    a_dir, b_dir = (os.path.join(root, n) for n in ("resume_a", "resume_b"))
+    common = ["-s", src, "--iterations", str(2 * m), "--eval", "--quiet",
+              "--test_iterations", str(2 * m), "--save_iterations",
+              str(2 * m), "--warm_up", "20", "--densify_from_iter", "10",
+              "--densification_interval", "20", "--densify_until_iter",
+              str(m + 30), "--warm_up_3d_features", str(RESUME_FEATURE_FROM),
+              "--iterative_opt_interval", "14", "--device", dev.type]
+    seen = {}
+    save, load = TL.Trainer.save_ckpt, TL.Trainer.load_ckpt
+
+    def timed_save(self, iteration):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, iteration)
+        seen["save_s"] = time.perf_counter() - t0
+        seen["saved"] = TT.train_state_to_numpy(self.state)
+        seen["saved_run"] = _run_state(self)
+        seen["feature_calls_at_m"] = self.feature_calls
+
+    def timed_load(self, path):
+        t0 = time.perf_counter()
+        it = load(self, path)
+        torch.cuda.synchronize()
+        seen["load_s"] = time.perf_counter() - t0
+        seen["loaded"] = TT.train_state_to_numpy(self.state)
+        seen["loaded_run"] = _run_state(self)
+        return it
+
+    TL.Trainer.save_ckpt, TL.Trainer.load_ckpt = timed_save, timed_load
+    try:
+        t0 = time.perf_counter()
+        tr_a = train_cli.main(common + ["-m", a_dir, "--checkpoint_iterations",
+                                        str(m)])
+        a_s = time.perf_counter() - t0
+        ckpt = os.path.join(a_dir, f"chkpnt{m}.pkl")
+        reset_counts()
+        t0 = time.perf_counter()
+        p0 = RESUME_PROFILE_FROM
+        tr_b = train_cli.main(common + ["-m", b_dir, "--start_checkpoint", ckpt,
+                                        "--profile_iters", str(p0),
+                                        str(p0 + 3)])
+        b_s = time.perf_counter() - t0
+    finally:
+        TL.Trainer.save_ckpt, TL.Trainer.load_ckpt = save, load
+    launches, layouts = counts(), layout_counts()
+    assert seen["feature_calls_at_m"] > 0, "no FEATURE step before M"
+    flat_saved, flat_loaded = (_flat_state(seen[k]) for k in ("saved",
+                                                              "loaded"))
+    assert sorted(flat_saved) == sorted(flat_loaded)
+    differ = [k for k in flat_saved
+              if flat_saved[k].dtype != flat_loaded[k].dtype
+              or not np.array_equal(flat_saved[k], flat_loaded[k])]
+    assert not differ, f"loaded state differs from the saved: {differ[:8]}"
+    assert seen["loaded_run"] == seen["saved_run"], (seen["loaded_run"],
+                                                     seen["saved_run"])
+    assert seen["loaded_run"]["feature_gen_device"] == dev.type
+    evaluated = 10  # views 5, 10, ..., 25 of each split, at 2M
+    assert launches == dict(compositor(m), deform_mlp=0,
+                            composite_fwd=m + evaluated), launches
+    assert tr_b.step_calls + tr_b.feature_calls == m
+    psnr_a, psnr_b = tr_a.best_psnr, tr_b.best_psnr
+    assert 10.0 < psnr_a < 60.0, psnr_a
+    assert abs(psnr_b - psnr_a) <= RESUME_PSNR_BAND, (psnr_a, psnr_b)
+    with open(tr_b.profile_trace) as f:
+        trace = f.read()
+    named = {k: k in trace for k in ("composite_fwd_kernel",
+                                     "composite_bwd_kernel",
+                                     "reduce_pair_grads_kernel")}
+    assert all(named.values()), named
+    return {"m": m, "iterations": 2 * m,
+            "feature_steps_before_m": seen["feature_calls_at_m"],
+            "feature_steps_resumed": tr_b.feature_calls,
+            "seconds_a": a_s, "seconds_b": b_s,
+            "save_ckpt_s": seen["save_s"], "load_ckpt_s": seen["load_s"],
+            "checkpoint_mb": os.path.getsize(ckpt) / 2**20,
+            "capacity": int(tr_b.state.params.xyz.shape[0]),
+            "n_alive": tr_b._n_alive_cache,
+            "state_tensors_equal": len(flat_saved),
+            "test_psnr_a": psnr_a, "test_psnr_b": psnr_b,
+            "psnr_band": RESUME_PSNR_BAND,
+            "trace": os.path.basename(tr_b.profile_trace),
+            "trace_mb": os.path.getsize(tr_b.profile_trace) / 2**20,
+            "trace_names": named, "launches": launches, "layouts": layouts}
 
 
 if __name__ == "__main__":

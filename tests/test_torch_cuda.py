@@ -496,3 +496,111 @@ def test_deform_mlp_nan_stays_in_its_row(row):
     for a, b in zip(got, clean):
         assert bool(torch.isnan(a[row]).all())
         assert torch.equal(a[others], b[others])
+
+
+def _synthetic_views(path):
+    """{name: (image uint8, masks bool)} of a synthetic dataset dir."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from trase_tpu_torch.data.masks import decode_mask_file
+
+    out = {}
+    for split in ("train", "test"):
+        with open(os.path.join(path, f"transforms_{split}.json")) as f:
+            frames = json.load(f)["frames"]
+        for frame in frames:
+            name = os.path.basename(frame["file_path"])
+            img = np.asarray(Image.open(os.path.join(
+                path, "images", f"{name}.png")), np.int32)
+            out[name] = (img, decode_mask_file(os.path.join(
+                path, "images", "masks", f"{name}.npz")))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_times", [0, 3])
+def test_fast_gt_matches_oracle_on_card(tmp_path, n_times):
+    """data/synthetic.py's fast GT on the card (the compositor kernel, two
+    launches a view) against its oracle GT on the card at 64x64: PNGs
+    within one 8-bit level, masks differing on at most 0.5 % of pixels
+    (tests/test_torch_synthetic.py's bounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    kw = dict(n_train=6, n_test=3, image_size=64, n_times=n_times,
+              device="cuda")
+    TRC.LAYOUT_LAUNCHES.clear()
+    write_synthetic_dataset(str(tmp_path / "fast"), fast_gt=True, **kw)
+    fwd = sum(v for k, v in TRC.LAYOUT_LAUNCHES.items()
+              if k[0] == "composite_fwd")
+    write_synthetic_dataset(str(tmp_path / "oracle"), **kw)
+    fast, oracle = (_synthetic_views(str(tmp_path / n))
+                    for n in ("fast", "oracle"))
+    assert sorted(fast) == sorted(oracle) and fwd == 2 * len(fast)
+    for name, (img, masks) in oracle.items():
+        assert np.abs(fast[name][0] - img).max() <= 1, name
+        assert masks.any() and (fast[name][1] != masks).mean() <= 0.005, name
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_card_generators(tmp_path):
+    """A trainer on the card checkpoints after FEATURE steps; a second
+    trainer's load_ckpt gives the same state bit for bit, and its
+    feature_gen (a CUDA generator) and densify_gen continue the first
+    one's streams: the next draws are equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from trase_tpu_torch import train as t_train
+    from trase_tpu_torch.config import ModelParams, OptimizationParams
+    from trase_tpu_torch.data.scene import Scene
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.engine.loop import Trainer
+
+    src = str(tmp_path / "data")
+    write_synthetic_dataset(src, n_train=4, n_test=1, image_size=64,
+                            device="cuda")
+
+    def trainer(name):
+        args = t_train.parse_args([
+            "-s", src, "-m", str(tmp_path / name), "--is_blender",
+            "--iterations", "12", "--warm_up", "3",
+            "--warm_up_3d_features", "4", "--iterative_opt_interval", "3",
+            "--densify_from_iter", "2", "--densification_interval", "4",
+            "--densify_until_iter", "9", "--num_sampled_pixels", "512",
+            "--num_sampled_masks", "3"])
+        ds = ModelParams.extract(args)
+        os.makedirs(ds.model_path, exist_ok=True)
+        return Trainer(ds, OptimizationParams.extract(args), None,
+                       Scene(ds, shuffle=False, device="cuda"),
+                       device="cuda")
+
+    seen = {}
+
+    def at_10(t, iteration, metrics):
+        if iteration == 10:
+            seen["state"] = TT.train_state_to_numpy(t.state)
+            seen["gens"] = (t.feature_gen.get_state(),
+                            t.densify_gen.get_state())
+
+    a = trainer("a")
+    a.train(checkpoint_iterations={10}, progress=False, on_iteration=at_10)
+    assert a.feature_calls > 0 and a.feature_gen.device.type == "cuda"
+    b = trainer("b")
+    assert b.load_ckpt(str(tmp_path / "a" / "chkpnt10.pkl")) == 10
+    got = TT.train_state_to_numpy(b.state)
+    for part in ("params", "aux"):
+        for k, v in seen["state"][part].items():
+            np.testing.assert_array_equal(got[part][k], v, err_msg=k)
+    assert torch.equal(b.feature_gen.get_state(), seen["gens"][0])
+    assert torch.equal(b.densify_gen.get_state(), seen["gens"][1])
+    a.feature_gen.set_state(seen["gens"][0])
+    x = torch.rand(64, device="cuda", generator=a.feature_gen)
+    y = torch.rand(64, device="cuda", generator=b.feature_gen)
+    assert torch.equal(x, y)

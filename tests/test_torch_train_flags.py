@@ -1,12 +1,16 @@
 """The port's train CLI against the root train.py: the same flags with the
 same defaults (root's parser captured as it parses, train.py untouched),
-a named error for each flag whose feature is not ported yet, both CLIs
-run on one synthetic dataset with --no-pack_features and
---test_iterations, and the port's ``Trainer.evaluate`` against
-trase_tpu's on the same parameters (carried across as numpy)."""
+a named error for each flag whose feature is not ported yet, the run-state
+flags (--checkpoint_iterations, --start_checkpoint, --load_iteration,
+--profile_iters) at work, both CLIs run on one synthetic dataset with
+--no-pack_features and --test_iterations, --load_iteration in both CLIs,
+and the port's ``Trainer.evaluate`` against trase_tpu's on the same
+parameters (carried across as numpy)."""
 import argparse
+import json
 import os
 import re
+import shutil
 import sys
 
 import numpy as np
@@ -86,10 +90,6 @@ def test_root_command_line_parses():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--checkpoint_iterations", "5"], "Queue 1 item 2"),
-    (["--start_checkpoint", "chkpnt5.pkl"], "Queue 1 item 2"),
-    (["--load_iteration", "3"], "Queue 1 item 2"),
-    (["--profile_iters", "1", "3"], "Queue 1 item 2"),
     (["--mesh", "2"], "Queue 1 item 13"),
     (["--mesh_backend", "dense"], "Queue 1 item 13"),
 ], ids=lambda x: x[0].lstrip("-") if isinstance(x, list) else None)
@@ -99,6 +99,99 @@ def test_not_ported_flags_raise(argv, item, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert argv[0] in err and f"ROADMAP.md, {item}" in err
+
+
+@pytest.mark.parametrize("start,stop", [(3, 3), (5, 2)])
+def test_profile_iters_stop_after_start(start, stop, capsys):
+    """--profile_iters STOP <= START exits with argparse's code 2, as the
+    root CLI does (train.py:67-68)."""
+    with pytest.raises(SystemExit) as e:
+        t_train.parse_args(["-s", "data", "--profile_iters", str(start),
+                            str(stop)])
+    assert e.value.code == 2
+    assert "STOP must be > START" in capsys.readouterr().err
+
+
+# both phases in 6 iterations: FEATURE blocks from 3, a densify at 4
+RUN_STATE_FLAGS = ["--iterations", "6", "--is_blender", "--eval",
+                   "--sh_degree", "1", "--quiet", "--device", "cpu",
+                   "--warm_up", "2", "--warm_up_3d_features", "3",
+                   "--iterative_opt_interval", "1", "--densify_from_iter",
+                   "2", "--densification_interval", "2",
+                   "--densify_until_iter", "5", "--num_sampled_pixels", "64",
+                   "--num_sampled_masks", "3", "--pairs_per_gaussian", "16",
+                   "--test_iterations", "6", "--save_iterations", "3"]
+
+
+@pytest.fixture(scope="module")
+def run_state(tmp_path_factory):
+    """The port's CLI on the CPU: run a to 6 with a checkpoint at 3 and a
+    trace of iterations 4-5; run b resumed from a's chkpnt3.pkl; run c
+    from the snapshot at 3 of a copy of a's model (--load_iteration 3)."""
+    import contextlib
+    import io
+
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+    from trase_tpu_torch.engine import trainer as TT
+
+    base = tmp_path_factory.mktemp("run_state")
+    src = str(base / "data")
+    write_synthetic_dataset(src, n_train=3, n_test=2, image_size=32,
+                            n_blobs=2, pts_per_blob=24, device="cpu")
+    runs = {}
+    a, b, c = (str(base / n) for n in "abc")
+    for name, mdl, extra in (
+            ("a", a, ["--checkpoint_iterations", "3",
+                      "--profile_iters", "3", "5"]),
+            ("b", b, ["--start_checkpoint",
+                      os.path.join(a, "chkpnt3.pkl")]),
+            ("c", c, ["--load_iteration", "3"])):
+        if name == "c":
+            shutil.copytree(a, c)
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = t_train.main(["-s", src, "-m", mdl] + RUN_STATE_FLAGS
+                              + extra)
+        runs[name] = (mdl, tr, TT.train_state_to_numpy(tr.state))
+    return runs
+
+
+@pytest.mark.parametrize("flag", ["checkpoint_iterations", "start_checkpoint",
+                                  "load_iteration", "profile_iters"])
+def test_run_state_flags_work(run_state, flag):
+    """Each run-state flag of the root CLI now works in the port's:
+    --checkpoint_iterations writes chkpnt3.pkl; --start_checkpoint resumes
+    from it to the uninterrupted run's state bit for bit (CPU);
+    --load_iteration 3 trains iterations 4-6 from the snapshot at 3;
+    --profile_iters 3 5 writes a Chrome trace of iterations 4-5."""
+    from trase_tpu_torch.models.gaussians_io import load_checkpoint
+
+    (a, tra, sa), (b, trb, sb), (c, trc, _) = (run_state[k] for k in "abc")
+    if flag == "checkpoint_iterations":
+        payload = load_checkpoint(os.path.join(a, "chkpnt3.pkl"))
+        assert payload["iteration"] == 3 and payload["schema"]
+        assert not os.path.exists(os.path.join(b, "chkpnt3.pkl"))
+    elif flag == "start_checkpoint":
+        assert trb.step_calls + trb.feature_calls == 3
+        assert trb.feature_calls > 0
+        for part in ("params", "aux", "opt"):
+            for field, x in sa[part].items():
+                y = sb[part][field]
+                for k in (x if isinstance(x, dict) else {"": x}):
+                    np.testing.assert_array_equal(
+                        x[k] if k else x, y[k] if k else y,
+                        err_msg=f"{part}.{field}.{k}")
+    elif flag == "load_iteration":
+        assert trc.step_calls + trc.feature_calls == 3
+        assert os.path.exists(os.path.join(c, "point_cloud", "iteration_6",
+                                           "point_cloud.ply"))
+    else:
+        path = os.path.join(a, "trace", "trace_3_5.json")
+        assert tra.profile_trace == path
+        with open(path) as f:
+            trace = json.load(f)
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        assert any("aten::" in n for n in names)
+        assert trb.profile_trace is None
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +242,82 @@ def test_both_clis_evaluate_and_save(both_clis):
     best = max(float(m.group(4)) for m in EVAL_LINE.finditer(text)
                if m.group(2) == "test")
     assert trainer.best_psnr == pytest.approx(best, abs=1e-3)
+
+
+def test_load_iteration_matches_trase_tpu(both_clis, monkeypatch,
+                                         tmp_path):
+    """--load_iteration 6 on copies of the root CLI's model directory, in
+    both CLIs: each trainer starts at iteration 6 from the snapshot's
+    gaussians (the same values in both packages) and from the deform
+    net's init, as a fresh run's, not from deform/iteration_6/deform.pkl
+    (trase_tpu's behaviour, kept: ROADMAP.md, Queue 3): the copies'
+    deform.pkl at 6 is replaced by weights 1 away from the init, which
+    neither trainer takes. Trainers are captured as train() is called,
+    which then returns."""
+    import contextlib
+    import io
+
+    import jax
+    import train as root_train
+    import trase_tpu.engine.loop as JL
+    from trase_tpu.models import gaussians_io as JIO
+    from trase_tpu_torch.engine import loop as TL
+
+    captured = []
+
+    def capture(self, first_iter=0, **kw):
+        captured.append((self, first_iter))
+
+    monkeypatch.setattr(JL.Trainer, "train", capture)
+    monkeypatch.setattr(TL.Trainer, "train", capture)
+    root_mdl = both_clis["root"][0]
+    src = os.path.join(os.path.dirname(root_mdl), "data")
+    common = ["-s", src, "--iterations", "8", "--is_blender", "--eval",
+              "--sh_degree", "1", "--quiet", "--pairs_per_gaussian", "16"]
+    deform_pkl = os.path.join("deform", "iteration_6", "deform.pkl")
+    payload = JIO.load_checkpoint(os.path.join(root_mdl, deform_pkl))
+    saved = jax.tree_util.tree_map(lambda x: np.asarray(x) + 1.0,
+                                   payload["vars"])["params"]
+    got = {}
+    for name, cli, extra in (("root", root_train, []),
+                             ("port", t_train, ["--device", "cpu"])):
+        for load in (True, False):
+            mdl = str(tmp_path / f"{name}_{load}")
+            shutil.copytree(root_mdl, mdl)
+            JIO.save_checkpoint(os.path.join(mdl, deform_pkl), dict(
+                payload, vars={"params": saved}))
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(common + ["-m", mdl] + extra
+                         + (["--load_iteration", "6"] if load else []))
+            got[name, load] = captured.pop()
+    ply = os.path.join(root_mdl, "point_cloud", "iteration_6",
+                       "point_cloud.ply")
+    jparams, _, n, _ = JIO.load_gaussian_ply(ply, sh_degree=1)
+    for name in ("root", "port"):
+        (loaded, first), (fresh, first0) = got[name, True], got[name, False]
+        assert (first, first0) == (6, 0), name
+        if name == "root":
+            p = jax.tree_util.tree_map(np.asarray, loaded.state.params)
+            dv = jax.tree_util.tree_map(np.asarray,
+                                        loaded.state.deform_vars)["params"]
+            dv0 = jax.tree_util.tree_map(np.asarray,
+                                         fresh.state.deform_vars)["params"]
+        else:
+            p = {k: v.numpy() for k, v in
+                 loaded.state.params._asdict().items()}
+            dv = loaded.deform_variables()["params"]
+            dv0 = fresh.deform_variables()["params"]
+            p = type(jparams)(**p)
+        for field in ("xyz", "features_dc", "features_rest", "opacity",
+                      "scaling", "rotation", "gaussian_features"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(p, field))[:n],
+                np.asarray(getattr(jparams, field))[:n],
+                err_msg=(name, field))
+        for layer in saved:
+            for k in ("kernel", "bias"):
+                np.testing.assert_array_equal(dv[layer][k], dv0[layer][k])
+                assert not np.array_equal(dv[layer][k], saved[layer][k])
 
 
 def test_evaluate_matches_trase_tpu(both_clis, monkeypatch):

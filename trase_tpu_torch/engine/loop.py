@@ -25,17 +25,36 @@ At each of ``testing_iterations`` it evaluates as trase_tpu's loop does
 rendered without features through the bf16 deform stack, and the best
 test PSNR at the end.
 
+Run state (trase_tpu loop.py:35-55, :823-918): TensorBoard scalars under
+trase_tpu's tags when the ``tensorboard`` package is installed, and
+training checkpoints. ``save_ckpt`` writes ``chkpnt<N>.pkl``, a pickle of
+numpy dicts that names no class of the port: the state in
+``train_state_to_numpy``'s layout, its keyed schema, the iteration, the
+SH degree, the phase machine and, beyond trase_tpu's fields, what the
+port draws from and counts: the states of ``np_rng``, ``densify_gen``
+and ``feature_gen`` (trase_tpu derives each step's randoms from the
+iteration, the port from stateful generators), the skipped-step
+counters and the view stack. A resume on the same device then continues
+the run's draws. ``load_ckpt`` reads the port's own checkpoints,
+trase_tpu's (its NamedTuples unpickled as stand-ins,
+``models/gaussians_io.py``) and the reference's ``chkpnt<N>.pth``
+(``tools/import_torch.py``; no deform weights, as in trase_tpu).
+
 Left out: the metrics pipeline and the watchdog (they existed for a
-remote device), the background mask prefetcher (masks decode on the
-host when a camera's stack is not cached), tensorboard and training
-checkpoints. The step's metrics stay on the device; the host reads them
-every 10 iterations (progress line, skipped steps), every 100 (pair
-budget), and at a block's end (phase switch).
+remote device) and the background mask prefetcher (masks decode on the
+host when a camera's stack is not cached). The step's metrics stay on
+the device; the host reads them every 10 iterations (progress line,
+skipped steps, TensorBoard's loss scalars and iteration time), every 100
+(pair budget), and at a block's end (phase switch).
 """
 from __future__ import annotations
 
 import os
+import re
+import sys
 import time
+import types
+import warnings
 from collections import OrderedDict
 from typing import Optional
 
@@ -47,7 +66,7 @@ from ..data.masks import (decode_mask_file, load_padded_masks,
                           mask_file_shape, pad_masks)
 from ..models import gaussians as G
 from ..models.deform import flax_variables, init_deform, make_deform_network
-from ..models.gaussians_io import save_checkpoint
+from ..models.gaussians_io import load_checkpoint, save_checkpoint
 from ..ops.knn import build_feature_smooth_map, smooth_features
 from ..ops.rasterize import RasterConfig
 from ..renderer import render
@@ -71,6 +90,40 @@ def _load_gt(path: str, bg: np.ndarray) -> np.ndarray:
     a = rgba[..., 3:4]
     rgb = rgba[..., :3] * a + bg[None, None, :] * (1.0 - a)
     return np.ascontiguousarray(rgb.transpose(2, 0, 1), np.float32)
+
+
+class TensorBoardLogger:
+    """TensorBoard scalars through torch.utils.tensorboard when the
+    tensorboard package is installed (trase_tpu loop.py:35-53). It writes
+    with tensorboard's TensorFlow-free file writer, selected for the
+    process by registering tensorboard's no-TensorFlow switch module
+    (tensorboard.compat.notf): tensorboard otherwise imports TensorFlow,
+    where installed, to write the same files."""
+
+    def __init__(self, model_path: str):
+        self.writer = None
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self.writer = SummaryWriter(model_path)
+        except ImportError:
+            print("Tensorboard not available: not logging progress")
+
+    def scalar(self, tag, value, step):
+        if self.writer is not None:
+            self.writer.add_scalar(tag, float(value), step)
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()
+
+
+def _keyed(path: str) -> str:
+    """A jax keystr path (.params.xyz, .opt.xyz.mu) in the dict notation
+    of engine/trainer.py: tree_schema (['params']['xyz'])."""
+    return re.sub(r"\.([A-Za-z_]\w*)", r"['\1']", path)
 
 
 class Trainer:
@@ -136,6 +189,11 @@ class Trainer:
         self.best_iteration = 0
         self.step_calls = 0
         self.feature_calls = 0
+        self._viewpoint_stack = []
+        self._phase_restored = False  # load_ckpt restored the phase machine
+        self._log_t = None
+        self.tb = TensorBoardLogger(dataset_args.model_path) \
+            if dataset_args.model_path else None
 
     # ------------------------------------------------------------ data
 
@@ -281,6 +339,8 @@ class Trainer:
                     * self.raster_cfg.pairs_per_gaussian, 1.0)
         frac = dropped / total
         k = self.raster_cfg.pairs_per_gaussian
+        if self.tb:
+            self.tb.scalar("overflow/dropped_pairs", dropped, iteration)
         if frac <= self.opt.overflow_warn_frac:
             self._overflow_strikes = 0
             if dropped_half == 0.0 and k > self._initial_pairs_per_gaussian:
@@ -311,16 +371,20 @@ class Trainer:
     # ------------------------------------------------------------ train
 
     def train(self, first_iter: int = 0, testing_iterations=(),
-              saving_iterations=(), progress: bool = True,
-              on_iteration=None):
+              saving_iterations=(), checkpoint_iterations=(),
+              progress: bool = True, on_iteration=None):
         opt = self.opt
         train_cams = self.scene.get_train_cameras()
         has_masks = any(c.masks is not None or c.mask_path
                         for c in train_cams)
         if has_masks:
             self._prepare_mask_meta(train_cams)
+        # a run started past the feature warm-up opens in FEATURE, unless
+        # a checkpoint restored the phase machine (trase_tpu forces FEATURE
+        # there too: ROADMAP.md, Queue 3, reference faults)
         if first_iter >= opt.iterative_opt_interval and \
-                first_iter >= opt.warm_up_3d_features:
+                first_iter >= opt.warm_up_3d_features and \
+                not self._phase_restored:
             self.opt_state.state = T.FEATURE
         iter_bar = None
         if progress:
@@ -332,8 +396,8 @@ class Trainer:
             except ImportError:
                 pass
 
-        viewpoint_stack = []
-        t_start = time.time()
+        stack = self._viewpoint_stack
+        t_start = self._log_t = time.time()
         for iteration in range(first_iter + 1, opt.iterations + 1):
             if iteration % 1000 == 0 and \
                     self.active_sh_degree < self.max_sh_degree:
@@ -349,22 +413,21 @@ class Trainer:
                         - (skipped - self._skipped_seen))
                     self._skipped_seen = skipped
                 if self.opt_state.switch():
-                    viewpoint_stack = list(train_cams)
+                    stack[:] = train_cams
                     if self.opt_state.state == T.FEATURE:
                         self._smooth_dirty = True
 
-            if not viewpoint_stack:
-                viewpoint_stack = list(train_cams)
+            if not stack:
+                stack[:] = train_cams
             if self._next_cam is not None:
                 cam = self._next_cam
             else:
-                cam = viewpoint_stack.pop(
-                    int(self.np_rng.integers(0, len(viewpoint_stack))))
+                cam = stack.pop(int(self.np_rng.integers(0, len(stack))))
             # trase_tpu pre-draws the next view here (to prefetch its
             # masks); drawing it at the same point keeps the same views
-            if viewpoint_stack:
-                self._next_cam = viewpoint_stack.pop(
-                    int(self.np_rng.integers(0, len(viewpoint_stack))))
+            if stack:
+                self._next_cam = stack.pop(
+                    int(self.np_rng.integers(0, len(stack))))
             else:
                 self._next_cam = None
 
@@ -380,6 +443,8 @@ class Trainer:
             if iteration % 10 == 0:
                 loss, skipped = float(metrics["loss"]), int(self.skipped)
                 self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
+                if self.tb:
+                    self._log_scalars(iteration, metrics, loss)
                 if iter_bar:
                     iter_bar.set_postfix({"Loss": f"{self.ema_loss:.3f}",
                                           "State": self.opt_state.state,
@@ -406,11 +471,16 @@ class Trainer:
                         and iteration == opt.densify_from_iter):
                     self._reset_opacity()
 
+            if iteration in checkpoint_iterations:
+                self.save_ckpt(iteration)
+
             if on_iteration is not None:
                 on_iteration(self, iteration, metrics)
 
         if iter_bar:
             iter_bar.close()
+        if self.tb and self.tb.writer is not None:
+            self.tb.writer.flush()
         dt = time.time() - t_start
         n_iters = opt.iterations - first_iter
         skipped = int(self.skipped)
@@ -421,6 +491,19 @@ class Trainer:
         if n_iters > 0:
             print(f"[timing] {n_iters} iters in {dt:.1f}s = "
                   f"{n_iters / dt:.2f} it/s")
+
+    def _log_scalars(self, iteration: int, metrics: dict, loss: float):
+        """TensorBoard's per-step scalars (trase_tpu loop.py:683-690), at
+        the iterations where the loop reads the step's metrics anyway
+        (every 10th): the losses of that step, and the wall time per
+        iteration since the last log."""
+        if "l1" in metrics:
+            self.tb.scalar("train_loss_patches/l1_loss",
+                           float(metrics["l1"]), iteration)
+        self.tb.scalar("train_loss_patches/total_loss", loss, iteration)
+        now = time.time()
+        self.tb.scalar("iter_time", (now - self._log_t) * 100.0, iteration)
+        self._log_t = now
 
     # ------------------------------------------------------------- eval
 
@@ -445,8 +528,16 @@ class Trainer:
             mean_psnr = float(np.mean(psnrs))
             print(f"\n[ITER {iteration}] Evaluating {name}: "
                   f"L1 {np.mean(l1s):.6f} PSNR {mean_psnr:.3f}")
+            if self.tb:
+                self.tb.scalar(f"{name}/loss_viewpoint - l1_loss",
+                               float(np.mean(l1s)), iteration)
+                self.tb.scalar(f"{name}/loss_viewpoint - psnr", mean_psnr,
+                               iteration)
             if name == "test":
                 test_psnr = mean_psnr
+        if self.tb:
+            self.tb.scalar("total_points",
+                           int(self.state.aux.alive.sum()), iteration)
         return test_psnr
 
     @torch.no_grad()
@@ -496,3 +587,117 @@ class Trainer:
                         {"vars": self.deform_variables(),
                          "type": getattr(self.opt, "deform_type",
                                          "DeformNetwork")})
+
+
+    # ------------------------------------------------------- checkpoints
+
+    def save_ckpt(self, iteration: int):
+        """<model_path>/chkpnt<iteration>.pkl: the run's state (module
+        docstring), written to a temporary file and renamed."""
+        print(f"\n[ITER {iteration}] Saving Checkpoint")
+        save_checkpoint(
+            os.path.join(self.args.model_path, f"chkpnt{iteration}.pkl"),
+            {
+                "state": T.train_state_to_numpy(self.state),
+                "schema": T.state_schema(self.state),
+                "iteration": iteration,
+                "active_sh_degree": self.active_sh_degree,
+                "opt_state": (self.opt_state.state,
+                              self.opt_state.iterations),
+                "generators": {
+                    "np_rng": self.np_rng.bit_generator.state,
+                    "densify_gen": self.densify_gen.get_state().numpy(),
+                    "feature_gen": self.feature_gen.get_state().numpy(),
+                    "feature_gen_device": self.feature_gen.device.type,
+                },
+                "skipped": (int(self.skipped), self._skipped_seen),
+                "viewpoint_stack": [c.image_name
+                                    for c in self._viewpoint_stack],
+                "next_cam": None if self._next_cam is None
+                else self._next_cam.image_name,
+            })
+
+    def load_ckpt(self, path: str) -> int:
+        """Restore a checkpoint; returns its iteration. ``.pth`` is the
+        reference's (load_reference_ckpt); a ``.pkl`` is the port's or
+        trase_tpu's (its state a TrainState stand-in). The saved keyed
+        schema is checked by name against this trainer's state: a field
+        missing, unexpected or of another dtype raises ValueError, never a
+        positional restore. trase_tpu's checkpoints leave the generators
+        and the view stack as they are."""
+        if path.endswith(".pth"):
+            return self.load_reference_ckpt(path)
+        payload = load_checkpoint(path)
+        state = payload["state"]
+        from_trase_tpu = hasattr(state, "_fields")
+        tmpl_schema = T.state_schema(self.state)
+        saved_schema = payload.get("schema")
+        if saved_schema is not None:
+            saved_schema = [(_keyed(p) if from_trase_tpu else p, d)
+                            for p, d in saved_schema]
+            saved, tmpl = dict(saved_schema), dict(tmpl_schema)
+            if saved != tmpl:
+                missing = [p for p in tmpl if p not in saved]
+                extra = [p for p in saved if p not in tmpl]
+                dtype_diff = [(p, saved[p], tmpl[p]) for p in tmpl
+                              if p in saved and saved[p] != tmpl[p]]
+                raise ValueError(
+                    f"checkpoint schema mismatch loading {path}: missing "
+                    f"fields {missing or 'none'}, unexpected fields "
+                    f"{extra or 'none'}, dtype changes "
+                    f"{dtype_diff or 'none'}. The checkpoint was written "
+                    "by a different TrainState layout; refusing to load "
+                    "it.")
+        else:
+            warnings.warn(f"{path} carries no keyed schema; its fields are "
+                          "restored by name unchecked")
+        self.state = T.train_state_from_numpy(state, self.device)
+        self.active_sh_degree = int(payload["active_sh_degree"])
+        self.opt_state.state, self.opt_state.iterations = \
+            payload["opt_state"]
+        self._phase_restored = True
+        gens = payload.get("generators")
+        if gens is not None:
+            self.np_rng.bit_generator.state = gens["np_rng"]
+            self.densify_gen.set_state(torch.from_numpy(gens["densify_gen"]))
+            if gens["feature_gen_device"] == self.feature_gen.device.type:
+                self.feature_gen.set_state(
+                    torch.from_numpy(gens["feature_gen"]))
+            else:
+                warnings.warn(
+                    f"{path}: feature_gen was a {gens['feature_gen_device']}"
+                    f" generator, this run's is on "
+                    f"{self.feature_gen.device.type}: its stream starts "
+                    "afresh")
+        if "skipped" in payload:
+            skipped, self._skipped_seen = payload["skipped"]
+            self.skipped = torch.tensor(skipped, dtype=torch.int32,
+                                        device=self.device)
+        if "viewpoint_stack" in payload:
+            by_name = {c.image_name: c
+                       for c in self.scene.get_train_cameras()}
+            self._viewpoint_stack = [by_name[n]
+                                     for n in payload["viewpoint_stack"]]
+            self._next_cam = by_name.get(payload["next_cam"])
+        self._postload()
+        return int(payload["iteration"])
+
+    def load_reference_ckpt(self, path: str) -> int:
+        """Resume from a reference ``chkpnt<N>.pth`` (train.py:396, the
+        gaussians.capture() tuple). It holds no deform weights (the
+        reference's restore omits them too): the deform net keeps its
+        state; bring a snapshot's weights through
+        tools/import_torch.py: import_deform_pth."""
+        from ..tools.import_torch import import_chkpnt_pth
+
+        params, aux, opt, meta = import_chkpnt_pth(path, device=self.device)
+        self.state = self.state._replace(params=params, aux=aux, opt=opt)
+        self.active_sh_degree = int(meta["active_sh_degree"])
+        self._postload()
+        return meta["iteration"]
+
+    def _postload(self):
+        """After a load: the smoothing map and the alive count are the
+        loaded state's."""
+        self._smooth_dirty = True
+        self._n_alive_cache = int(self.state.aux.alive.sum())

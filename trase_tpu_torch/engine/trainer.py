@@ -434,31 +434,55 @@ def _fields(obj) -> dict:
     return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
 
 
-def train_state_to_numpy(state: TrainState) -> dict:
-    """The state as numpy in trase_tpu's TrainState layout: params, aux,
-    opt ({field: {mu, nu, step}}), deform_vars ({"params": {"Dense_i":
-    {"kernel" (in, out), "bias"}}}) and deform_opt (the same tree with
-    {mu, nu, step} leaves)."""
-    def a(x):
-        return x.detach().cpu().numpy()
-
+def _state_tree(state: TrainState, leaf) -> dict:
     def adam(s, transpose=False):
-        f = (lambda x: a(x).T) if transpose else a
-        return {"mu": f(s.mu), "nu": f(s.nu), "step": a(s.step)}
+        f = (lambda x: leaf(x).T) if transpose else leaf
+        return {"mu": f(s.mu), "nu": f(s.nu), "step": leaf(s.step)}
 
     dvars, dopt = {}, {}
     for i in range(len(state.deform) // 2):
         w, b = state.deform[2 * i], state.deform[2 * i + 1]
         sw, sb = state.deform_opt[2 * i], state.deform_opt[2 * i + 1]
-        dvars[f"Dense_{i}"] = {"kernel": a(w).T, "bias": a(b)}
+        dvars[f"Dense_{i}"] = {"kernel": leaf(w).T, "bias": leaf(b)}
         dopt[f"Dense_{i}"] = {"kernel": adam(sw, True), "bias": adam(sb)}
     return {
-        "params": {k: a(v) for k, v in state.params._asdict().items()},
-        "aux": {k: a(v) for k, v in state.aux._asdict().items()},
+        "params": {k: leaf(v) for k, v in state.params._asdict().items()},
+        "aux": {k: leaf(v) for k, v in state.aux._asdict().items()},
         "opt": {k: adam(v) for k, v in state.opt._asdict().items()},
         "deform_vars": {"params": dvars},
         "deform_opt": {"params": dopt},
     }
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The state as numpy in trase_tpu's TrainState layout: params, aux,
+    opt ({field: {mu, nu, step}}), deform_vars ({"params": {"Dense_i":
+    {"kernel" (in, out), "bias"}}}) and deform_opt (the same tree with
+    {mu, nu, step} leaves)."""
+    return _state_tree(state, lambda x: x.detach().cpu().numpy())
+
+
+def tree_schema(tree) -> list:
+    """Keyed schema of a nested-dict tree: (path, dtype name) per leaf,
+    the path in jax's keystr notation (['params']['xyz']). Shapes are
+    left out: capacity may grow between a save and a load."""
+    out = []
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(f"{prefix}[{k!r}]", v)
+        else:
+            out.append((prefix, str(x.dtype).replace("torch.", "")
+                        if hasattr(x, "dtype") else type(x).__name__))
+
+    walk("", tree)
+    return out
+
+
+def state_schema(state: TrainState) -> list:
+    """tree_schema of train_state_to_numpy(state), without the copy."""
+    return tree_schema(_state_tree(state, lambda x: x))
 
 
 def train_state_from_numpy(tree, device="cuda") -> TrainState:

@@ -7,9 +7,17 @@ coeffs of channel 0, then channel 1, ...), opacity, scale_{0..2},
 rot_{0..3}, gaussian_feats_{0..31}, optional cls. Values are RAW
 (pre-activation) parameters. Checkpoints are plain pickles of numpy
 trees, the format trase_tpu writes (e.g. deform/iteration_N/deform.pkl).
+
+Both writers write a temporary file beside the target and rename it over
+the target (``os.replace``), so a failed or interrupted write leaves the
+earlier file as it was. ``load_checkpoint`` reads trase_tpu's full
+training checkpoints (chkpnt<N>.pkl) without importing trase_tpu: its
+NamedTuples unpickle as plain stand-ins with the same field names, and
+any other trase_tpu, jax or flax class is refused by name.
 """
 from __future__ import annotations
 
+import collections
 import os
 import pickle
 
@@ -17,6 +25,7 @@ import numpy as np
 import torch
 
 from ..data.ply import read_ply, write_ply
+from ..engine.optim import AdamState
 from . import gaussians as G
 
 
@@ -24,6 +33,21 @@ def _np(x) -> np.ndarray:
     if torch.is_tensor(x):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _atomic_write(path: str, write):
+    """write(temporary path) in path's directory, then rename that file
+    over `path`; the temporary file goes if `write` fails."""
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    tmp = os.path.join(d, f".{os.path.basename(path)}.{os.getpid()}.tmp")
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def save_gaussian_ply(
@@ -35,7 +59,6 @@ def save_gaussian_ply(
     with_cluster_ids: bool = False,
 ):
     """Write alive (optionally masked) gaussians in the reference layout."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     keep = _np(alive).astype(bool)
     if mask is not None:
         keep = keep & _np(mask).astype(bool)
@@ -72,8 +95,9 @@ def save_gaussian_ply(
         props[f"gaussian_feats_{i}"] = feats[:, i]
     if with_cluster_ids:
         props["cls"] = _np(params.cluster_id)[keep][:, 0]
-    write_ply(path, {k: np.asarray(v, np.float32) if k != "cls" else v
-                     for k, v in props.items()})
+    props = {k: np.asarray(v, np.float32) if k != "cls" else v
+             for k, v in props.items()}
+    _atomic_write(path, lambda tmp: write_ply(tmp, props))
 
 
 def load_gaussian_ply(path: str, sh_degree: int = 3,
@@ -165,12 +189,55 @@ def _to_numpy_tree(x):
 
 def save_checkpoint(path: str, payload: dict):
     """Pickle a tree of tensors / arrays as numpy (trase_tpu's format)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        pickle.dump(_to_numpy_tree(payload), f)
+    tree = _to_numpy_tree(payload)
+
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            pickle.dump(tree, f)
+
+    _atomic_write(path, write)
+
+
+def _standin(name: str, fields) -> type:
+    return collections.namedtuple(name, tuple(fields))
+
+
+# trase_tpu's containers in its checkpoints, by (module, class): each
+# unpickles as a namedtuple with the port's field names (the port's
+# containers match trase_tpu's field by field; TrainState's fields are
+# trase_tpu/engine/trainer.py's, as engine/trainer.py: train_state_to_numpy
+# lays them out)
+TRASE_TPU_CLASSES = {
+    ("trase_tpu.engine.trainer", "TrainState"): _standin(
+        "TrainState", ("params", "aux", "opt", "deform_vars", "deform_opt")),
+    ("trase_tpu.models.gaussians", "GaussianParams"): _standin(
+        "GaussianParams", G.GaussianParams._fields),
+    ("trase_tpu.models.gaussians", "GaussianAux"): _standin(
+        "GaussianAux", G.GaussianAux._fields),
+    ("trase_tpu.models.gaussians", "GaussianOptState"): _standin(
+        "GaussianOptState", G.GaussianOptState._fields),
+    ("trase_tpu.engine.optim", "AdamState"): _standin(
+        "AdamState", AdamState._fields),
+}
+_REFUSED = ("trase_tpu", "jax", "jaxlib", "flax")
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        key = (module, name)
+        if key in TRASE_TPU_CLASSES:
+            return TRASE_TPU_CLASSES[key]
+        if module.split(".")[0] in _REFUSED:
+            raise pickle.UnpicklingError(
+                f"refusing to unpickle {module}.{name}: the port reads "
+                f"trase_tpu's checkpoint containers "
+                f"({sorted(c for _, c in TRASE_TPU_CLASSES)}) and numpy, "
+                "no other trase_tpu, jax or flax class")
+        return super().find_class(module, name)
 
 
 def load_checkpoint(path: str) -> dict:
-    """Unpickle a checkpoint this program or trase_tpu wrote."""
+    """Unpickle a checkpoint this program or trase_tpu wrote (deform.pkl,
+    chkpnt<N>.pkl), trase_tpu's containers as TRASE_TPU_CLASSES."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return _Unpickler(f).load()

@@ -14,18 +14,30 @@ each --test_iterations prints the test and train views' L1 and PSNR.
 Runs on the card (``--device cuda``, the default) or, with ``--device
 cpu``, on the CPU through the kernels' plain versions.
 
-Not ported yet, and refused when given (ROADMAP.md, Queue 1): training
-checkpoints (``--checkpoint_iterations``, ``--start_checkpoint``,
-``--load_iteration``) and ``--profile_iters`` (item 2), ``--mesh`` and
-``--mesh_backend`` (item 13). ``--ip`` and ``--port`` are accepted and
+Run state, as the root CLI wires it (train.py:88-110, :131-172):
+``--checkpoint_iterations`` writes ``<model>/chkpnt<N>.pkl``;
+``--start_checkpoint`` resumes from one of those, from trase_tpu's
+``chkpnt<N>.pkl`` or from the reference's ``chkpnt<N>.pth``;
+``--load_iteration N`` starts at iteration N from the snapshot
+``point_cloud/iteration_N`` (the deform net starts from its init, as in
+trase_tpu); ``--profile_iters START STOP`` records a ``torch.profiler``
+trace (CPU and, on the card, CUDA activity) of iterations START+1..STOP
+into ``<model>/trace/`` as a Chrome trace. Python's, numpy's and torch's
+global generators are seeded with 0 first (the reference's safe_state),
+so the camera shuffle, and with it a resumed run, repeats.
+
+Not ported yet, and refused when given: ``--mesh`` and ``--mesh_backend``
+(ROADMAP.md, Queue 1 item 13). ``--ip`` and ``--port`` are accepted and
 unused, as in the root CLI.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import random
 import sys
 
+import numpy as np
 import torch
 
 from .config import ModelParams, OptimizationParams, PipelineParams, save_cfg
@@ -33,10 +45,6 @@ from .config import ModelParams, OptimizationParams, PipelineParams, save_cfg
 # flags whose feature is not ported: (flag, its value when not given,
 # the ROADMAP item that ports it)
 NOT_PORTED = (
-    ("checkpoint_iterations", [], "Queue 1 item 2"),
-    ("start_checkpoint", None, "Queue 1 item 2"),
-    ("load_iteration", -1, "Queue 1 item 2"),
-    ("profile_iters", None, "Queue 1 item 2"),
     ("mesh", 0, "Queue 1 item 13"),
     ("mesh_backend", None, "Queue 1 item 13"),
 )
@@ -81,8 +89,9 @@ def make_parser() -> argparse.ArgumentParser:
                         help="sharded compositor backend (not ported)")
     parser.add_argument("--profile_iters", nargs=2, type=int, default=None,
                         metavar=("START", "STOP"),
-                        help="device trace over this iteration range (not "
-                             "ported)")
+                        help="torch.profiler trace of iterations START+1.."
+                             "STOP into <model_path>/trace (Chrome trace; "
+                             "open with perfetto or chrome://tracing)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the card, default) or cpu")
     return parser
@@ -91,19 +100,71 @@ def make_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse and check a command line: a flag whose feature is not ported
     raises (argparse's error, exit 2) when it is given a value other than
-    its default."""
+    its default, and so does --profile_iters with STOP <= START."""
     parser = make_parser()
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     for name, unset, item in NOT_PORTED:
         if getattr(args, name) != unset:
             parser.error(f"--{name} is not ported to trase_tpu_torch yet "
                          f"(ROADMAP.md, {item})")
+    if args.profile_iters and args.profile_iters[1] <= args.profile_iters[0]:
+        parser.error("--profile_iters STOP must be > START")
     args.save_iterations.append(args.iterations)
     return args
 
 
+class IterationProfiler:
+    """torch.profiler over iterations START+1..STOP, driven from the
+    loop's on_iteration hook (called at the end of each iteration): it
+    starts at the end of START and stops at the end of STOP (or at the
+    first iteration past START, STOP when one is skipped), writing
+    <trace_dir>/trace_<START>_<STOP>.json. CUDA activity is recorded
+    when the device is the card, and a trace on the card without device
+    time raises, as does any failure to start."""
+
+    def __init__(self, start: int, stop: int, trace_dir: str, device):
+        self.start, self.stop, self.trace_dir = start, stop, trace_dir
+        self.activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            self.activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = None
+        self.path = None
+
+    def __call__(self, tr, iteration, metrics):
+        if self.prof is None and self.start <= iteration < self.stop:
+            os.makedirs(self.trace_dir, exist_ok=True)
+            self.prof = torch.profiler.profile(activities=self.activities)
+            self.prof.start()
+            print(f"[profile] tracing -> {self.trace_dir}")
+        elif self.prof is not None and iteration >= self.stop:
+            self.finish()
+
+    def finish(self):
+        """Stop the trace, if one runs, and write it."""
+        if self.prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof, self.prof = self.prof, None
+        prof.stop()
+        if len(self.activities) > 1 and not any(
+                str(e.device_type).endswith("CUDA")
+                and e.self_device_time_total > 0
+                for e in prof.key_averages()):
+            raise RuntimeError("torch.profiler recorded no CUDA activity")
+        self.path = os.path.join(self.trace_dir,
+                                 f"trace_{self.start}_{self.stop}.json")
+        prof.export_chrome_trace(self.path)
+        print(f"[profile] trace stopped: {self.path}")
+
+
 def main(argv=None):
     args = parse_args(argv)
+    # the reference's safe_state: the camera shuffle (python's random)
+    # and every global draw repeat from run to run
+    random.seed(0)
+    np.random.seed(0)
+    torch.manual_seed(0)
 
     from . import resolve_device
 
@@ -124,30 +185,58 @@ def main(argv=None):
     from .engine.loop import Trainer
     from .ops.rasterize import RasterConfig
 
-    scene = Scene(dataset, device=device)
+    load_iter = args.load_iteration if args.load_iteration != -1 else None
+    scene = Scene(dataset, load_iteration=load_iter, device=device)
     raster_cfg = RasterConfig(pairs_per_gaussian=args.pairs_per_gaussian,
                               max_per_tile=args.max_per_tile,
                               pack_features=args.pack_features)
     trainer = Trainer(dataset, opt, pipe, scene, raster_cfg=raster_cfg,
                       device=device)
 
+    # --load_iteration starts from that snapshot's gaussians; the deform
+    # net is not reloaded from deform/iteration_N (trase_tpu's behaviour)
+    first_iter = 0
+    if args.load_iteration != -1:
+        first_iter = args.load_iteration
+    if args.start_checkpoint:
+        first_iter = trainer.load_ckpt(args.start_checkpoint)
+
     # --detect_anomaly: the reference's torch.autograd.set_detect_anomaly
     # (reference train.py:506,521); --debug_from arms it from that
     # iteration on. The mode is restored when training ends.
     anomaly = torch.is_anomaly_enabled()
-    on_iteration = None
+    hooks = []
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     elif args.debug_from >= 0:
-        def on_iteration(tr, iteration, metrics):
+        def debug_hook(tr, iteration, metrics):
             if iteration >= args.debug_from:
                 torch.autograd.set_detect_anomaly(True)
+
+        hooks.append(debug_hook)
+    profiler = None
+    if args.profile_iters:
+        profiler = IterationProfiler(
+            *args.profile_iters, os.path.join(dataset.model_path, "trace"),
+            device)
+        hooks.append(profiler)
+
+    def on_iteration(tr, iteration, metrics):
+        for hook in hooks:
+            hook(tr, iteration, metrics)
+
     try:
-        trainer.train(testing_iterations=set(args.test_iterations),
+        trainer.train(first_iter=first_iter,
+                      testing_iterations=set(args.test_iterations),
                       saving_iterations=set(args.save_iterations),
-                      progress=not args.quiet, on_iteration=on_iteration)
+                      checkpoint_iterations=set(args.checkpoint_iterations),
+                      progress=not args.quiet,
+                      on_iteration=on_iteration if hooks else None)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
+        if profiler is not None:
+            profiler.finish()
+    trainer.profile_trace = None if profiler is None else profiler.path
     print("\nTraining complete.")
     return trainer
 
