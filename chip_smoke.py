@@ -107,9 +107,38 @@ JSON line per phase:
                 a stated band of the uninterrupted run's; the trace names
                 the three compositor kernels; save_ckpt and load_ckpt
                 seconds and the checkpoint's MB;
+   viewer       trase_tpu_torch.viewer.HeadlessViewer on the bench scene
+                at 1344x1008 (its feature field grouped by octant, k-means
+                k 64 on the card, the orbit camera on the cloud): each of
+                the seven modes, warm-up then timed frames (last_frame_ms,
+                FPS, compositor launches a frame: one in every mode); the
+                Render frame's kernel output against composite_plain bit
+                for bit; orbit / scale / pan move the frame; click_select,
+                the removal frame, save_object -> load_object ->
+                render_composite_frame (scaled, rotated, moved: one launch,
+                its kernel output bit for bit, its ms); the trajectory
+                overlay (cv2 or the numpy fallback); then the click
+                workflow on the segment-cli phase's 2000-gaussian model
+                directory on the card and on the CPU: the same cluster id
+                and selection mask, frames within TOL_RENDER;
+   viewer-web   viewer_web.ViewerServer over that viewer on 127.0.0.1:
+                ms per GET /frame.jpg; after orbit, mode, click, removal
+                and clear, the served JPEG equals a JPEG of render_frame
+                at the same state; the trajectory toggles; the server
+                shuts down;
+   mask-io      native.py builds native/trase_io.cpp (it must); 8 cameras'
+                masks, 32 each, in the native .npz format at 504x672 and
+                1008x1344: ms per stack of load_padded_masks through the
+                numpy path and the native path (bit-identical);
+                rgba_to_rgb_f32 against the PIL + numpy load at
+                1008x1344; FEATURE steps of the train CLI with the masks
+                read from disk and a mask cache of one stack, with the
+                prefetcher and inline: ms per step waited on the
+                prefetcher against the inline decode's;
 8. profile      torch.profiler over a few frames of phase 4 (float32 and
-                fused deform) and a few steps of phase 6 and of each
-                FEATURE arm: device busy time by kernel and the idle share;
+                fused deform), of the viewer's Render mode, and a few steps
+                of phase 6 and of each FEATURE arm: device busy time by
+                kernel and the idle share;
 9. kernels      one object per kernel: launches, error against the plain
                 version, times and the bound, with one variant per
                 instantiation a path launches.
@@ -219,6 +248,19 @@ RESUME_M, RESUME_FEATURE_FROM, RESUME_PROFILE_FROM = 60, 30, 90
 RESUME_SIZE = 256
 RESUME_PSNR_BAND = 0.5
 GEOM_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "log_op": (5, 6)}
+# the viewer on the bench scene: the orbit camera's target (the cloud's
+# centre) and distance, k-means clusters, frames per mode; the card-vs-CPU
+# click workflow at 128x128, frames within tests/test_torch_render.py's
+# TOL["render"] (the same weights, sums associated differently)
+VIEWER_TARGET, VIEWER_RADIUS, VIEWER_K = (0.0, 0.0, 4.0), 7.0, 64
+VIEWER_WARMUP, VIEWER_FRAMES, VIEWER_CPU_SIZE = 2, 5, 128
+TOL_RENDER = 2e-4
+# host IO: cameras' SAM-style mask stacks (native .npz) at the bench
+# FEATURE step's size and at full size; the loop's FEATURE run
+MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
+# host IO's training run: GAUSSIAN 1..F+1, then one FEATURE block of
+# F+1 steps (the phase machine switches once a block passes F steps)
+MASK_LOOP_SIZE, MASK_LOOP_FEATURE = 256, 16
 
 
 def emit(obj) -> None:
@@ -611,10 +653,15 @@ def profile_frames(frame, frames=5) -> dict:
                and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / frames,
+                    e.count / frames) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda k: -k[1])
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall,
             "top": [{"kernel": k[0][:90], "ms": k[1], "per_frame": k[2]}
-                    for k in kernels[:12]]}
+                    for k in kernels[:12]],
+            "host_top": [{"op": k[0][:60], "ms": k[1], "per_frame": k[2]}
+                         for k in host[:8]]}
 
 
 def split(hwc, with_color=True):
@@ -1252,6 +1299,493 @@ class StageTimer:
         return split
 
 
+class KernelCapture:
+    """Inside the with-block, keeps each composite_fwd call's arguments and
+    output (the wrapper still launches and counts as it does); `plain_err`
+    holds the last call against composite_plain on the same inputs."""
+
+    def __enter__(self):
+        from trase_tpu_torch.ops import rasterize_cuda as RC
+
+        self.RC, self.fn, self.calls = RC, RC.composite_fwd, []
+
+        def record(*a, **kw):
+            out = self.fn(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+
+        RC.composite_fwd = record
+        return self
+
+    def __exit__(self, *exc):
+        self.RC.composite_fwd = self.fn
+
+    def plain_err(self) -> float:
+        a, kw, out = self.calls[-1]
+        torch.cuda.synchronize()
+        return float((out - self.RC.composite_plain(*a, **kw)).abs().max())
+
+
+def grouped_features(params, n, dev):
+    """The bench scene's feature field grouped by position: one seeded
+    32-dim direction per octant around the cloud's centre, plus noise (a
+    trained field groups objects so; random features give k-means and the
+    cosine post-filter nothing to find)."""
+    xyz = params.xyz[:n] - torch.tensor(VIEWER_TARGET, device=dev)
+    octant = ((xyz[:, 0] > 0).long() * 4 + (xyz[:, 1] > 0).long() * 2
+              + (xyz[:, 2] > 0).long())
+    gen = torch.Generator().manual_seed(8)
+    dirs = torch.nn.functional.normalize(torch.randn(8, 32, generator=gen),
+                                         dim=1).to(dev)
+    feats = torch.zeros_like(params.gaussian_features)
+    feats[:n] = dirs[octant] + 0.05 * torch.randn(n, 32,
+                                                  generator=gen).to(dev)
+    return params._replace(gaussian_features=feats)
+
+
+def aim(v):
+    """The orbit camera on the bench cloud: centred on VIEWER_TARGET (the
+    camera's pose subtracts `center`), VIEWER_RADIUS away."""
+    from trase_tpu_torch.cam_utils import OrbitCamera
+
+    v.cam = OrbitCamera(v.W, v.H, r=VIEWER_RADIUS)
+    v.cam.center = -np.asarray(VIEWER_TARGET, np.float32)
+    v.fid = 0.5
+
+
+def frame_launches(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def covered_pixel(v):
+    """(px, py) of the largest alpha in the frame's central third: a click
+    there lands on geometry."""
+    alpha = v._raw_frame()[0]["alpha"][0].cpu().numpy()
+    h, w = alpha.shape
+    win = alpha[h // 3:2 * h // 3, w // 3:2 * w // 3]
+    y, x = np.unravel_index(int(np.argmax(win)), win.shape)
+    return int(x) + w // 3, int(y) + h // 3
+
+
+def viewer_phase(params, aux, n, net, dev, root, seg_dir, seg_it):
+    """The port's viewer on the card at full width (module docstring,
+    phase viewer). Returns (row, the viewer, launches, layouts)."""
+    from trase_tpu_torch.viewer import MODES, HeadlessViewer
+
+    v = HeadlessViewer(grouped_features(params, n, dev), aux, n,
+                       deform_net=net, W=WIDTH, H=HEIGHT, sh_degree=3,
+                       device=dev)
+    aim(v)
+    row = {"phase": "viewer", "gaussians": n,
+           "capacity": int(params.xyz.shape[0]), "height": HEIGHT,
+           "width": WIDTH, "raster_cfg": v.raster_cfg._asdict()}
+    t0 = time.perf_counter()
+    row["clusters"] = v.cluster(kmeans=True, k=VIEWER_K, save=False)
+    row["cluster_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v._pca()
+    row["pca_s"] = time.perf_counter() - t0
+
+    reset_counts()
+    modes = {}
+    for mode in MODES:
+        before = counts()
+        ms = []
+        for i in range(VIEWER_WARMUP + VIEWER_FRAMES):
+            img = v.render_frame(mode)
+            if i >= VIEWER_WARMUP:
+                ms.append(v.last_frame_ms)
+        per = frame_launches(before, counts())
+        frames = VIEWER_WARMUP + VIEWER_FRAMES
+        assert img.shape == (3, HEIGHT, WIDTH) and img.dtype == np.float32
+        assert np.isfinite(img).all(), mode
+        # one composite a frame in every mode: the point modes render a
+        # frame for its deformation too, as trase_tpu's viewer does
+        assert per == dict(composite_fwd=frames, composite_bwd=0,
+                           reduce_pair_grads=0, deform_mlp=0), (mode, per)
+        modes[mode] = {"frame_ms": float(np.mean(ms)), "frame_ms_all": ms,
+                       "fps": 1000.0 / float(np.mean(ms)),
+                       "composite_fwd_per_frame": per["composite_fwd"]
+                       / frames, "mean": float(img.mean())}
+    row["modes"] = modes
+
+    # the Render frame's kernel output against the plain version
+    with KernelCapture() as cap:
+        base = v.render_frame("Render")
+    row["render_vs_plain"] = cap.plain_err()
+    assert row["render_vs_plain"] <= FWD_TOL, row["render_vs_plain"]
+    a, _, _ = cap.calls[-1]
+    row["render_pairs"] = int(a[2][-1])
+    row["render_split_ms"] = render_split(v)
+
+    # navigation moves the frame
+    v.cam.orbit(300.0, 80.0)
+    v.cam.scale(0.5)
+    v.cam.pan(400.0, -200.0)
+    moved = v.render_frame("Render")
+    row["moved_max_abs_diff"] = float(np.abs(moved - base).max())
+    assert row["moved_max_abs_diff"] > 0.05, row["moved_max_abs_diff"]
+    aim(v)
+
+    # editing: click -> removal -> save -> load -> composite
+    px, py = covered_pixel(v)
+    t0 = time.perf_counter()
+    cid = v.click_select(px, py)
+    row["click_s"] = time.perf_counter() - t0
+    assert cid is not None, "no geometry under the centre pixel"
+    selected = int(v.segmented_mask.sum())
+    assert 0 < selected < n, selected
+    removed = v.render_frame("Render", apply_selection_removal=True)
+    row["removal_ms"] = v.last_frame_ms
+    row["removal_changed_share"] = float(
+        (np.abs(removed - base).max(axis=0) > 0).mean())
+    assert row["removal_changed_share"] > 0.001, row
+    obj = v.save_object(os.path.join(root, "viewer_object.ply"))
+    n_obj = v.load_object(obj)
+    assert n_obj == selected, (n_obj, selected)
+    edit = dict(scales_bias=0.8, motion_bias=(1.5, 0.0, 0.0),
+                rotation_bias=(0.0, 0.5, 0.0))
+    before = counts()
+    with KernelCapture() as cap:
+        comp = v.render_composite_frame(**edit)
+    comp_launch = frame_launches(before, counts())
+    assert comp_launch == dict(composite_fwd=1, composite_bwd=0,
+                               reduce_pair_grads=0, deform_mlp=0), comp_launch
+    row["composite_vs_plain"] = cap.plain_err()
+    assert row["composite_vs_plain"] <= FWD_TOL, row["composite_vs_plain"]
+    assert comp.shape == (3, HEIGHT, WIDTH) and np.isfinite(comp).all()
+    row["composite_changed_share"] = float(
+        (np.abs(comp - base).max(axis=0) > 0).mean())
+    assert row["composite_changed_share"] > 0.001, row
+    ms = []
+    for i in range(VIEWER_WARMUP + VIEWER_FRAMES):
+        v.render_composite_frame(**edit)
+        if i >= VIEWER_WARMUP:
+            ms.append(v.last_frame_ms)
+    row.update(click_pixel=(px, py), cluster_id=cid, selected=selected, object_gaussians=n_obj,
+               object_capacity=int(v.object_params.xyz.shape[0]),
+               composite_capacity=int(params.xyz.shape[0]
+                                      + v.object_params.xyz.shape[0]),
+               composite_ms=float(np.mean(ms)), composite_ms_all=ms,
+               composite_launches=comp_launch["composite_fwd"])
+
+    # the trajectory overlay over the selection
+    import importlib.util
+
+    v.toggle_trajectory(on=True, samp_num=8, gs_num=512)
+    for i in range(4):
+        v.fid = 0.2 + 0.1 * i
+        img = v.render_frame("Render")
+        assert img.shape == (3, HEIGHT, WIDTH) and np.isfinite(img).all()
+    row["trajectory_ms"] = v.last_frame_ms
+    v.show_trajectory = False
+    plain = v.render_frame("Render")
+    v.show_trajectory = True
+    over = v.render_frame("Render")
+    row["trajectory_changed_pixels"] = int(
+        (np.abs(over - plain).max(axis=0) > 0).sum())
+    row["trajectory_tracks"] = int(len(v._traj["ids"]))
+    row["polylines"] = ("cv2" if importlib.util.find_spec("cv2")
+                        else "numpy fallback")
+    assert row["trajectory_changed_pixels"] > 0, row
+    v.toggle_trajectory(on=False)
+    v.clear_selection()
+    aim(v)
+    launches, layouts = counts(), layout_counts()
+
+    row["card_vs_cpu"] = viewer_card_vs_cpu(seg_dir, seg_it, dev)
+    return row, v, launches, layouts
+
+
+def render_split(v, frames=VIEWER_FRAMES):
+    """Host-clock split of the Render mode's frame, its steps as
+    render_frame takes them: enqueue (camera, deform, render, uint8
+    quantization), the wait for the device, the uint8 copy, the host's
+    conversion to float32 [0, 1]. Medians over `frames` frames after one
+    (the first frame after a large allocation pays the allocator's)."""
+    split = {k: [] for k in ("enqueue", "device_wait", "copy_u8",
+                             "to_float")}
+    for i in range(frames + 1):
+        t0 = time.perf_counter()
+        out, _ = v._raw_frame()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        u8 = out["render_u8"].cpu().numpy()
+        t3 = time.perf_counter()
+        u8.transpose(2, 0, 1).astype(np.float32) / 255.0
+        t4 = time.perf_counter()
+        if i:
+            for k, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[k].append(dt * 1e3)
+    return {k: float(np.median(v)) for k, v in split.items()}
+
+
+def viewer_card_vs_cpu(seg_dir, seg_it, dev):
+    """The click workflow on phase 5's 2000-gaussian model directory (its
+    clusters from the segment-cli phase), once on the card and once on the
+    CPU: the same cluster id and selection mask, frames (the float render
+    before the display quantization) within TOL_RENDER."""
+    from trase_tpu_torch.viewer import HeadlessViewer
+
+    got, pixel = {}, None
+    for d in (dev, torch.device("cpu")):
+        vv = HeadlessViewer.from_model_path(
+            seg_dir, iteration=seg_it, W=VIEWER_CPU_SIZE,
+            H=VIEWER_CPU_SIZE, device=d)
+        aim(vv)
+        pixel = pixel or covered_pixel(vv)  # the card's, for both
+        frame = vv._raw_frame()[0]["render"].cpu()
+        cid = vv.click_select(*pixel)
+        assert cid is not None, pixel
+        mask = vv.segmented_mask
+        removal = vv._raw_frame(mask=~mask)[0]["render"].cpu()
+        got[d.type] = (cid, mask.cpu(), frame, removal)
+    card, cpu = got[dev.type], got["cpu"]
+    out = {"size": VIEWER_CPU_SIZE, "click_pixel": pixel,
+           "cluster_id": card[0],
+           "cluster_id_cpu": cpu[0],
+           "mask_equal": bool(torch.equal(card[1], cpu[1])),
+           "selected": int(card[1].sum()),
+           "frame_max_abs_diff": float((card[2] - cpu[2]).abs().max()),
+           "removal_max_abs_diff": float((card[3] - cpu[3]).abs().max()),
+           "tol": TOL_RENDER}
+    assert out["cluster_id"] == out["cluster_id_cpu"], out
+    assert out["mask_equal"] and out["selected"] > 0, out
+    assert out["frame_max_abs_diff"] <= TOL_RENDER, out
+    assert out["removal_max_abs_diff"] <= TOL_RENDER, out
+    return out
+
+
+def viewer_web_phase(v, click_pixel):
+    """The viewer's web server on the card (module docstring, phase
+    viewer-web). Returns (row, launches, layouts)."""
+    import io
+    import urllib.request
+
+    from PIL import Image
+
+    from trase_tpu_torch.viewer_web import ViewerServer
+
+    srv = ViewerServer(v)
+    port = srv.serve(port=0, host="127.0.0.1", block=False)
+    base = f"http://127.0.0.1:{port}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=120) as r:
+            return r.read()
+
+    def cmd(**body):
+        req = urllib.request.Request(
+            base + "/cmd", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def decoded(jpeg):
+        with Image.open(io.BytesIO(jpeg)) as im:
+            return np.asarray(im, np.int16)
+
+    def against_render_frame(jpeg):
+        """The served JPEG against a JPEG (the server's encoding) of
+        render_frame at the same state: max abs difference in levels."""
+        with srv.lock:
+            img = v.render_frame(apply_selection_removal=srv.removal)
+        arr = (np.clip(img.transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=90)
+        return int(np.abs(decoded(jpeg) - decoded(buf.getvalue())).max())
+
+    row = {"phase": "viewer-web", "port": port}
+    reset_counts()
+    try:
+        assert b"trase_tpu_torch viewer" in get("/")
+        ms = []
+        for i in range(1 + VIEWER_FRAMES):
+            t0 = time.perf_counter()
+            jpeg = get("/frame.jpg")
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        assert decoded(jpeg).shape == (HEIGHT, WIDTH, 3)
+        row.update(frame_jpg_ms=float(np.mean(ms)), frame_jpg_ms_all=ms,
+                   jpeg_bytes=len(jpeg))
+        diffs = {"initial": against_render_frame(jpeg)}
+        steps = [("orbit", dict(cmd="orbit", dx=120, dy=30)),
+                 ("mode_depth", dict(cmd="mode", name="Depth")),
+                 ("mode_render", dict(cmd="mode", name="Render")),
+                 ("click", dict(cmd="click", px=click_pixel[0],
+                                py=click_pixel[1])),
+                 ("removal", dict(cmd="removal", on=True)),
+                 ("clear", dict(cmd="clear"))]
+        states = {}
+        for name, body in steps:
+            st = cmd(**body)
+            assert st["ok"], st
+            states[name] = {k: st[k] for k in ("mode", "selected",
+                                               "removal", "ms")}
+            diffs[name] = against_render_frame(get("/frame.jpg"))
+        assert states["click"]["selected"], states
+        assert cmd(cmd="trajectory", on=True)["msg"].endswith(" on")
+        for fid in (0.3, 0.4, 0.5):
+            cmd(cmd="time", fid=fid)
+            assert decoded(get("/frame.jpg")).shape == (HEIGHT, WIDTH, 3)
+        assert cmd(cmd="trajectory", on=False)["msg"].endswith(" off")
+        row.update(vs_render_frame_levels=diffs, states=states)
+        # the served frames are the render_frame frames bit for bit: the
+        # JPEGs of one uint8 image decode to the same pixels
+        assert not any(diffs.values()), diffs
+    finally:
+        srv.shutdown()
+    assert srv._httpd is None
+    return row, counts(), layout_counts()
+
+
+def mask_io_phase(root, dev):
+    """Host IO on the card's machine (module docstring, phase mask-io).
+    Returns (row, launches, layouts)."""
+    import shutil
+
+    from PIL import Image
+
+    from trase_tpu_torch import native
+    from trase_tpu_torch import train as train_cli
+    from trase_tpu_torch.data import masks as DM
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+    from trase_tpu_torch.engine import loop as TL
+
+    t0 = time.perf_counter()
+    assert native.available(), "native/trase_io.cpp did not build"
+    row = {"phase": "mask-io", "native_build_s": time.perf_counter() - t0,
+           "cameras": MASK_CAMS, "masks": MASK_N}
+    rng = np.random.default_rng(9)
+    files = {}
+    for h, w in MASK_SIZES:
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        c = rng.uniform(0.1, 0.9, size=(MASK_N, 2)) * (h, w)
+        r = rng.uniform(0.05, 0.3, size=(MASK_N, 2)) * (h, w)
+        stack = (((yy - c[:, :1, None]) / r[:, :1, None]) ** 2
+                 + ((xx - c[:, 1:, None]) / r[:, 1:, None]) ** 2) <= 1.0
+        d = os.path.join(root, f"masks_{h}x{w}")
+        os.makedirs(d)
+        files[(h, w)] = []
+        for i in range(MASK_CAMS):
+            p = os.path.join(d, f"cam_{i:04d}.npz")
+            DM.save_mask_file(p, np.roll(stack, 7 * i, axis=2))
+            files[(h, w)].append(p)
+    sizes = {}
+    for (h, w), paths in files.items():
+        t = {"numpy": [], "native": []}
+        for p in paths:
+            t0 = time.perf_counter()
+            plain = DM.pad_masks(DM.decode_mask_file(p), MASK_N)
+            t["numpy"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            fast = DM.load_padded_masks(p, MASK_N)
+            t["native"].append((time.perf_counter() - t0) * 1e3)
+            assert np.array_equal(plain.masks, fast.masks)
+            assert np.array_equal(plain.valid, fast.valid)
+        sizes[f"{h}x{w}"] = {
+            "numpy_ms": float(np.median(t["numpy"])),
+            "native_ms": float(np.median(t["native"])),
+            "numpy_ms_all": t["numpy"], "native_ms_all": t["native"],
+            "npz_mb": os.path.getsize(paths[0]) / 2**20, "bit_identical": True}
+    row["load_padded_masks"] = sizes
+
+    h, w = MASK_SIZES[-1]
+    png = os.path.join(root, "gt.png")
+    Image.fromarray(rng.integers(0, 256, (h, w, 4), np.uint8)).save(png)
+    bg = np.zeros(3, np.float32)
+    t = {"pil_decode": [], "numpy": [], "native": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        with Image.open(png) as im:
+            rgba = np.asarray(im.convert("RGBA"))
+        t1 = time.perf_counter()
+        data = rgba.astype(np.float32) / 255.0
+        a = data[..., 3:4]
+        ref = np.ascontiguousarray(
+            (data[..., :3] * a + bg * (1.0 - a)).transpose(2, 0, 1))
+        t2 = time.perf_counter()
+        got = native.rgba_to_rgb_f32(rgba, bg)
+        t3 = time.perf_counter()
+        for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2)):
+            t[k].append(dt * 1e3)
+    row["rgba_to_rgb_f32"] = {
+        "size": f"{h}x{w}", **{f"{k}_ms": float(np.median(v))
+                               for k, v in t.items()},
+        "max_abs_diff": float(np.abs(got - ref).max()), "tol": 1e-6}
+    assert row["rgba_to_rgb_f32"]["max_abs_diff"] <= 1e-6, row
+
+    # FEATURE steps of the loop, every step's stack decoded from disk (a
+    # mask cache of one stack), with the prefetcher and inline
+    src = os.path.join(root, "mask_io_data")
+    write_synthetic_dataset(src, n_train=MASK_CAMS, n_test=1,
+                            image_size=MASK_LOOP_SIZE, fast_gt=True,
+                            device=dev)
+    mdir = os.path.join(src, "images", "masks")
+    for i, p in enumerate(files[MASK_SIZES[0]]):
+        shutil.copy(p, os.path.join(mdir, f"train_{i:04d}.npz"))
+    waits, inline = [], []
+    get, load = DM.MaskPrefetcher.get, TL.load_padded_masks
+    submit = TL.Trainer._submit_mask_prefetch
+
+    def timed_get(self):
+        t0 = time.perf_counter()
+        out = get(self)
+        waits.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        out = load(*a, **kw)
+        inline.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    loops = {}
+    cache = TL.MASK_CACHE_SIZE, TL.MASK_CACHE_CAP
+    reset_counts()
+    for arm in ("prefetch", "inline"):
+        waits.clear()
+        inline.clear()
+        DM.MaskPrefetcher.get, TL.load_padded_masks = timed_get, timed_load
+        TL.MASK_CACHE_SIZE = TL.MASK_CACHE_CAP = 1
+        if arm == "inline":
+            TL.Trainer._submit_mask_prefetch = lambda self, cam: None
+        t0 = time.perf_counter()
+        iters = 2 * MASK_LOOP_FEATURE + 2
+        try:
+            tr = train_cli.main([
+                "-s", src, "-m", os.path.join(root, f"mask_io_{arm}"),
+                "--iterations", str(iters), "--device", dev.type, "--quiet",
+                "--warm_up", "2", "--warm_up_3d_features",
+                str(MASK_LOOP_FEATURE + 2), "--iterative_opt_interval",
+                str(MASK_LOOP_FEATURE), "--densify_until_iter", "0",
+                "--num_sampled_pixels", "1024", "--num_sampled_masks", "8",
+                "--pairs_per_gaussian", "16", "--load_mask_on_the_fly",
+                "--save_iterations", str(iters)])
+        finally:
+            DM.MaskPrefetcher.get, TL.load_padded_masks = get, load
+            TL.MASK_CACHE_SIZE, TL.MASK_CACHE_CAP = cache
+            TL.Trainer._submit_mask_prefetch = submit
+        seconds = time.perf_counter() - t0
+        assert tr.feature_calls == MASK_LOOP_FEATURE + 1, tr.feature_calls
+        assert tr._prefetcher is None
+        loops[arm] = {"seconds": seconds, "feature_steps": tr.feature_calls,
+                      "prefetch_gets": len(waits),
+                      "prefetch_wait_ms_per_step": sum(waits)
+                      / tr.feature_calls,
+                      "inline_decodes": len(inline),
+                      "inline_decode_ms_per_step": sum(inline)
+                      / tr.feature_calls,
+                      "it_per_s": iters / seconds}
+    assert loops["prefetch"]["prefetch_gets"] > 0, loops
+    assert loops["inline"]["inline_decodes"] >= loops["inline"][
+        "feature_steps"], loops
+    row["loop"] = dict(loops, mask_size=f"{MASK_SIZES[0][0]}x"
+                       f"{MASK_SIZES[0][1]}", image_size=MASK_LOOP_SIZE)
+    return row, counts(), layout_counts()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1540,6 +2074,18 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     launches["resume"] = res.pop("launches")
     layouts["resume"] = res.pop("layouts")
     emit({"phase": "resume", **res})
+
+    # 7c. the viewer and its web server on the bench scene, then host IO
+    row, viewer, launches["viewer"], layouts["viewer"] = viewer_phase(
+        params, aux, n, net, dev, tmp.name, os.path.join(tmp.name, "segment"),
+        it)
+    emit(row)
+    web, launches["viewer_web"], layouts["viewer_web"] = viewer_web_phase(
+        viewer, row["click_pixel"])
+    emit(web)
+    mio, launches["mask_io"], layouts["mask_io"] = mask_io_phase(tmp.name,
+                                                                dev)
+    emit(mio)
     tmp.cleanup()
 
     # 8. where a frame's and a step's device time goes
@@ -1554,6 +2100,8 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     emit({"phase": "profile", "path": "train-step",
           **profile_frames(train_step_fn(params, aux, cam, net, cfg, dev,
                                          carry=False), frames=3)})
+    emit({"phase": "profile", "path": "viewer", "mode": "Render",
+          **profile_frames(lambda: viewer.render_frame("Render"), frames=3)})
     for stats in (True, False):
         emit({"phase": "profile", "path": "feature-step",
               "with_densify_stats": stats,

@@ -3,8 +3,9 @@ deform_mlp.cu) against their plain PyTorch versions on the card: every
 forward instantiation bit for bit and every backward instantiation on
 scenes built for their edges (long tiles, warps that stop far apart,
 empty tiles, early stops, ragged image sides), the compositor's
-gradients under autograd, the reduce at both widths, and the fused deform
-MLP. Imports no jax, so it runs on the machine with the card:
+gradients under autograd, the reduce at both widths, the fused deform
+MLP, and the viewer's frames, composition and web server on the card.
+Imports no jax, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -604,3 +605,190 @@ def test_checkpoint_restores_card_generators(tmp_path):
     x = torch.rand(64, device="cuda", generator=a.feature_gen)
     y = torch.rand(64, device="cuda", generator=b.feature_gen)
     assert torch.equal(x, y)
+
+
+def _viewer_field(device, n=1500, capacity=1531, seed=11, shift=(0.0, 0.0, 0.0)):
+    """A gaussian field around the origin in a ragged capacity, SH 1, with
+    features grouped in halves (so a click selects half of it)."""
+    from trase_tpu_torch.models import gaussians as G
+
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(size=(n, 3)) * 0.5 + shift).astype(np.float32)
+    cols = rng.uniform(size=(n, 3)).astype(np.float32)
+    params, aux = G.from_point_cloud(pts, cols, sh_degree=1,
+                                     capacity=capacity,
+                                     dist2=np.full(n, 0.002, np.float32),
+                                     device=device)
+    feats = torch.zeros_like(params.gaussian_features)
+    dirs = torch.eye(32, device=device)[:2]
+    feats[:n] = dirs[torch.as_tensor(pts[:, 0] > 0, device=device).long()]
+    return params._replace(gaussian_features=feats), aux, n
+
+
+class _Capture:
+    """composite_fwd's inputs and output inside a with-block."""
+
+    def __enter__(self):
+        self.fn, self.calls = TRC.composite_fwd, []
+
+        def record(*a, **kw):
+            out = self.fn(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+
+        TRC.composite_fwd = record
+        return self
+
+    def __exit__(self, *exc):
+        TRC.composite_fwd = self.fn
+
+    def plain_err(self):
+        a, kw, out = self.calls[-1]
+        torch.cuda.synchronize()
+        return float((out - TRC.composite_plain(*a, **kw)).abs().max())
+
+
+def _viewers(H=120, W=160):
+    from trase_tpu_torch.models.deform import init_deform, make_deform_network
+    from trase_tpu_torch.viewer import HeadlessViewer
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        params, aux, n = _viewer_field(dev)
+        net = init_deform(make_deform_network(device=dev),
+                          torch.Generator().manual_seed(0))
+        for lin in net.flax_order()[-3:]:  # small deformations
+            lin.weight.data *= 0.05
+        v = HeadlessViewer(params, aux, n, deform_net=net.eval(), W=W, H=H,
+                           sh_degree=1, radius=3.0, device=dev)
+        v.fid = 0.4
+        v.set_clusters(np.asarray(params.gaussian_features[:n, 0].cpu() > 0,
+                                  np.int64),
+                       np.tile([[0.9, 0.2, 0.1]], (n, 1)).astype(np.float32))
+        out.append(v)
+    return out
+
+
+@pytest.mark.cuda
+def test_viewer_frames_on_card():
+    """Each mode launches the compositor once a frame (4 values); the
+    Render frame's kernel output equals composite_plain on its inputs bit
+    for bit; the card's frames and click selection equal the CPU
+    viewer's (frames within tests/test_torch_render.py's 2e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.viewer import MODES
+
+    card, cpu = _viewers()
+    cpu._pca_rgb = card._pca()  # PCA signs are free
+    tol = {"Segmentation": 2e-4, "Rendered Features": 2e-4, "Depth": 2e-3}
+    for mode in MODES:
+        key = ("composite_fwd", 4, 0, True, False)
+        before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+        img = card.render_frame(mode)
+        assert TRC.LAYOUT_LAUNCHES[key] == before + 1, mode
+        assert img.shape == (3, 120, 160) and np.isfinite(img).all()
+        if mode in tol:
+            np.testing.assert_allclose(img, cpu.render_frame(mode),
+                                       atol=tol[mode], rtol=0, err_msg=mode)
+    with _Capture() as cap:
+        out, _ = card._raw_frame()
+    assert cap.plain_err() == 0.0
+    ref, _ = cpu._raw_frame()
+    np.testing.assert_allclose(out["render"].cpu().numpy(),
+                               ref["render"].numpy(), atol=2e-4, rtol=0)
+    alpha = ref["alpha"][0].numpy()
+    py, px = np.unravel_index(int(np.argmax(alpha)), alpha.shape)
+    assert card.click_select(px, py) == cpu.click_select(px, py) is not None
+    assert torch.equal(card.segmented_mask.cpu(), cpu.segmented_mask)
+    removed = card._raw_frame(mask=~card.segmented_mask)[0]["render"]
+    np.testing.assert_allclose(
+        removed.cpu().numpy(),
+        cpu._raw_frame(mask=~cpu.segmented_mask)[0]["render"].numpy(),
+        atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_render_composite_ragged_capacity_on_card():
+    """A background of 1500 gaussians in 1531 slots plus an object of 77
+    in 77 (a composite capacity of 1608), edited: one launch, the kernel's
+    output equal to composite_plain's bit for bit, the image within 2e-4
+    of the CPU's render_composite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.ops.rasterize import RasterConfig
+    from trase_tpu_torch.renderer import make_render_camera, render_composite
+
+    imgs = {}
+    for dev in ("cuda", "cpu"):
+        bg, bga, _ = _viewer_field(dev, shift=(0.0, 0.0, 4.0))
+        obj, obja, _ = _viewer_field(dev, n=77, capacity=77, seed=12,
+                                     shift=(0.3, 0.1, 3.5))
+        rng = np.random.default_rng(2)
+        d = [torch.tensor((0.05 * rng.normal(size=(77, k))).astype(
+            np.float32), device=dev) for k in (3, 4, 3)]
+        cam = make_render_camera(np.eye(3), np.zeros(3), 0.9, 0.7, 90, 117,
+                                 device=dev)
+        with _Capture() as cap, torch.no_grad():
+            imgs[dev] = render_composite(
+                cam, bg, bga.alive, obj, obja.alive, *d,
+                torch.tensor([0.1, 0.2, 0.3], device=dev), scales_bias=1.4,
+                motion_bias=(0.3, -0.2, 0.4), rotation_bias=(0.4, -0.9, 1.3),
+                sh_degree=1, raster_cfg=RasterConfig(pairs_per_gaussian=16)
+            )["render"].cpu()
+        if dev == "cuda":
+            assert len(cap.calls) == 1 and cap.plain_err() == 0.0
+            assert cap.calls[0][0][0].shape[0] == 1531 + 77
+    assert imgs["cuda"].shape == (3, 90, 117)
+    np.testing.assert_allclose(imgs["cuda"].numpy(), imgs["cpu"].numpy(),
+                               atol=2e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_web_frame_equals_render_frame_on_card():
+    """The web server's /frame.jpg on the card decodes to the same pixels
+    as a JPEG of render_frame at the same state (before and after an
+    orbit and a click)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import io
+    import json
+    import urllib.request
+
+    from PIL import Image
+
+    from trase_tpu_torch.viewer_web import ViewerServer
+
+    card, _ = _viewers()
+    srv = ViewerServer(card)
+    base = f"http://127.0.0.1:{srv.serve(port=0, block=False)}"
+
+    def decoded(jpeg):
+        with Image.open(io.BytesIO(jpeg)) as im:
+            return np.asarray(im)
+
+    def served():
+        with urllib.request.urlopen(base + "/frame.jpg", timeout=60) as r:
+            return decoded(r.read())
+
+    def direct():
+        with srv.lock:
+            img = card.render_frame(apply_selection_removal=srv.removal)
+        arr = (np.clip(img.transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=90)
+        return decoded(buf.getvalue())
+
+    try:
+        np.testing.assert_array_equal(served(), direct())
+        for body in ({"cmd": "orbit", "dx": 50, "dy": 20},
+                     {"cmd": "click", "px": 80, "py": 60},
+                     {"cmd": "removal", "on": True}):
+            req = urllib.request.Request(
+                base + "/cmd", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert json.loads(r.read())["ok"]
+            np.testing.assert_array_equal(served(), direct())
+    finally:
+        srv.shutdown()

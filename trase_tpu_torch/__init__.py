@@ -6,8 +6,9 @@ Pallas kernel of trase_tpu is a hand-written CUDA kernel for Hopper: the
 compositor and its gradient (``ops/rasterize_cuda.py`` +
 ``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) and the fused
 deform MLP (``ops/mlp_cuda.py`` + ``csrc/deform_mlp.cu``). The package
-imports torch and numpy only (sklearn for HDBSCAN clustering): never
-jax, flax or ``trase_tpu``.
+imports torch and numpy only (sklearn for HDBSCAN clustering, scipy's
+Rotation for the viewer's orbit camera): never jax, flax or
+``trase_tpu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where every kernel is replaced by its plain PyTorch version.

@@ -1,18 +1,21 @@
 """SAM mask loading/decoding (numpy; torch only for reference .pt files).
 
-Counterpart of trase_tpu/data/masks.py without its background
-prefetcher. The reference stores per-image SAM masks as
+Counterpart of trase_tpu/data/masks.py. The reference stores per-image SAM masks as
 ``masks/<name>.pt`` holding either a raw (N,H,W) bool tensor or a dict
 {"masks": np.array of bitarray, "N", "H", "W"} (extract_masks.py:87-99).
 ``decode_mask_file`` accepts .pt, the native .npz format (packed bits +
 shape, written by ``save_mask_file``) and .npy. The FEATURE step takes
 one static (M_max, H, W) float32 stack per dataset with a validity
-vector (``pad_masks``, ``load_padded_masks``); the loop decodes on the
-host when a camera's stack is not cached.
+vector (``pad_masks``, ``load_padded_masks``: the native .npz format
+through the C++ unpacker of ``native.py``). ``MaskPrefetcher`` decodes
+on a background thread, so the training loop can start the next
+camera's decode before the current step.
 """
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -107,6 +110,64 @@ def pad_masks(masks: np.ndarray, m_max: int) -> PaddedMasks:
 
 
 def load_padded_masks(path: str, m_max: int) -> PaddedMasks | None:
-    """Decode + pad (None when the file is missing)."""
+    """Decode + pad (None when the file is missing). The native bit-packed
+    .npz format goes through native.unpack_masks_padded: one pass instead
+    of unpackbits / reshape / astype / pad."""
+    if path.endswith(".npz") and os.path.exists(path):
+        z = np.load(path)
+        if "packed" in z:
+            from ..native import unpack_masks_padded
+
+            n, h, w = int(z["N"]), int(z["H"]), int(z["W"])
+            padded = unpack_masks_padded(np.asarray(z["packed"]), n, h, w,
+                                         m_max)
+            return PaddedMasks(masks=padded, valid=np.arange(m_max) < n)
     masks = decode_mask_file(path)
     return None if masks is None else pad_masks(masks, m_max)
+
+
+class MaskPrefetcher:
+    """Decodes mask files on one background thread (trase_tpu's
+    MaskPrefetcher; the reference decodes on the critical path,
+    train.py:246-249). ``submit`` queues a path, ``get`` returns the next
+    decoded (path, PaddedMasks or None) in submission order and re-raises
+    a decode's exception; at most `depth` results wait decoded. ``close``
+    stops the thread: it drops what was not taken."""
+
+    def __init__(self, m_max: int, depth: int = 4):
+        self.m_max = m_max
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._jobs: queue.Queue = queue.Queue()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            path = self._jobs.get()
+            if path is None or self._stop.is_set():
+                return
+            try:
+                result = load_padded_masks(path, self.m_max)
+            except Exception as e:  # noqa: BLE001 — handed to get()
+                result = e
+            self._q.put((path, result))
+
+    def submit(self, path: str):
+        self._jobs.put(path)
+
+    def get(self) -> tuple[str, PaddedMasks | None]:
+        path, result = self._q.get()
+        if isinstance(result, Exception):
+            raise result
+        return path, result
+
+    def close(self):
+        self._stop.set()
+        self._jobs.put(None)
+        while self._thread.is_alive():  # free a put blocked on a full queue
+            try:
+                self._q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        self._thread.join()

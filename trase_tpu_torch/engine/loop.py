@@ -40,9 +40,16 @@ trase_tpu's (its NamedTuples unpickled as stand-ins,
 ``models/gaussians_io.py``) and the reference's ``chkpnt<N>.pth``
 (``tools/import_torch.py``; no deform weights, as in trase_tpu).
 
+Host IO (trase_tpu loop.py:183-190, :221-262, :526-535): GT images
+convert through the native RGBA -> float32 path (``native.py``); masks
+read from disk (``--load_mask_on_the_fly``) decode on a background
+thread (``MaskPrefetcher``): the loop pre-draws the next view before each
+step, as trase_tpu's does, and submits its decode, and a step whose
+stack is not cached takes it from the prefetcher (decoding inline what
+was never submitted). The prefetcher closes when ``train`` returns.
+
 Left out: the metrics pipeline and the watchdog (they existed for a
-remote device) and the background mask prefetcher (masks decode on the
-host when a camera's stack is not cached). The step's metrics stay on
+remote device). The step's metrics stay on
 the device; the host reads them every 10 iterations (progress line,
 skipped steps, TensorBoard's loss scalars and iteration time), every 100
 (pair budget), and at a block's end (phase switch).
@@ -62,11 +69,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.masks import (decode_mask_file, load_padded_masks,
-                          mask_file_shape, pad_masks)
+from ..data.masks import (MaskPrefetcher, decode_mask_file,
+                          load_padded_masks, mask_file_shape, pad_masks)
 from ..models import gaussians as G
 from ..models.deform import flax_variables, init_deform, make_deform_network
 from ..models.gaussians_io import load_checkpoint, save_checkpoint
+from ..native import rgba_to_rgb_f32
 from ..ops.knn import build_feature_smooth_map, smooth_features
 from ..ops.rasterize import RasterConfig
 from ..renderer import render
@@ -86,10 +94,8 @@ def _load_gt(path: str, bg: np.ndarray) -> np.ndarray:
     from PIL import Image
 
     with Image.open(path) as im:
-        rgba = np.asarray(im.convert("RGBA"), np.float32) / 255.0
-    a = rgba[..., 3:4]
-    rgb = rgba[..., :3] * a + bg[None, None, :] * (1.0 - a)
-    return np.ascontiguousarray(rgb.transpose(2, 0, 1), np.float32)
+        rgba = np.asarray(im.convert("RGBA"))
+    return rgba_to_rgb_f32(rgba, bg)
 
 
 class TensorBoardLogger:
@@ -174,6 +180,8 @@ class Trainer:
         self._mask_cache: OrderedDict = OrderedDict()
         self.mask_cache_size = MASK_CACHE_SIZE
         self._m_max = 1
+        self._prefetcher = None
+        self._prefetched: dict = {}  # mask paths submitted, not yet taken
         self._smooth_map = None
         self._smooth_dirty = True
 
@@ -231,6 +239,23 @@ class Trainer:
             if shape is not None:
                 m_max = max(m_max, shape[0])
         self._m_max = max(m_max, 1)
+        if any(cam.mask_path and cam.masks is None for cam in cams):
+            self._prefetcher = MaskPrefetcher(self._m_max)
+
+    def _submit_mask_prefetch(self, cam):
+        """Start the background decode of a coming camera's masks."""
+        key = cam.image_path or cam.image_name
+        if (self._prefetcher is not None and cam.masks is None
+                and cam.mask_path and key not in self._mask_cache
+                and cam.mask_path not in self._prefetched):
+            self._prefetched[cam.mask_path] = True
+            self._prefetcher.submit(cam.mask_path)
+
+    def _close_prefetcher(self):
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+        self._prefetched.clear()
 
     def _masks_for(self, cam):
         """(masks (M_max, H, W) float32, valid (M_max,) bool) on the
@@ -239,12 +264,19 @@ class Trainer:
         if key in self._mask_cache:
             self._mask_cache.move_to_end(key)
             return self._mask_cache[key]
+        padded = None
         if cam.masks is not None:
             padded = pad_masks(np.asarray(cam.masks), self._m_max)
         elif cam.mask_path:
-            padded = load_padded_masks(cam.mask_path, self._m_max)
-        else:
-            padded = None
+            # drain the prefetcher up to this camera's file (the stacks
+            # decoded ahead of it are dropped, as in trase_tpu's loop)
+            while cam.mask_path in self._prefetched:
+                path, got = self._prefetcher.get()
+                del self._prefetched[path]
+                if path == cam.mask_path:
+                    padded = got
+            if padded is None:
+                padded = load_padded_masks(cam.mask_path, self._m_max)
         if padded is None:
             return None
         entry = (torch.as_tensor(padded.masks, device=self.device),
@@ -373,6 +405,16 @@ class Trainer:
     def train(self, first_iter: int = 0, testing_iterations=(),
               saving_iterations=(), checkpoint_iterations=(),
               progress: bool = True, on_iteration=None):
+        """Iterations first_iter + 1 .. opt.iterations; the mask
+        prefetcher, when one was started, is closed however this ends."""
+        try:
+            self._train(first_iter, testing_iterations, saving_iterations,
+                        checkpoint_iterations, progress, on_iteration)
+        finally:
+            self._close_prefetcher()
+
+    def _train(self, first_iter, testing_iterations, saving_iterations,
+               checkpoint_iterations, progress, on_iteration):
         opt = self.opt
         train_cams = self.scene.get_train_cameras()
         has_masks = any(c.masks is not None or c.mask_path
@@ -428,6 +470,8 @@ class Trainer:
             if stack:
                 self._next_cam = stack.pop(
                     int(self.np_rng.integers(0, len(stack))))
+                if has_masks:
+                    self._submit_mask_prefetch(self._next_cam)
             else:
                 self._next_cam = None
 

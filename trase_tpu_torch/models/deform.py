@@ -228,3 +228,27 @@ def deform_step(model: DeformNetwork, xyz: torch.Tensor, t: torch.Tensor,
     if model.feature_dim:
         return model(xyz, t, features, dtype=dtype)
     return model(xyz, t, dtype=dtype)
+
+
+@torch.no_grad()
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          generator: torch.Generator | None = None,
+                          start: int | None = None) -> torch.Tensor:
+    """Farthest-point sampling over (N,3) -> (npoint,) int64 indices on
+    xyz's device (reference utils/time_utils.py:375-396, one batch;
+    trase_tpu/models/deform.py:161). The first index is `start`, or drawn
+    uniformly from `generator` (trase_tpu draws it from jax.random); each
+    next one is the point farthest from those taken, ties going to the
+    first maximum, as jnp.argmax."""
+    n = xyz.shape[0]
+    if start is None:
+        start = int(torch.randint(0, n, (), generator=generator))
+    distance = torch.full((n,), 1e10, dtype=xyz.dtype, device=xyz.device)
+    farthest = torch.tensor(start, dtype=torch.int64, device=xyz.device)
+    idx = []
+    for _ in range(npoint):
+        idx.append(farthest)
+        dist = torch.sum((xyz - xyz[farthest]) ** 2, dim=-1)
+        distance = torch.minimum(distance, dist)
+        farthest = torch.argmax(distance)
+    return torch.stack(idx)

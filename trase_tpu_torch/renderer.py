@@ -14,8 +14,9 @@ densification reads).
 The FEATURE step's options: KNN feature smoothing (``smooth_map``), the
 features-only path (``with_color=False``: no SH, no render / depth, and
 the unsliced [acc | feats] image) and values-only gradients
-(``grad_values_only``). Object composition (``render_composite``) is not
-ported.
+(``grad_values_only``). ``render_composite`` (trase_tpu/renderer.py:238,
+reference gaussian_renderer/__init__.py:251-331) composites a background
+set with a deformed, edited dynamic set in one rasterization.
 """
 from __future__ import annotations
 
@@ -47,8 +48,19 @@ def make_render_camera(R: np.ndarray, T: np.ndarray, fovx: float,
                        znear: float = 0.01, zfar: float = 100.0,
                        trans=np.array([0.0, 0.0, 0.0]), scale: float = 1.0,
                        device="cuda") -> RenderCamera:
-    dev = resolve_device(device)
     wv = graphics.world_to_view(R, T, trans, scale).T
+    return camera_from_world_view(wv, fovx, fovy, image_height, image_width,
+                                  znear, zfar, device)
+
+
+def camera_from_world_view(wv: np.ndarray, fovx: float, fovy: float,
+                           image_height: int, image_width: int,
+                           znear: float = 0.01, zfar: float = 100.0,
+                           device="cuda") -> RenderCamera:
+    """RenderCamera from a (4, 4) float32 world-to-view matrix in the
+    row-vector convention: the full projection and camera centre are
+    computed in numpy, then the buffers go to `device`."""
+    dev = resolve_device(device)
     proj = graphics.projection_matrix(znear, zfar, fovx, fovy).T
     full = wv @ proj
     campos = np.linalg.inv(wv)[3, :3]
@@ -186,3 +198,53 @@ def render(
     if not with_color:
         result["render_gaussian_features_acc_hwc"] = out["feats_acc_hwc"]
     return result
+
+
+def render_composite(
+    camera: RenderCamera,
+    bg_params: G.GaussianParams,
+    bg_alive: torch.Tensor,
+    dyn_params: G.GaussianParams,
+    dyn_alive: torch.Tensor,
+    d_xyz, d_rotation, d_scaling,
+    bg_color: torch.Tensor,
+    scales_bias: float = 1.0,
+    motion_bias=(0.0, 0.0, 0.0),
+    rotation_bias=(0.0, 0.0, 0.0),
+    *,
+    sh_degree: int = 3,
+    mask: torch.Tensor | None = None,
+    raster_cfg: RasterConfig = RasterConfig(),
+):
+    """Composite a static background gaussian set with a deformed, edited
+    dynamic set in a single rasterization: the dynamic set is deformed,
+    its dead (and `mask`-ed) gaussians get zero opacity, it is rescaled /
+    rotated (z-y-x euler, radians) / translated by the edit biases and
+    concatenated after the background set; one projection, one
+    composite (rgb + depth). The two capacities may be any sizes.
+    Returns {"render": (3, H, W)}."""
+    from .editing import transform_gaussians
+
+    H, W = camera.image_height, camera.image_width
+    means_d, scales_d, rots_d = apply_deformation(
+        dyn_params, d_xyz, d_rotation, d_scaling)
+    zero = torch.zeros((), dtype=means_d.dtype, device=means_d.device)
+    opa_d = torch.where(dyn_alive, G.get_opacity(dyn_params)[:, 0], zero)
+    if mask is not None:
+        opa_d = torch.where(mask, opa_d, zero)
+    means_d, rots_d, scales_d = transform_gaussians(
+        means_d, rots_d, scales_d, scales_bias, motion_bias, rotation_bias)
+
+    opa_b = torch.where(bg_alive, G.get_opacity(bg_params)[:, 0], zero)
+    means = torch.cat([bg_params.xyz, means_d], dim=0)
+    scales = torch.cat([G.get_scaling(bg_params), scales_d], dim=0)
+    rots = torch.cat([G.get_rotation(bg_params), rots_d], dim=0)
+    opacity = torch.cat([opa_b, opa_d], dim=0)
+    shs = torch.cat([G.get_features(bg_params), G.get_features(dyn_params)],
+                    dim=0)
+
+    cov3d = compute_cov3d(scales, rots, 1.0)
+    proj = project_gaussians(means, cov3d, opacity, camera.buffers, H, W,
+                             sh_coeffs=shs, sh_degree=sh_degree)
+    out = rasterize_tiled(proj, None, bg_color, H, W, raster_cfg)
+    return {"render": out["render"]}

@@ -1,11 +1,11 @@
 """Visualization helpers for the render CLI.
 
-Counterpart of trase_tpu/viz.py:15-150 (reference render.py:46-106,
-246-296): QR+SVD PCA of 3D gaussian features (``feature3d_to_rgb``) and of
+Counterpart of trase_tpu/viz.py (reference render.py:46-106, 246-296,
+gui.py:1168-1190): QR+SVD PCA of 3D gaussian features (``feature3d_to_rgb``) and of
 a rendered feature map (``feature_to_rgb``), the one-pixel point splat of
 the pointcloud / gaussian_clusters / gaussian_feats streams, float-to-
-uint8 conversion, the threaded PNG writer, mp4 videos and the jet
-colormap. The polyline overlay (``draw_polylines``) belongs to the viewer.
+uint8 conversion, the threaded PNG writer, mp4 videos, the jet
+colormap and the viewer's trajectory overlay (``draw_polylines``).
 """
 from __future__ import annotations
 
@@ -148,3 +148,65 @@ def jet_colors(n: int) -> np.ndarray:
         g = np.clip(1.5 - np.abs(4 * x - 2), 0, 1)
         b = np.clip(1.5 - np.abs(4 * x - 1), 0, 1)
         return np.stack([r, g, b], axis=1)
+
+
+def draw_polylines(h: int, w: int, tracks: np.ndarray,
+                   colors: np.ndarray, thickness: int = 1,
+                   valid: np.ndarray | None = None):
+    """Rasterize per-track polylines (reference gui.py:1184-1190).
+
+    tracks: (T, M, 2) pixel (x, y) positions of M tracks over T frames;
+    colors: (M, 3) in [0,1]; valid: optional (T, M) bool — segments
+    touching an invalid sample (e.g. behind-camera projections) are not
+    drawn. Returns (rgb (H,W,3), alpha (H,W)) float32 overlay buffers.
+    cv2 where it is installed; dense segment sampling in numpy otherwise
+    (the two draw different pixels: cv2's line rasterizer against 48
+    rounded samples a segment)."""
+    rgb = np.zeros((h, w, 3), np.float32)
+    alpha = np.zeros((h, w), np.float32)
+    if tracks.shape[0] < 2:
+        return rgb, alpha
+    if valid is None:
+        valid = np.ones(tracks.shape[:2], bool)
+    seg_ok = valid[:-1] & valid[1:]  # (T-1, M)
+    # wild coordinates (near w~0) overflow int32 in cv2: clip to a
+    # generous off-screen box so clipped segments stay geometric
+    tracks = np.clip(tracks, -4.0 * max(h, w), 4.0 * max(h, w))
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        for i in range(tracks.shape[1]):
+            c = colors[i]
+            col = (float(c[0]), float(c[1]), float(c[2]))
+            # draw each maximal run of valid samples as one polyline
+            runs = np.flatnonzero(np.diff(np.concatenate(
+                [[False], valid[:, i], [False]]).astype(np.int8)))
+            for r0, r1 in zip(runs[::2], runs[1::2]):
+                if r1 - r0 < 2:
+                    continue
+                pts = tracks[r0:r1, i].astype(np.int32).reshape(-1, 1, 2)
+                cv2.polylines(rgb, [pts], isClosed=False, color=col,
+                              thickness=thickness)
+                cv2.polylines(alpha, [pts], isClosed=False, color=1.0,
+                              thickness=thickness)
+        return rgb, alpha
+    # vectorized fallback: sample every valid segment densely
+    p0 = tracks[:-1].reshape(-1, 2)
+    p1 = tracks[1:].reshape(-1, 2)
+    keep = seg_ok.reshape(-1)
+    seg_colors = np.broadcast_to(
+        colors[None], (tracks.shape[0] - 1,) + colors.shape).reshape(-1, 3)
+    p0, p1, seg_colors = p0[keep], p1[keep], seg_colors[keep]
+    if p0.shape[0] == 0:
+        return rgb, alpha
+    t = np.linspace(0.0, 1.0, 48, dtype=np.float32)[None, :, None]
+    pts = p0[:, None, :] * (1 - t) + p1[:, None, :] * t  # (S, 48, 2)
+    cols = np.repeat(seg_colors, t.shape[1], axis=0)
+    xs = np.round(pts[..., 0].ravel()).astype(np.int64)
+    ys = np.round(pts[..., 1].ravel()).astype(np.int64)
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    rgb[ys[ok], xs[ok]] = cols[ok]
+    alpha[ys[ok], xs[ok]] = 1.0
+    return rgb, alpha
