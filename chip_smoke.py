@@ -135,10 +135,37 @@ JSON line per phase:
                 read from disk and a mask cache of one stack, with the
                 prefetcher and inline: ms per step waited on the
                 prefetcher against the inline decode's;
+   style        engine.trainer.style_phase_step on the bench scene: VGG16
+                (seeded fallback) conv4_1 against a seeded 1008x1344 style
+                image of flat tiles and texture, one octant of the cloud
+                styled, bf16 deform stack: warm-up then timed steps (host
+                clock and CUDA events), the split (deform, render forward,
+                VGG forward, NNFM, backward: compositor and VGG, Adam +
+                stats + guard), peak memory, a falling loss; one launch per
+                step of the 4-value forward with residuals, its backward and
+                the 10-word reduce; only the styled rows' colours, their
+                Adam state and the densify statistics change; then one step
+                on phase 3's small scene through the kernels against the
+                same step through their plain versions on the card; the
+                VGG's forward and input gradient alone with cuDNN's
+                heuristic algorithms and with cudnn.benchmark on;
+   style-cli    trase_tpu_torch.train_style_transfer_nnfm on a copy of the
+                segment-cli model directory (its k-means clusters as
+                clusters.pt), the largest cluster styled for 20 iterations,
+                then the render CLI on the snapshot: s per iteration, one
+                launch of each compositor kernel per iteration, only the
+                object's colours moved;
+   lpips        the metrics CLI with --vgg_weights (a seeded VGG16 .npz in
+                trase_tpu's format) and seeded heads on the segment-cli
+                outputs, on the card and with --device cpu (equal within
+                LPIPS_TOL); ms per make_lpips call on a 1008x1344 pair;
+   losses-3d    losses/losses_3d.py's four losses on the bench scene's
+                131072 rows: ms and finiteness; card against CPU on a
+                4096-row subset with the draws injected;
 8. profile      torch.profiler over a few frames of phase 4 (float32 and
                 fused deform), of the viewer's Render mode, and a few steps
-                of phase 6 and of each FEATURE arm: device busy time by
-                kernel and the idle share;
+                of phase 6, of each FEATURE arm and of the style step:
+                device busy time by kernel and the idle share;
 9. kernels      one object per kernel: launches, error against the plain
                 version, times and the bound, with one variant per
                 instantiation a path launches.
@@ -255,6 +282,18 @@ GEOM_GROUPS = {"mean2d": (0, 2), "conic": (2, 5), "log_op": (5, 6)}
 VIEWER_TARGET, VIEWER_RADIUS, VIEWER_K = (0.0, 0.0, 4.0), 7.0, 64
 VIEWER_WARMUP, VIEWER_FRAMES, VIEWER_CPU_SIZE = 2, 5, 128
 TOL_RENDER = 2e-4
+# the style step at full width: VGG16 (seeded fallback) conv4_1 against a
+# seeded 1008x1344 style image, one octant of the cloud styled; timed
+# steps after TRAIN_WARMUP. Kernels against plain on phase 3's small
+# scene: the colours' Adam moments within STYLE_TOL of their scale (the
+# backward's 256-pixel sums, BWD_TOL per column group, then Adam's
+# division by sqrt(nu)). The style CLI's iterations on the segment-cli
+# model. LPIPS card against --device cpu; the 3D losses card against CPU
+# on a subset (tests/test_torch_losses_3d.py's tolerances).
+STYLE_KEY, STYLE_OCTANT, STYLE_STEPS, STYLE_TOL = "conv4_1", 7, 10, 1e-3
+STYLE_CLI_ITERATIONS = 20
+LPIPS_TOL = 1e-4
+LOSS3D_SUBSET, LOSS3D_TOL, RIGID_TOL = 4096, 1e-5, 1e-4
 # host IO: cameras' SAM-style mask stacks (native .npz) at the bench
 # FEATURE step's size and at full size; the loop's FEATURE run
 MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
@@ -1221,16 +1260,23 @@ class StageTimer:
     wrapped call records an event before and after itself on the current
     stream, so the split needs no change to the step. Installed only for
     the split's own steps (not for the counted or timed ones). `feature`
-    picks the FEATURE step's calls, else the GAUSSIAN step's."""
+    picks the FEATURE step's calls, `style` the style step's (its NNFM
+    loss is the "loss" span; timed_vgg wraps its extractor), else the
+    GAUSSIAN step's."""
 
-    def __init__(self, feature=False):
+    def __init__(self, feature=False, style=False):
         import trase_tpu_torch.engine.trainer as TT
+        import trase_tpu_torch.losses.style as LS
         import trase_tpu_torch.ops.rasterize_cuda as RC
         import trase_tpu_torch.renderer as RR
 
         self.events = []
         composite = RC._Composite
-        if feature:
+        if style:
+            loss = [(LS, "loss_nnfm_style", "loss")]
+            head = [(TT, "apply_deform", "deform_fwd"),
+                    (TT, "render", "render_fwd")]
+        elif feature:
             loss = [(TT, "bilinear_resize_mm", "loss"),
                     (TT, "cosine_gram", "loss"),
                     (TT, "positive_pixel_pair_loss", "loss"),
@@ -1281,6 +1327,18 @@ class StageTimer:
     def restore(self):
         for m, a, fn in self.saved:
             setattr(m, a, fn)
+
+    def timed_vgg(self, vgg):
+        """`vgg` with its forward inside a "vgg_fwd" span."""
+        timer = self
+
+        class Timed:
+            normalize = staticmethod(vgg.normalize)
+
+            def __call__(self, *a, **kw):
+                return timer._wrap(vgg, "vgg_fwd")(*a, **kw)
+
+        return Timed()
 
     def step_split(self, start, end):
         """{stage: ms} of one step bracketed by events start / end; the
@@ -1786,6 +1844,491 @@ def mask_io_phase(root, dev):
     return row, counts(), layout_counts()
 
 
+class PlainKernels:
+    """Inside the with-block the compositor's forward, backward and reduce
+    run through their plain PyTorch versions, also on CUDA tensors (the
+    plain arm of a whole-step comparison; they count no launch)."""
+
+    NAMES = (("composite_fwd", "composite_plain"),
+             ("composite_bwd", "composite_bwd_plain"),
+             ("reduce_pair_grads", "reduce_pair_grads_plain"))
+
+    def __enter__(self):
+        from trase_tpu_torch.ops import rasterize_cuda as RC
+
+        self.RC = RC
+        self.saved = {k: getattr(RC, k) for k, _ in self.NAMES}
+        for k, plain in self.NAMES:
+            setattr(RC, k, getattr(RC, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.RC, k, fn)
+
+
+def style_image(h, w, seed=9):
+    """A seeded (3, h, w) style image in [0, 1]: flat tiles on the left
+    half (identical VGG columns: ties in the NNFM max), a striped texture
+    with noise on the right."""
+    rng = np.random.default_rng(seed)
+    img = np.empty((3, h, w), np.float32)
+    half = w // 2
+    tiles = rng.uniform(size=(3, 4, 4)).astype(np.float32)
+    img[:, :, :half] = np.repeat(np.repeat(tiles, -(-h // 4), axis=1),
+                                 -(-half // 4), axis=2)[:, :h, :half]
+    yy, xx = np.mgrid[0:h, 0:w - half].astype(np.float32)
+    tex = 0.5 + 0.3 * np.sin(xx / 7.0)[None] * np.cos(yy / 11.0)[None]
+    img[:, :, half:] = np.clip(
+        tex + 0.15 * rng.normal(size=(3, h, w - half)), 0, 1)
+    return img
+
+
+def style_mask(params, aux, dev):
+    """One octant of the bench cloud around VIEWER_TARGET, as
+    grouped_features groups it (about 1/8 of the gaussians)."""
+    xyz = params.xyz - torch.tensor(VIEWER_TARGET, device=dev)
+    octant = ((xyz[:, 0] > 0).long() * 4 + (xyz[:, 1] > 0).long() * 2
+              + (xyz[:, 2] > 0).long())
+    return (octant == STYLE_OCTANT) & aux.alive
+
+
+def style_reference(vgg, h, w, dev):
+    """The style image's conv4_1 features, (512, h/8 * w/8), normalized
+    twice as the style CLI does."""
+    img = torch.from_numpy(style_image(h, w)).to(dev)
+    with torch.no_grad():
+        f = vgg(vgg.normalize(img))[STYLE_KEY][0]
+    return f.reshape(f.shape[0], -1)
+
+
+def vgg_flops(h, w, last=(3, 0)):
+    """Multiply-adds x 2 of VGG16's convolutions up to `last` at h x w."""
+    from trase_tpu_torch.models.vgg import VGG16_BLOCKS
+
+    total, in_c = 0, 3
+    for bi, block in enumerate(VGG16_BLOCKS):
+        for ci, out_c in enumerate(block):
+            if (bi, ci) > last:
+                return total
+            total += 2 * (h >> bi) * (w >> bi) * in_c * out_c * 9
+            in_c = out_c
+    return total
+
+
+def vgg_probe(vgg, h, w, dev) -> dict:
+    """ms (CUDA events) of the extractor's forward to STYLE_KEY and its
+    input gradient at h x w, with cuDNN's heuristic algorithm choice (the
+    port's setting) and with torch.backends.cudnn.benchmark on (cuDNN
+    times its algorithms per shape on the first call; restored after)."""
+    x = torch.rand((3, h, w), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(4)).requires_grad_(True)
+
+    def fwd_bwd():
+        torch.autograd.grad(vgg(x)[STYLE_KEY].sum(), x)
+
+    out = {"heuristic": cuda_ms(fwd_bwd, 3)}
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        out["cudnn_benchmark"] = cuda_ms(fwd_bwd, 3)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    return out
+
+
+def style_step_fn(state, cam, net, cfg, dev, vgg, ref, mask, carry=True):
+    """One style step of the bench scene per call (bf16 deform stack,
+    VGG16 conv4_1, SH 3); returns its metrics. With `carry` each call
+    continues from the last call's state, else starts from `state`."""
+    from trase_tpu_torch.config import OptimizationParams
+    from trase_tpu_torch.engine import trainer as TT
+
+    lrs = TT.make_learning_rate_schedules(OptimizationParams())(1)
+    bg = torch.zeros(3, device=dev)
+    box = {"state": state, "vgg": vgg}
+
+    def step():
+        new, m = TT.style_phase_step(
+            box["state"], cam, ref, mask, 0.5, lrs, bg, deform_net=net,
+            vgg_ext=box["vgg"], sh_degree=3, use_deform=True,
+            is_6dof=False, fx_key=STYLE_KEY, raster_cfg=cfg)
+        if carry:
+            box["state"] = new
+        box["last"] = new
+        return m
+
+    step.box = box
+    return step
+
+
+def small_style_scene(dev):
+    """Phase 3's small scene (the same draws) as a gaussian field, SH 1,
+    seen by its camera."""
+    from trase_tpu_torch.models import gaussians as G
+    from trase_tpu_torch.renderer import make_render_camera
+
+    rng = np.random.default_rng(1)
+    n, H, W = 400, 96, 128
+    means = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32)
+    means[:, 2] += 5.0
+    scales = rng.uniform(0.05, 0.3, size=(n, 3)).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    colors = rng.uniform(size=(n, 3)).astype(np.float32)
+    opac = rng.uniform(0.3, 0.95, size=n).astype(np.float32)
+    params, aux = G.from_point_cloud(means, colors, sh_degree=1,
+                                     capacity=512, device=dev)
+
+    def rows(field, values):
+        out = field.clone()
+        out[:n] = torch.tensor(values, device=dev).reshape(out[:n].shape)
+        return out
+
+    params = params._replace(
+        scaling=rows(params.scaling, np.log(scales)),
+        rotation=rows(params.rotation, quats),
+        opacity=rows(params.opacity, np.log(opac / (1 - opac))))
+    cam = make_render_camera(np.eye(3), np.zeros(3), 1.0, 0.8, H, W,
+                             device=dev)
+    return params, aux, cam
+
+
+def style_vs_plain(net, vgg, dev) -> dict:
+    """One style step on phase 3's small scene through the kernels and the
+    same step through their plain versions on the card (not counted): the
+    loss bit for bit, the colours' Adam moments within STYLE_TOL of their
+    scale, the colours where the gradient is clearly nonzero within
+    STYLE_TOL."""
+    from trase_tpu_torch.ops.rasterize import RasterConfig
+
+    params, aux, cam = small_style_scene(dev)
+    mask = (params.xyz[:, 0] > 0) & aux.alive
+    ref = style_reference(vgg, cam.image_height, cam.image_width, dev)
+    state = train_state(params, aux, net)
+    cfg = RasterConfig(pairs_per_gaussian=16)
+    step = style_step_fn(state, cam, net, cfg, dev, vgg, ref, mask,
+                         carry=False)
+    m = step()
+    kern = step.box["last"]
+    with PlainKernels():
+        rm = step()
+    plain = step.box["last"]
+    torch.cuda.synchronize()
+    out = {"gaussians": 400, "height": cam.image_height,
+           "width": cam.image_width, "tol": STYLE_TOL,
+           "loss": float(m["loss"]), "loss_plain": float(rm["loss"])}
+    bad = []
+    if out["loss"] != out["loss_plain"]:
+        bad.append("loss")
+    for k in ("features_dc", "features_rest"):
+        a, b = getattr(kern.opt, k), getattr(plain.opt, k)
+        for part in ("mu", "nu"):
+            x, y = getattr(a, part), getattr(b, part)
+            out[f"{k}_{part}_rel_err"] = err = float(
+                (x - y).abs().max() / y.abs().max())
+            if not err < STYLE_TOL:
+                bad.append(f"{k} {part}")
+        big = b.mu.abs() > 0.05 * b.mu.abs().max()
+        p, q = getattr(kern.params, k), getattr(plain.params, k)
+        out[f"{k}_rel_err"] = err = float((p - q)[big].abs().max()
+                                          / q[big].abs().max())
+        if not err < STYLE_TOL:
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"style step kernels vs plain: {bad}: {out}")
+    return out
+
+
+def style_phase(params, aux, cam, net, cfg, dev):
+    """The style step at full width (module docstring, phase style).
+    Returns (row, the step for the profile, launches, layouts)."""
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.losses import style as LS
+    from trase_tpu_torch.models.vgg import make_vgg16_extractor
+
+    H, W = cam.image_height, cam.image_width
+    t0 = time.perf_counter()
+    vgg = make_vgg16_extractor([STYLE_KEY], device=dev)
+    ref = style_reference(vgg, H, W, dev)
+    setup_s = time.perf_counter() - t0
+    mask = style_mask(params, aux, dev)
+    init = train_state(params, aux, net)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = style_step_fn(init, cam, net, cfg, dev, vgg, ref, mask)
+    reset_counts()
+    losses = [step()["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    finite = []
+    for _ in range(STYLE_STEPS):
+        m = step()
+        losses.append(m["loss"])
+        finite.append(m["finite"])
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STYLE_STEPS * 1e3
+    step_ms_events = start.elapsed_time(end) / STYLE_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, layouts = counts(), layout_counts()
+    n_steps = TRAIN_WARMUP + STYLE_STEPS
+    assert launches == dict(compositor(n_steps), deform_mlp=0), launches
+    assert layouts == {"composite_fwd/4/0/1/1": n_steps,
+                       "composite_bwd/4/0/1/0": n_steps,
+                       "reduce_pair_grads/10": n_steps}, layouts
+    losses = [float(x) for x in losses]
+    assert all(bool(f) for f in finite), "a style step was skipped"
+    assert losses[-1] < losses[0], losses
+    state = step.box["state"]
+    changed = changed_fields(init, state)
+    assert changed == ["params.features_dc", "params.features_rest",
+                       "aux.max_radii2d", "aux.xyz_gradient_accum",
+                       "aux.denom", "opt.features_dc",
+                       "opt.features_rest"], changed
+    for k in ("features_dc", "features_rest"):
+        new, old = getattr(state.params, k), getattr(init.params, k)
+        assert torch.equal(new[~mask], old[~mask]), k
+        assert not torch.equal(new[mask], old[mask]), k
+        for part in ("mu", "nu"):
+            a = getattr(getattr(state.opt, k), part)
+            b = getattr(getattr(init.opt, k), part)
+            assert torch.equal(a[~mask], b[~mask]), (k, part)
+
+    # the split, on steps from the initial state (wrapped calls)
+    fixed = style_step_fn(init, cam, net, cfg, dev, vgg, ref, mask,
+                          carry=False)
+    fixed()
+    timer = StageTimer(style=True)
+    fixed.box["vgg"] = timer.timed_vgg(vgg)
+    try:
+        splits = []
+        for _ in range(4):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fixed()
+            b.record()
+            splits.append(timer.step_split(a, b))
+    finally:
+        timer.restore()
+        fixed.box["vgg"] = vgg
+    split = {k: sum(sp[k] for sp in splits[1:]) / (len(splits) - 1)
+             for k in splits[-1]}
+    split["nnfm"] = split.pop("loss")
+    split["vgg_and_rest_bwd"] = (split["backward_total"]
+                                 - split.get("composite_bwd", 0.0)
+                                 - split.get("reduce", 0.0))
+    n_cols = (H // 8) * (W // 8)
+    flops = 2 * vgg_flops(H, W) + 2 * 2 * n_cols * n_cols * 512
+    kvp = style_vs_plain(net, vgg, dev)
+    probe = vgg_probe(vgg, H, W, dev)
+    row = {"phase": "style", "gaussians": int(aux.alive.sum()),
+           "capacity": int(params.xyz.shape[0]), "height": H, "width": W,
+           "styled_gaussians": int(mask.sum()), "fx_key": STYLE_KEY,
+           "vgg": "VGG16, seeded fallback", "nnfm_columns": [n_cols,
+                                                             n_cols],
+           "setup_s": setup_s, "steps": n_steps, "timed_steps": STYLE_STEPS,
+           "step_ms": step_ms, "step_ms_events": step_ms_events,
+           "stage_ms": split, "peak_memory_gib": peak,
+           "flops_per_step": flops,
+           "floor_ms_f32": flops / F32_FLOPS_PER_S * 1e3,
+           "vgg_fwd_bwd_ms": probe,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "changed": changed,
+           "kernels_vs_plain": kvp}
+    return row, fixed, launches, layouts
+
+
+def style_cli_phase(root, src, seg, it, sid, n_train, n_test, dev):
+    """The style CLI on a copy of the segment-cli phase's model directory
+    (snapshot, deform.pkl; clusters.pt from its k-means clusters: the
+    card's machine has no sklearn for HDBSCAN), styling cluster `sid`
+    for STYLE_CLI_ITERATIONS iterations against a seeded PNG; then the
+    render CLI on its snapshot. Checks: one launch of each compositor
+    kernel per iteration, only the object's colours moved, the renders'
+    PNGs."""
+    import shutil
+
+    from PIL import Image
+
+    from trase_tpu_torch import render as cli
+    from trase_tpu_torch import train_style_transfer_nnfm as style_cli
+    from trase_tpu_torch.cluster import load_clusters
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.models.gaussians_io import load_gaussian_ply
+
+    mdl = os.path.join(root, "styled")
+    shutil.copytree(seg, mdl)
+    cdir = os.path.join(mdl, "point_cloud", f"iteration_{it}")
+    shutil.copyfile(os.path.join(cdir, "clusters_kmeans.pt"),
+                    os.path.join(cdir, "clusters.pt"))
+    ids, _ = load_clusters(os.path.join(cdir, "clusters.pt"))
+    png = os.path.join(root, "style.png")
+    Image.fromarray((style_image(128, 128).transpose(1, 2, 0) * 255)
+                    .astype(np.uint8)).save(png)
+    end = it + STYLE_CLI_ITERATIONS
+    starts = []
+    step = TT.style_phase_step
+
+    def timed(*a, **kw):
+        starts.append(time.perf_counter())
+        return step(*a, **kw)
+
+    TT.style_phase_step = timed
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = style_cli.main([
+            "-s", src, "-m", mdl, "--eval", "--load_iteration", str(it),
+            "--iterations", str(end), "--segment_ids", str(sid),
+            "--reference_img_path", png, "--quiet", "--device", dev.type])
+    finally:
+        TT.style_phase_step = step
+    seconds = time.perf_counter() - t0
+    launches, layouts = counts(), layout_counts()
+    assert launches == dict(compositor(STYLE_CLI_ITERATIONS),
+                            deform_mlp=0), launches
+    assert np.isfinite(trainer.ema_loss), trainer.ema_loss
+    before = load_gaussian_ply(os.path.join(cdir, "point_cloud.ply"),
+                               device="cpu")
+    after = load_gaussian_ply(os.path.join(
+        mdl, "point_cloud", f"iteration_{end}", "point_cloud.ply"),
+        device="cpu")
+    n = before[2]
+    obj = torch.from_numpy(ids[:n] == sid)
+    moved = {}
+    for k in ("features_dc", "features_rest"):
+        a, b = getattr(after[0], k)[:n], getattr(before[0], k)[:n]
+        assert torch.equal(a[~obj], b[~obj]), k
+        moved[k] = int((a[obj] != b[obj]).flatten(1).any(1).sum())
+        assert moved[k] > 0, k
+    for k in ("xyz", "opacity", "scaling", "rotation"):
+        assert torch.equal(getattr(after[0], k), getattr(before[0], k)), k
+    cli.main(["-s", src, "-m", mdl, "--iteration", str(end),
+              "--pairs_per_gaussian", "6", "--device", dev.type])
+    pngs = check_pngs(mdl, end, n_train, n_test)
+    return {"phase": "style-cli", "iterations": STYLE_CLI_ITERATIONS,
+            "segment_id": sid, "object_gaussians": int(obj.sum()),
+            "gaussians": n, "seconds": seconds,
+            "s_per_iteration": (starts[-1] - starts[0]) / (len(starts) - 1),
+            "ema_loss": trainer.ema_loss, "moved_rows": moved,
+            "png_counts": pngs, "launches": launches, "layouts": layouts}
+
+
+def lpips_phase(root, seg, bench, it, dev):
+    """LPIPS through the metrics CLI (--vgg_weights: a seeded VGG16 in
+    trase_tpu's .npz format; --lpips_weights: seeded heads) on the
+    segment-cli phase's outputs, on the card and with --device cpu (the
+    column within LPIPS_TOL); then ms per make_lpips call on a 1008x1344
+    pair (VGG16 through conv5_3, twice)."""
+    from trase_tpu_torch import metrics_segmentation as metrics_cli
+    from trase_tpu_torch.losses.lpips import _LPIPS_CHANNELS, make_lpips
+    from trase_tpu_torch.models.vgg import VGG16_BLOCKS, seeded_weights
+
+    rng = np.random.default_rng(13)
+    vgg = os.path.join(root, "vgg16_seeded.npz")
+    np.savez(vgg, **{f"{bi}_{ci}.{p}": v for (bi, ci), (w, b)
+                     in seeded_weights(VGG16_BLOCKS, 3).items()
+                     for p, v in (("w", w), ("b", b))})
+    lin = os.path.join(root, "lpips_lin.npz")
+    np.savez(lin, **{f"lin{i}": rng.uniform(0, 0.2, c).astype(np.float32)
+                     for i, c in enumerate(_LPIPS_CHANNELS)})
+    reset_counts()
+    out = {"phase": "lpips", "tol": LPIPS_TOL}
+    for device in (dev.type, "cpu"):
+        t0 = time.perf_counter()
+        metrics_cli.main(["-m", seg, "--benchmark_path", bench,
+                          "--vgg_weights", vgg, "--lpips_weights", lin,
+                          "--device", device])
+        out[f"metrics_cli_s_{device}"] = time.perf_counter() - t0
+        with open(os.path.join(seg, "results.json")) as f:
+            out[f"lpips_{device}"] = json.load(f)[f"ours_{it}"]["LPIPS"]
+        with open(os.path.join(seg, "per_view.json")) as f:
+            per_view = json.load(f)[f"ours_{it}"]["LPIPS"]
+        assert per_view and all(np.isfinite(v) for v in per_view.values())
+    launches, layouts = counts(), layout_counts()
+    assert launches == dict(compositor(0), deform_mlp=0), launches
+    got, want = out[f"lpips_{dev.type}"], out["lpips_cpu"]
+    assert np.isfinite(got) and got > 0, got
+    out["card_vs_cpu"] = abs(got - want)
+    assert out["card_vs_cpu"] <= LPIPS_TOL, out
+    fn = make_lpips(vgg, lin, device=dev)
+    a = torch.rand((3, HEIGHT, WIDTH), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    b = (a + 0.1 * torch.randn(a.shape, device=dev, generator=torch
+                               .Generator(device=dev).manual_seed(1))
+         ).clamp(0, 1)
+    with torch.no_grad():
+        out["value_1008x1344"] = float(fn(a, b))
+        out["ms_1008x1344"] = cuda_ms(lambda: fn(a, b), 5)
+    last = (len(VGG16_BLOCKS) - 1, len(VGG16_BLOCKS[-1]) - 1)
+    out["floor_ms_f32"] = 2 * vgg_flops(HEIGHT, WIDTH, last) \
+        / F32_FLOPS_PER_S * 1e3
+    return out, launches, layouts
+
+
+def losses_3d_calls(feats, probs, xyz, xyz2, nbr, gen=None,
+                    sample_idx=None) -> dict:
+    """{name: thunk} of the four 3D losses on these tensors; the
+    subsamples from `gen`, or loss_cls_3d's sample from `sample_idx`."""
+    from trase_tpu_torch.losses import losses_3d as L3
+
+    return {
+        "loss_cls_3d": lambda: L3.loss_cls_3d(
+            feats, probs, generator=gen, sample_idx=sample_idx),
+        "loss_reg_3d_feature": lambda: L3.loss_reg_3d_feature(
+            feats, xyz, 5),
+        "loss_feature3d": lambda: L3.loss_feature3d(feats, xyz,
+                                                    generator=gen),
+        "rigid_body_motion_loss": lambda: L3.rigid_body_motion_loss(
+            xyz, xyz2, nbr),
+    }
+
+
+def losses_3d_phase(params, net, dev) -> dict:
+    """The four 3D losses on the bench scene's capacity rows (features,
+    class probabilities from a seeded projection of them, positions, the
+    deformed positions at t = 0.5, their 8 nearest neighbours): ms (CUDA
+    events) and finiteness; then card against CPU on a LOSS3D_SUBSET-row
+    subset with loss_cls_3d's sample passed as an index array (the subset
+    needs no other subsample)."""
+    from trase_tpu_torch.ops.knn import knn
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    feats, xyz = params.gaussian_features, params.xyz
+    proj = torch.randn((feats.shape[1], 16), device=dev, generator=gen)
+    with torch.no_grad():
+        probs = torch.softmax(feats @ proj, dim=1)
+        xyz2 = xyz + deltas(params, net, 0.5)[0]
+        nbr = knn(xyz, xyz, 8)[1]
+    out = {"phase": "losses-3d", "points": int(xyz.shape[0]),
+           "subset": LOSS3D_SUBSET, "tol": LOSS3D_TOL, "rigid_tol": RIGID_TOL}
+    with torch.no_grad():
+        for name, fn in losses_3d_calls(feats, probs, xyz, xyz2, nbr,
+                                        gen).items():
+            out[name] = float(fn())
+            out[f"{name}_ms"] = cuda_ms(fn, 3)
+            assert np.isfinite(out[name]), (name, out[name])
+    m = LOSS3D_SUBSET
+    sample = torch.randperm(m, generator=torch.Generator().manual_seed(3))
+    sub = {}
+    for where in (dev.type, "cpu"):
+        t = [x[:m].to(where) for x in (feats, probs, xyz, xyz2)]
+        with torch.no_grad():
+            calls = losses_3d_calls(*t, knn(t[2], t[2], 8)[1],
+                                    sample_idx=sample[:800])
+            sub[where] = {k: float(fn()) for k, fn in calls.items()}
+    for name, want in sub["cpu"].items():
+        err = abs(sub[dev.type][name] - want) / max(abs(want), 1e-12)
+        out[f"{name}_card_vs_cpu"] = err
+        tol = RIGID_TOL if name.startswith("rigid") else LOSS3D_TOL
+        assert err <= tol, (name, sub[dev.type][name], want)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2086,6 +2629,22 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     mio, launches["mask_io"], layouts["mask_io"] = mask_io_phase(tmp.name,
                                                                 dev)
     emit(mio)
+
+    # 7d. style transfer: the step at full width, the style CLI; LPIPS in
+    # the metrics CLI; the 3D losses
+    seg_dir = os.path.join(tmp.name, "segment")
+    row, style_step, launches["style"], layouts["style"] = style_phase(
+        params, aux, cam, net, cfg, dev)
+    emit(row)
+    scli = style_cli_phase(tmp.name, src, seg_dir, it, seg["segment_id"],
+                           n_train, n_test, dev)
+    launches["style_cli"] = scli.pop("launches")
+    layouts["style_cli"] = scli.pop("layouts")
+    emit(scli)
+    lp, launches["lpips"], layouts["lpips"] = lpips_phase(
+        tmp.name, seg_dir, os.path.join(tmp.name, "benchmark"), it, dev)
+    emit(lp)
+    emit(losses_3d_phase(params, net, dev))
     tmp.cleanup()
 
     # 8. where a frame's and a step's device time goes
@@ -2108,6 +2667,8 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
               **profile_frames(feature_step_fn(
                   train_state(params, aux, net), cam, net, cfg, dev, stats,
                   carry=False), frames=3)})
+    emit({"phase": "profile", "path": "style-step",
+          **profile_frames(style_step, frames=3)})
 
     # 9. kernels
     emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,

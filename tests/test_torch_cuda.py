@@ -4,7 +4,9 @@ forward instantiation bit for bit and every backward instantiation on
 scenes built for their edges (long tiles, warps that stop far apart,
 empty tiles, early stops, ragged image sides), the compositor's
 gradients under autograd, the reduce at both widths, the fused deform
-MLP, and the viewer's frames, composition and web server on the card.
+MLP, the viewer's frames, composition and web server, the style step
+through the kernels against the same step through their plain versions,
+and LPIPS, on the card.
 Imports no jax, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -792,3 +794,133 @@ def test_web_frame_equals_render_frame_on_card():
             np.testing.assert_array_equal(served(), direct())
     finally:
         srv.shutdown()
+
+
+class _PlainKernels:
+    """Inside the with-block the compositor's forward, backward and
+    reduce run through their plain PyTorch versions, also on CUDA
+    tensors."""
+
+    NAMES = (("composite_fwd", "composite_plain"),
+             ("composite_bwd", "composite_bwd_plain"),
+             ("reduce_pair_grads", "reduce_pair_grads_plain"))
+
+    def __enter__(self):
+        self.saved = {k: getattr(TRC, k) for k, _ in self.NAMES}
+        for k, plain in self.NAMES:
+            setattr(TRC, k, getattr(TRC, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(TRC, k, fn)
+
+
+def _style_case(device):
+    """A 2000-gaussian field (SH 1) seen at 96x128, half of it styled,
+    against a seeded style image with a flat half; VGG16 conv4_1 with
+    the seeded fallback."""
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.models.deform import (init_deform,
+                                               make_deform_network)
+    from trase_tpu_torch.models.vgg import VGG16_BLOCKS, VGGFeatureExtractor
+    from trase_tpu_torch.renderer import make_render_camera
+
+    params, aux, n = _viewer_field(device, n=2000, capacity=2048)
+    params = params._replace(xyz=params.xyz + torch.tensor(
+        [0.0, 0.0, 3.0], device=device))
+    net = init_deform(make_deform_network(device=device),
+                      torch.Generator().manual_seed(0))
+    for lin in net.flax_order()[-3:]:
+        lin.weight.data *= 0.05
+    state = TT.init_train_state(params, aux, TT.deform_tensors(net))
+    vgg = VGGFeatureExtractor(["conv4_1"], VGG16_BLOCKS, device=device)
+    style = torch.rand((3, 96, 128), generator=torch.Generator()
+                       .manual_seed(3)).to(device)
+    style[:, :48] = 0.25
+    with torch.no_grad():
+        ref = vgg(vgg.normalize(style))["conv4_1"][0].reshape(512, -1)
+    mask = params.xyz[:, 0] > 0
+    cam = make_render_camera(np.eye(3), np.zeros(3), 0.9, 0.7, 96, 128,
+                             device=device)
+    lrs = TT.LearningRates(*([0.0025] * 8))
+
+    def step(st):
+        return TT.style_phase_step(
+            st, cam, ref, mask, 0.4, lrs, torch.zeros(3, device=device),
+            deform_net=net, vgg_ext=vgg, sh_degree=1, use_deform=True,
+            is_6dof=False, fx_key="conv4_1",
+            raster_cfg=TR.RasterConfig(pairs_per_gaussian=16))
+    return state, step, mask & aux.alive
+
+
+@pytest.mark.cuda
+def test_style_step_kernels_match_plain_on_card():
+    """One style step through the kernels (one launch each of the 4-value
+    forward with residuals, its backward and the 10-word reduce) against
+    the same step through their plain versions on the card: the loss bit
+    for bit (the forward is), the colours' Adam moments within 1e-3 of
+    their scale (the backward's 256-pixel sums associate differently), the
+    colours where the gradient is clearly nonzero within 1e-3; rows
+    outside the mask and every other field unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    state, step, rows = _style_case("cuda")
+    TRC.LAYOUT_LAUNCHES.clear()
+    new, m = step(state)
+    torch.cuda.synchronize()
+    assert TRC.LAYOUT_LAUNCHES == {("composite_fwd", 4, 0, True, True): 1,
+                                   ("composite_bwd", 4, 0, True, False): 1,
+                                   ("reduce_pair_grads", 10): 1}
+    with _PlainKernels():
+        ref, rm = step(state)
+    assert bool(m["finite"]) and float(m["loss"]) == float(rm["loss"])
+    for k in ("features_dc", "features_rest"):
+        a, b = getattr(new.opt, k), getattr(ref.opt, k)
+        for part in ("mu", "nu"):
+            x, y = getattr(a, part), getattr(b, part)
+            err = float((x - y).abs().max() / y.abs().max())
+            assert err < 1e-3, (k, part, err)
+        big = b.mu.abs() > 0.05 * b.mu.abs().max()
+        p, q = getattr(new.params, k), getattr(ref.params, k)
+        assert float((p - q)[big].abs().max()
+                     / q[big].abs().max()) < 1e-3, k
+        old = getattr(state.params, k)
+        assert torch.equal(p[~rows], old[~rows])
+        assert not torch.equal(p[rows], old[rows])
+    for name in ("xyz", "opacity", "scaling", "rotation",
+                 "gaussian_features"):
+        assert torch.equal(getattr(new.params, name),
+                           getattr(state.params, name)), name
+    assert torch.equal(new.aux.alive, state.aux.alive)
+    for a, b in zip(new.deform, state.deform):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(tmp_path):
+    """make_lpips on the card against --device cpu on the same seeded
+    weight files and images: within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.losses.lpips import _LPIPS_CHANNELS, make_lpips
+    from trase_tpu_torch.models.vgg import VGG16_BLOCKS, seeded_weights
+
+    vgg = str(tmp_path / "vgg16.npz")
+    np.savez(vgg, **{f"{bi}_{ci}.{p}": v for (bi, ci), (w, b)
+                     in seeded_weights(VGG16_BLOCKS, 5).items()
+                     for p, v in (("w", w), ("b", b))})
+    rng = np.random.default_rng(8)
+    lin = str(tmp_path / "lin.npz")
+    np.savez(lin, **{f"lin{i}": rng.uniform(0, 0.2, c).astype(np.float32)
+                     for i, c in enumerate(_LPIPS_CHANNELS)})
+    a = rng.uniform(size=(3, 128, 160)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+    vals = {}
+    for dev in ("cuda", "cpu"):
+        fn = make_lpips(vgg, lin, device=dev)
+        with torch.no_grad():
+            vals[dev] = float(fn(torch.from_numpy(a).to(dev),
+                                 torch.from_numpy(b).to(dev)))
+    assert np.isfinite(vals["cuda"]) and vals["cuda"] > 0
+    assert abs(vals["cuda"] - vals["cpu"]) <= 1e-4, vals

@@ -10,7 +10,8 @@ level (float sums that differ in the last bits round to neighbouring
 levels), except where a threshold or a pixel index decides a pixel
 (pred_masks, the background of segment_objects and of the text-prompt
 objects, the point splats): there at most 0.5 % of a view's pixels may
-differ by more; results.json within 1e-4."""
+differ by more; results.json within 1e-4. With --vgg_weights and
+--lpips_weights, the LPIPS column and per-view LPIPS within 1e-5."""
 import json
 import os
 import shutil
@@ -208,14 +209,65 @@ def test_segmentation_pipeline_matches_root_clis(pipeline, tmp_path):
             ["00000.png", "00001.png"]
 
 
-def test_lpips_with_weights_refuses(tmp_path):
-    """LPIPS is not ported: asking for it raises instead of reporting a
-    column that differs from trase_tpu's."""
-    from trase_tpu_torch import metrics_segmentation as t_metrics
+def test_lpips_column_matches_root(tmp_path):
+    """--vgg_weights (a seeded VGG16 .npz in trase_tpu's format) and
+    --lpips_weights (seeded heads): the LPIPS column and the per-view
+    LPIPS of the port's metrics CLI against root
+    metrics_segmentation.evaluate on the same method folder, within
+    1e-5."""
+    from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        t_metrics.evaluate([str(tmp_path)], False, str(tmp_path),
-                           vgg_weights="vgg.pth", device="cpu")
+    import metrics_segmentation as j_metrics
+    from trase_tpu_torch import metrics_segmentation as t_metrics
+    from trase_tpu_torch.losses.lpips import _LPIPS_CHANNELS
+    from trase_tpu_torch.models.vgg import VGG16_BLOCKS, seeded_weights
+
+    rng = np.random.default_rng(31)
+    vgg = str(tmp_path / "vgg16.npz")
+    np.savez(vgg, **{f"{bi}_{ci}.{p}": v for (bi, ci), (w, b)
+                     in seeded_weights(VGG16_BLOCKS, 5).items()
+                     for p, v in (("w", w), ("b", b))})
+    lin = str(tmp_path / "lin.npz")
+    np.savez(lin, **{f"lin{i}": rng.uniform(0, 0.2, c).astype(np.float32)
+                     for i, c in enumerate(_LPIPS_CHANNELS)})
+    bench = tmp_path / "bench"
+    for d in ("gt_masks", "gt_masks_object"):
+        os.makedirs(bench / d)
+    dirs = {k: tmp_path / k for k in ("jax", "port")}
+    for i in range(2):
+        name = f"{i:05d}.png"
+        gt = rng.uniform(size=(40, 40, 3))
+        mask = np.zeros((40, 40), np.uint8)
+        mask[8:30, 5:25] = 255
+        Image.fromarray(mask).save(bench / "gt_masks" / name)
+        Image.fromarray((gt * 255).astype(np.uint8)).save(
+            bench / "gt_masks_object" / name)
+        pred = np.clip(gt + 0.15 * rng.normal(size=gt.shape), 0, 1)
+        for d in dirs.values():
+            for sub in ("pred_masks", "segment_objects"):
+                os.makedirs(d / "test" / "ours_5" / sub, exist_ok=True)
+            Image.fromarray(mask).save(d / "test" / "ours_5" / "pred_masks"
+                                       / name)
+            Image.fromarray((pred * 255).astype(np.uint8)).save(
+                d / "test" / "ours_5" / "segment_objects" / name)
+    j_metrics.evaluate([str(dirs["jax"])], False, str(bench), vgg, lin)
+    t_metrics.main(["-m", str(dirs["port"]), "--benchmark_path", str(bench),
+                    "--vgg_weights", vgg, "--lpips_weights", lin,
+                    "--device", "cpu"])
+    got = {}
+    for k, d in dirs.items():
+        with open(d / "results.json") as f:
+            res = json.load(f)["ours_5"]
+        with open(d / "per_view.json") as f:
+            got[k] = (res, json.load(f)["ours_5"]["LPIPS"])
+    (jr, jv), (tr, tv) = got["jax"], got["port"]
+    assert np.isfinite(tr["LPIPS"]) and tr["LPIPS"] > 0
+    assert abs(tr["LPIPS"] - jr["LPIPS"]) <= 1e-5, (tr["LPIPS"], jr["LPIPS"])
+    assert sorted(tv) == sorted(jv) == ["00000.png", "00001.png"]
+    for name in jv:
+        assert abs(tv[name] - jv[name]) <= 1e-5, name
+    for k in ("mIOU", "mACC", "SSIM", "PSNR"):
+        assert abs(tr[k] - jr[k]) <= METRICS_TOL, k
 
 
 def test_text_prompt_without_grounded_sam_warns(capsys):

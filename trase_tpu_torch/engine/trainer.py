@@ -1,8 +1,8 @@
-"""The two training steps of the port, GAUSSIAN and FEATURE.
+"""The training steps of the port: GAUSSIAN, FEATURE and STYLE.
 
 Counterpart of trase_tpu/engine/trainer.py (:63-137, :173-577,
-:638-690; reference train.py:209-296). GAUSSIAN: render the view under
-autograd, loss = (1-λ) L1 + λ (1 - SSIM) (+ λ_reg |d_xyz| once the
+:638-690, :693-781; reference train.py:209-296). GAUSSIAN: render the
+view under autograd, loss = (1-λ) L1 + λ (1 - SSIM) (+ λ_reg |d_xyz| once the
 deform net is on), Adam on the gaussian fields (rows of dead slots
 frozen) and on the deform MLP, and the densification statistics from the
 gradient of the screen-space offset. FEATURE: render the 32 features
@@ -10,8 +10,11 @@ alone (KNN-smoothed), resize them to the masks' resolution, contrastive
 pixel-pair losses against the SAM masks + rfn (1 - |F|)^2, Adam on
 ``gaussian_features`` only, and the densification statistics while
 densification lasts; after it the compositor's backward runs
-values-only. The compositor's gradient runs through the hand-written
-CUDA backward (ops/rasterize_cuda.py) on the card.
+values-only. STYLE (the style-transfer CLI's step): render the colour,
+the NNFM loss of its VGG features against a style image's, Adam on the
+SH colours of one object's gaussians. The compositor's gradient runs
+through the hand-written CUDA backward (ops/rasterize_cuda.py) on the
+card.
 
 The state is a NamedTuple of tensors and the step is functional: it
 returns a new state and leaves its input alone. The NaN guard commits
@@ -378,6 +381,83 @@ def feature_phase_step(
                "neg_sim": neg_sim, "overflow": out["overflow"],
                "overflow_half": out["overflow_half"]}
     return new_state, metrics
+
+
+def clip_unit(x: torch.Tensor) -> torch.Tensor:
+    """x clipped to [0, 1] with jnp.clip's gradient: half the cotangent
+    at a bound, where torch.clamp passes all of it (maximum and minimum
+    split a tie's gradient evenly, as JAX's do)."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def style_phase_step(
+    state: TrainState,
+    camera: RenderCamera,
+    ref_vgg_feats: torch.Tensor,  # (C, N_ref) flattened style features
+    style_mask: torch.Tensor,  # (capacity,) bool: gaussians that may change
+    fid: float,
+    lrs: LearningRates,
+    bg_color: torch.Tensor,
+    *,
+    deform_net: DeformNetwork,
+    vgg_ext,
+    sh_degree: int,
+    use_deform: bool,
+    is_6dof: bool,
+    fx_key: str,
+    raster_cfg: RasterConfig,
+):
+    """One NNFM style-transfer step -> (new state, metrics)
+    (trase_tpu trainer.py:693-781; reference train_style_transfer_nnfm.py
+    :180-290): render the colour, VGG features of the render, the NNFM
+    loss against the style features; Adam on features_dc and
+    features_rest alone, on the rows of `style_mask` that are alive
+    (set_background_zero_grad), and the densification statistics. The
+    deform net runs detached (bf16 stack) and is not updated. The
+    metrics (loss, finite) are 0-d device tensors."""
+    from ..losses.style import loss_nnfm_style
+
+    p, aux = state.params, state.aux
+    with torch.no_grad():
+        d_xyz, d_rot, d_scale = apply_deform(
+            deform_net, state.deform, p.xyz, fid, 0.0, use_deform,
+            p.gaussian_features)
+    f_dc = p.features_dc.detach().requires_grad_(True)
+    f_rest = p.features_rest.detach().requires_grad_(True)
+    off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32,
+                      device=p.xyz.device, requires_grad=True)
+    out = render(camera, p._replace(features_dc=f_dc, features_rest=f_rest),
+                 aux.alive, bg_color, d_xyz, d_rot, d_scale,
+                 is_6dof=is_6dof, sh_degree=sh_degree, mean2d_offset=off,
+                 with_features=False, raster_cfg=raster_cfg)
+    image = clip_unit(out["render"])
+    # the reference normalizes outside the extractor and inside it: its
+    # features are of a twice-normalized image (models/vgg.py normalize)
+    feats = vgg_ext(vgg_ext.normalize(image))[fx_key][0]  # (C, h, w)
+    loss = loss_nnfm_style(feats.reshape(feats.shape[0], -1), ref_vgg_feats)
+    g_dc, g_rest, goff = torch.autograd.grad(loss, [f_dc, f_rest, off])
+
+    with torch.no_grad():
+        row_mask = aux.alive & style_mask
+        new_dc, opt_dc = adam_update(
+            p.features_dc, g_dc, state.opt.features_dc, lrs.features_dc,
+            row_mask=row_mask)
+        new_rest, opt_rest = adam_update(
+            p.features_rest, g_rest, state.opt.features_rest,
+            lrs.features_rest, row_mask=row_mask)
+        new_params = p._replace(features_dc=new_dc, features_rest=new_rest)
+        new_opt = state.opt._replace(features_dc=opt_dc,
+                                     features_rest=opt_rest)
+        new_aux = G.add_densification_stats(
+            aux, goff, out["visibility_filter"] & aux.alive, out["radii"],
+            camera.image_height, camera.image_width)
+        checked = (list(new_params)
+                   + [x for x in new_aux if x.is_floating_point()]
+                   + [t for s in new_opt for t in (s.mu, s.nu)])
+        finite = torch.isfinite(loss.detach()) & _all_finite(checked)
+        new_state = _commit(finite, state._replace(
+            params=new_params, aux=new_aux, opt=new_opt), state)
+    return new_state, {"loss": loss.detach(), "finite": finite}
 
 
 def densify_step(state: TrainState, scene_extent: float,

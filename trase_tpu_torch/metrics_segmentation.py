@@ -8,10 +8,12 @@ and method, mIoU and mAcc of <model>/test/<method>/pred_masks against
 ``--device`` (cuda, the default, or cpu); writes <model>/results.json and
 <model>/per_view.json as render.py's counterpart does.
 
-LPIPS needs pretrained VGG weights and a VGG network, which the port does
-not have yet: without --vgg_weights the LPIPS column is null (the "LPIPS
-skipped" line, as trase_tpu prints it); with them it raises rather than
-report results that differ from trase_tpu's.
+LPIPS (losses/lpips.py, on ``--device``) needs a VGG16 weight file,
+``--vgg_weights`` (torchvision .pth or .npz), and takes the linear heads
+from ``--lpips_weights`` (uniform heads, with a warning, without them):
+the LPIPS column and the per-view LPIPS are filled as the root CLI fills
+them. Without --vgg_weights the column is null and the per-view dict
+empty (the "LPIPS skipped" line, as trase_tpu prints it).
 """
 from __future__ import annotations
 
@@ -81,18 +83,17 @@ def read_images(renders_dir: Path, gt_dir: Path):
 def evaluate(model_paths, no_psnr: bool, benchmark_path: str,
              vgg_weights: str | None = None,
              lpips_weights: str | None = None, device="cuda"):
+    from .losses.lpips import make_lpips
     from .ops.ssim import ssim
     from .utils.image import psnr
 
     dev = resolve_device(device)
+    lpips_fn = None
     if not no_psnr:
-        if vgg_weights:
-            raise NotImplementedError(
-                "LPIPS is not ported yet (ROADMAP Queue 1 item 11: "
-                "losses/lpips.py, models/vgg.py); run without --vgg_weights "
-                "or with the root metrics_segmentation.py")
-        print("[metrics] LPIPS skipped: no pretrained VGG weights "
-              "(--vgg_weights)")
+        lpips_fn = make_lpips(vgg_weights, lpips_weights, device=dev)
+        if lpips_fn is None:
+            print("[metrics] LPIPS skipped: no pretrained VGG weights "
+                  "(--vgg_weights)")
 
     full_dict, per_view = {}, {}
     for scene_dir in model_paths:
@@ -119,21 +120,28 @@ def evaluate(model_paths, no_psnr: bool, benchmark_path: str,
                     renders, rgts, rnames = read_images(
                         method_dir / "segment_objects",
                         benchmark_dir / "gt_masks_object")
-                    ssims, psnrs = [], []
+                    ssims, psnrs, lpipss = [], [], []
                     for r, g in zip(renders, rgts):
                         rt = torch.from_numpy(r).to(dev)
                         gt = torch.from_numpy(g).to(dev)
                         ssims.append(float(ssim(rt, gt)))
                         psnrs.append(float(psnr(rt[None], gt[None]).mean()))
+                        if lpips_fn is not None:
+                            with torch.no_grad():
+                                lpipss.append(float(lpips_fn(rt, gt)))
                     print("  SSIM : {:>12.4f}".format(np.mean(ssims)))
                     print("  PSNR : {:>12.4f}".format(np.mean(psnrs)))
+                    if lpipss:
+                        print("  LPIPS: {:>12.4f}".format(np.mean(lpipss)))
                     entry.update({
                         "SSIM": float(np.mean(ssims)) if ssims else None,
                         "PSNR": float(np.mean(psnrs)) if psnrs else None,
-                        "LPIPS": None})
+                        "LPIPS": (float(np.mean(lpipss))
+                                  if lpipss else None)})
                     pv.update({"SSIM": dict(zip(rnames, ssims)),
                                "PSNR": dict(zip(rnames, psnrs)),
-                               "LPIPS": {}})
+                               "LPIPS": dict(zip(rnames, lpipss))
+                               if lpipss else {}})
                 full_dict[scene_dir][method] = entry
                 per_view[scene_dir][method] = pv
             except Exception as e:  # noqa: BLE001 — as the root CLI: report
