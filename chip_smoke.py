@@ -162,6 +162,39 @@ JSON line per phase:
    losses-3d    losses/losses_3d.py's four losses on the bench scene's
                 131072 rows: ms and finiteness; card against CPU on a
                 4096-row subset with the draws injected;
+   mesh-slabs   the compositor kernels' slab mode (the multi-device
+                steps') at the bench scene, its 63 tile rows padded to 64
+                and split in 4 slabs, for the GAUSSIAN layout (4 values)
+                and the FEATURE layout (32 packed, features alone), with
+                residuals: each slab's forward bit for bit against the
+                plain slab, the slabs concatenated bit for bit against the
+                whole image; each slab's backward within BWD_TOL of its
+                plain version and its pair rows bit for bit against the
+                whole image's, its reduce bit for bit against the plain
+                version and against the whole image's reduce kernel run
+                over the slab's range; the slabs' payload gradients
+                summed against the whole image's within SLAB_SUM_TOL;
+                each slab's kernel ms beside the whole image's, the whole
+                image's reduce kernel over the slab's range and
+                index_add_ over the slab's pairs (queued medians), the
+                bounds, slab 0's plain ms;
+   mesh         the multi-device path on the one card: a world of one over
+                NCCL in this process, the sharded GAUSSIAN and FEATURE
+                (smoothing on) steps at the bench scene, counted (one
+                launch of each slab kernel a step, exactly), against the
+                single-device steps from the same state (loss equal,
+                params and moments within MESH_STEP_TOL), step ms from
+                CUDA events beside the single steps', the device's idle
+                share, the peak device memory of each step; then
+                trase_tpu_torch.train --mesh 1 as torchrun starts it
+                (WORLD_SIZE=1, a TCP store on localhost) on phase 5's
+                dataset through both phases, counted (every compositor
+                launch in slab mode, one of each kernel a step, exactly),
+                its peak device memory beside the same flags' on one
+                device, its checkpoint loaded in a single-device run bit
+                for bit; the same CLI spawning its rank (a subprocess);
+                --mesh 2, which must exit non-zero at once naming the
+                device count;
 8. profile      torch.profiler over a few frames of phase 4 (float32 and
                 fused deform), of the viewer's Render mode, and a few steps
                 of phase 6, of each FEATURE arm and of the style step:
@@ -183,6 +216,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -294,6 +328,19 @@ STYLE_KEY, STYLE_OCTANT, STYLE_STEPS, STYLE_TOL = "conv4_1", 7, 10, 1e-3
 STYLE_CLI_ITERATIONS = 20
 LPIPS_TOL = 1e-4
 LOSS3D_SUBSET, LOSS3D_TOL, RIGID_TOL = 4096, 1e-5, 1e-4
+# the multi-device path on one card: the bench scene's 63 tile rows
+# padded to 64 and split in 4 slabs of 16 rows; the slabs' payload
+# gradients summed against the whole image's (the same pair rows, the
+# K-row sums associated per slab: f32 sum order); a world of one's steps
+# against the single-device steps (tests/test_torch_parallel.py's CPU
+# tolerance for params and moments); the --mesh 1 CLI's iterations
+MESH_SLABS, SLAB_SUM_TOL, MESH_STEP_TOL = 4, 1e-5, 1e-5
+MESH_CLI_ITERATIONS = 60
+# the launch keys of one sharded GAUSSIAN step and one FEATURE step
+MESH_SLAB_KEYS = ("composite_fwd/4/0/1/1/slab", "composite_bwd/4/0/1/0/slab",
+                  "reduce_pair_grads/10/slab", "composite_fwd/32/16/0/1/slab",
+                  "composite_bwd/32/16/0/0/slab",
+                  "reduce_pair_grads/38/slab")
 # host IO: cameras' SAM-style mask stacks (native .npz) at the bench
 # FEATURE step's size and at full size; the loop's FEATURE run
 MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
@@ -2329,6 +2376,451 @@ def losses_3d_phase(params, net, dev) -> dict:
     return out
 
 
+def group_rel(a, b, words, skip_geometry=False):
+    """Max abs difference of a against b over each column group's largest
+    magnitude (mean2d, conic, log opacity, values)."""
+    out = {}
+    for name, (lo, hi) in dict(GEOM_GROUPS, values=(6, words)).items():
+        if skip_geometry and name != "values":
+            continue
+        d = float((a[:, lo:hi] - b[:, lo:hi]).abs().max())
+        out[name] = d / (float(b[:, lo:hi].abs().max()) + 1e-30)
+    return out
+
+
+def slab_compare(label, proj, feats, H, W, cfg, pack, with_color):
+    """The compositor kernels' slab mode at one layout: the image's tile
+    rows padded to a multiple of MESH_SLABS and split in that many slabs,
+    the binning at the padded height (as composite_slab does). Each slab's
+    forward (image and residuals) against the plain slab bit for bit, the
+    slabs concatenated against the whole-image kernel bit for bit; each
+    slab's backward and reduce under its rows of one seeded cotangent
+    against their plain versions within BWD_TOL, its pair rows against the
+    whole-image backward's bit for bit, and the slabs' payload gradients
+    summed against the whole image's within SLAB_SUM_TOL; then each slab's
+    kernels and the whole image's timed in interleaved queued rounds."""
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops.rasterize import _tile_grid
+
+    th, tw = _tile_grid(H, W)
+    rows_pad = -(-th // MESH_SLABS) * MESH_SLABS
+    rows_local = rows_pad // MESH_SLABS
+    h_pad = rows_pad * 16
+    ci = RC.composite_inputs(proj, feats, h_pad, W,
+                             cfg._replace(pack_features=pack), with_color)
+    n_val, n_packed = ci.n_val, ci.n_packed
+    kpay = (RC.pack_feature_words(ci.payload, n_val, n_packed, with_color)
+            if n_packed else ci.payload)
+    args = (kpay, ci.sorted_gauss, ci.tile_start, h_pad, W, n_val, n_packed)
+    kw = dict(with_color=with_color)
+    dev = kpay.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn((h_pad, W, 1 + n_val), generator=gen, device=dev)
+    n, words = ci.payload.shape[0], 6 + n_val
+    inv = RC.inverse_pairs(ci.sorted_pid)
+    full, flogt, fstop = RC.composite_fwd(*args, residuals=True, **kw)
+    fpair = RC.composite_bwd(*args, g, flogt, fstop, **kw)
+    fpay = RC.reduce_pair_grads(fpair, inv, ci.tile_start, n)
+    total = torch.zeros_like(fpay)
+    slabs, per_slab, bad = [], [], []
+    lib = RC._library("composite_bwd")
+
+    def per_gaussian(dpair, sl):
+        """The whole image's reduce kernel over the slab's pair range
+        (every gaussian's K positions read), the slab reduce's yardstick."""
+        out = torch.empty((n, words), device=dev)
+        rc = lib.trase_reduce_pair_grads(
+            dpair.data_ptr(), inv.data_ptr(),
+            ci.tile_start[sl["t_lo"]:].data_ptr(),
+            ci.tile_start[sl["t_hi"]:].data_ptr(), n, inv.numel() // n, words,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    fns = {"fwd_full": lambda: RC.composite_fwd(*args, residuals=True, **kw),
+           "bwd_full": lambda: RC.composite_bwd(*args, g, flogt, fstop,
+                                                **kw),
+           "reduce_full": lambda: RC.reduce_pair_grads(fpair, inv,
+                                                       ci.tile_start, n),
+           # the slab reduce's walk over the whole image, beside the
+           # whole image's own reduce
+           "walk_full": lambda: RC.reduce_pair_grads(
+               fpair, inv, ci.tile_start, n, t_lo=0, t_hi=rows_pad * tw,
+               sorted_gauss=ci.sorted_gauss)}
+    walk_equal = bool(torch.equal(fns["walk_full"](), fpay))
+    if not walk_equal:
+        bad.append("the slab walk over the whole image != the whole reduce")
+    for r in range(MESH_SLABS):
+        sl = dict(t_lo=r * rows_local * tw, t_hi=(r + 1) * rows_local * tw)
+        rows = slice(r * rows_local * 16, (r + 1) * rows_local * 16)
+        out, logt, stop = RC.composite_fwd(*args, residuals=True, **kw, **sl)
+        torch.cuda.synchronize()
+        fstats = {}
+        ref = RC.composite_plain(*args, residuals=True, stats=fstats, **kw,
+                                 **sl)
+        fwd = {"image": float((out - ref[0]).abs().max()),
+               "logt": float((logt - ref[1]).abs().max()),
+               "stop_mismatches": int((stop != ref[2]).sum())}
+        gr = g[rows].contiguous()
+        dpair = RC.composite_bwd(*args, gr, logt, stop, **kw, **sl)
+        bstats = {}
+        ref_pair = RC.composite_bwd_plain(*args, gr, logt, stop,
+                                          stats=bstats, **kw, **sl)
+        lo, hi = int(ci.tile_start[sl["t_lo"]]), int(ci.tile_start[sl["t_hi"]])
+        dpay = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n, **sl,
+                                    sorted_gauss=ci.sorted_gauss)
+        torch.cuda.synchronize()
+        same_input = RC.reduce_pair_grads_plain(dpair, inv, ci.tile_start, n,
+                                                **sl)
+        pg_equal = bool(torch.equal(per_gaussian(dpair, sl), dpay))
+        idx = ci.sorted_gauss[lo:hi].long()
+        prows = dpair[lo:hi].contiguous()
+        acc = torch.zeros((n, words), device=dev)
+        chain = RC.reduce_pair_grads_plain(ref_pair, inv, ci.tile_start, n,
+                                           **sl)
+        row = {"slab": r, **sl, "pairs": hi - lo, "fwd": fwd,
+               "bwd_rel": group_rel(dpair[lo:hi], ref_pair[lo:hi], words),
+               "pair_rows_equal_whole": bool(torch.equal(dpair[lo:hi],
+                                                         fpair[lo:hi])),
+               "reduce_max_abs_diff": float((dpay - same_input).abs().max()),
+               "reduce_equal_per_gaussian": pg_equal,
+               "per_gaussian_rel": group_rel(dpay, chain, words),
+               "evaluated": fstats["evaluated"],
+               "contributing": fstats["contributing"],
+               "bwd_evaluated": bstats["evaluated"],
+               "bwd_counted": bstats["counted"]}
+        if any(fwd.values()):
+            bad.append(f"slab {r} forward")
+        if not max(row["bwd_rel"].values()) <= BWD_TOL or not max(
+                row["per_gaussian_rel"].values()) <= BWD_TOL:
+            bad.append(f"slab {r} backward")
+        if not row["pair_rows_equal_whole"] or row["reduce_max_abs_diff"] \
+                or not pg_equal:
+            bad.append(f"slab {r} pair rows or reduce")
+        # the slab's bounds, counted as compare / compare_bwd count them
+        pix = (sl["t_hi"] - sl["t_lo"]) * 256
+        fbytes = ((hi - lo) * (4 * kpay.shape[1] + 4)
+                  + 4 * pix * (1 + n_val) + 8 * pix)
+        fops = 16 * fstats["evaluated"] + (8 + 2 * n_val) * fstats[
+            "contributing"]
+        bbytes = ((hi - lo) * (4 * kpay.shape[1] + 4 + 4 * words)
+                  + 4 * pix * (1 + n_val) + 8 * pix)
+        bops = 16 * bstats["evaluated"] + (35 + 4 * n_val) * bstats[
+            "counted"]
+        # the reduce: the slab's rows and their gaussians read, the
+        # output written
+        rbytes = (hi - lo) * (4 + 4 * words) + n * 4 * words
+        row.update(**bound("fwd", fbytes, fops), **bound("bwd", bbytes, bops),
+                   **bound("reduce", rbytes, (hi - lo) * words))
+        if r == 0:
+            row["fwd_plain_ms"] = cuda_ms(lambda: RC.composite_plain(
+                *args, residuals=True, **kw, **sl), 1)
+            row["bwd_plain_ms"] = cuda_ms(lambda: RC.composite_bwd_plain(
+                *args, gr, logt, stop, **kw, **sl), 1)
+            row["reduce_plain_ms"] = cuda_ms(
+                lambda: RC.reduce_pair_grads_plain(dpair, inv, ci.tile_start,
+                                                   n, **sl), 3)
+        fns[f"fwd_slab{r}"] = (lambda sl=sl: RC.composite_fwd(
+            *args, residuals=True, **kw, **sl))
+        fns[f"bwd_slab{r}"] = (lambda sl=sl, gr=gr, logt=logt, stop=stop:
+                               RC.composite_bwd(*args, gr, logt, stop, **kw,
+                                                **sl))
+        fns[f"reduce_slab{r}"] = (lambda sl=sl, dpair=dpair:
+                                  RC.reduce_pair_grads(
+                                      dpair, inv, ci.tile_start, n, **sl,
+                                      sorted_gauss=ci.sorted_gauss))
+        fns[f"pergauss_slab{r}"] = (lambda sl=sl, dpair=dpair:
+                                    per_gaussian(dpair, sl))
+        # the same sums as one PyTorch call (a yardstick only)
+        fns[f"index_add_slab{r}"] = (lambda acc=acc, idx=idx, prows=prows:
+                                     acc.index_add_(0, idx, prows))
+        total += dpay
+        slabs.append((out, logt, stop))
+        per_slab.append(row)
+    concat = [torch.cat([s[i] for s in slabs]) for i in range(3)]
+    concat_equal = {"image": bool(torch.equal(concat[0], full)),
+                    "logt": bool(torch.equal(concat[1], flogt)),
+                    "stop": bool(torch.equal(concat[2], fstop))}
+    sum_rel = group_rel(total, fpay, words)
+    if not all(concat_equal.values()):
+        bad.append(f"slabs concatenated != whole image: {concat_equal}")
+    if not max(sum_rel.values()) <= SLAB_SUM_TOL:
+        bad.append(f"slab gradients summed != whole image's: {sum_rel}")
+    t = repeated_ms(fns)
+    for row in per_slab:
+        for kern in ("fwd", "bwd", "reduce", "pergauss", "index_add"):
+            tk = t[f"{kern}_slab{row['slab']}"]
+            row[f"{kern}_ms"], row[f"{kern}_ms_repeats"] = tk["median"], tk
+    out = {"phase": "mesh-slabs", "scene": label, "n_val": n_val,
+           "n_packed": n_packed, "with_color": with_color,
+           "slabs": MESH_SLABS, "rows_pad": rows_pad, "tw": tw,
+           "h_pad": h_pad, "pairs": int(ci.tile_start[-1]),
+           "concat_equal_whole": concat_equal,
+           "slab_sum_vs_whole_rel": sum_rel,
+           "whole_ms": {k: t[f"{k}_full"]["median"]
+                        for k in ("fwd", "bwd", "reduce", "walk")},
+           "whole_ms_repeats": {k: t[f"{k}_full"]
+                                for k in ("fwd", "bwd", "reduce", "walk")},
+           "walk_whole_equal": walk_equal,
+           "per_slab": per_slab,
+           "tol": {"fwd": FWD_TOL, "bwd_rel": BWD_TOL,
+                   "slab_sum_rel": SLAB_SUM_TOL}}
+    out["card"] = nvidia_smi()
+    emit(out)
+    if bad:
+        raise AssertionError(f"slab mode on {label} n_val={n_val} "
+                             f"n_packed={n_packed}: {bad}")
+    return out
+
+
+def peak_of(fn, into: dict, name: str):
+    """fn()'s result; into[name] = the device memory it allocated at its
+    peak beyond what was allocated before it, and that baseline (MiB)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    into[name] = {"peak_above_base": (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 20,
+                  "base": base / 2 ** 20}
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def states_rel(a, b, parts) -> float:
+    """The largest difference between two TrainStates' gaussian fields
+    ("params") or Adam moments ("opt") over each tensor's largest
+    magnitude."""
+    worst = 0.0
+    for part in parts:
+        for x, y in zip(getattr(a, part), getattr(b, part)):
+            pairs = zip(x[:2], y[:2]) if part == "opt" else [(x, y)]
+            for u, v in pairs:
+                d = float((u - v).abs().max())
+                worst = max(worst, d / (float(v.abs().max()) + 1e-30))
+    return worst
+
+
+def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
+    """The multi-device path on one card. 1: the slab kernels at the bench
+    scene (slab_compare, GAUSSIAN and FEATURE layouts). 2 (counted, the
+    main path, each run counted on its own): a world of one over NCCL in
+    this process: one sharded GAUSSIAN and one FEATURE (smoothing on) step
+    at the bench scene, against the single-device steps from the same
+    state (loss equal, params and moments within MESH_STEP_TOL), then
+    timed beside them with CUDA events, with the device's idle share and
+    each step's peak memory; then the train CLI with --mesh 1 as torchrun
+    starts it (WORLD_SIZE=1, a TCP store on localhost) on the 64x64
+    dataset through both phases, its launches exactly one of each slab
+    kernel a step, its peak memory beside the same flags' on one device,
+    its checkpoint loaded in a single-device Trainer bit for bit. 3: the
+    same CLI spawning its rank (a subprocess), and --mesh 2, which must
+    fail at once naming the device count."""
+    from trase_tpu_torch import train as train_cli
+    from trase_tpu_torch.config import OptimizationParams
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.losses.contrastive import sample_pixels_and_masks
+    from trase_tpu_torch.ops.knn import build_feature_smooth_map, smooth_slots
+    from trase_tpu_torch.parallel import sharded as S
+    from trase_tpu_torch.parallel.world import close_world, init_world
+
+    rows = []
+    with torch.no_grad():
+        bproj, bfeats = projected(params, aux, cam, deltas(params, net, 0.5),
+                                  True)
+        rows.append(slab_compare("bench", bproj, None, HEIGHT, WIDTH, cfg,
+                                 False, True))
+        rows.append(slab_compare("bench", bproj, bfeats, HEIGHT, WIDTH, cfg,
+                                 True, False))
+    del bproj, bfeats
+
+    lr_at = TT.make_learning_rate_schedules(OptimizationParams())
+    lrs = lr_at(12000)
+    gt = torch.zeros((3, HEIGHT, WIDTH), device=dev)
+    bg = torch.zeros(3, device=dev)
+    masks, valid = feature_masks(dev)
+    init = train_state(params, aux, net)
+    with torch.no_grad():
+        smooth_map = build_feature_smooth_map(init.params.xyz, SMOOTH_K)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sample = sample_pixels_and_masks(gen, masks, valid, FEATURE_PIXELS,
+                                     FEATURE_MASKS)
+    perm = smooth_slots(SMOOTH_K, generator=gen)
+    gkw = dict(sh_degree=3, use_deform=True, is_6dof=False,
+               lambda_dssim=0.2, lambda_reg_deform=0.0)
+    fkw = dict(sh_degree=3, use_deform=True, is_6dof=False,
+               contrastive_mode="soft", rfn=1.0, positive_th=0.75,
+               negative_th=0.5, num_sampled_pixels=FEATURE_PIXELS,
+               num_sampled_masks=FEATURE_MASKS)
+    fargs = (masks, valid, 0.5, lrs, bg, smooth_map)
+    fopts = dict(sample=sample, smooth_perm=perm)
+
+    def single_g():
+        return TT.gaussian_phase_step(init, cam, gt, 0.5, 0.0, lrs, bg,
+                                      deform_net=net, raster_cfg=cfg, **gkw)
+
+    def single_f():
+        return TT.feature_phase_step(init, cam, *fargs, deform_net=net,
+                                     raster_cfg=cfg, **fkw, **fopts)
+
+    peak = {}
+    ref_g = peak_of(single_g, peak, "gaussian_single")
+    ref_f = peak_of(single_f, peak, "feature_single")
+    ms = {"gaussian_single": cuda_ms(single_g, 5),
+          "feature_single": cuda_ms(single_f, 5)}
+    world = init_world(1, 0, dev.type, store_dir=os.path.join(root, "mesh1"))
+    try:
+        local = S.shard_train_state(init, world)
+        gstep = S.make_sharded_gaussian_step(world, net, raster_cfg=cfg,
+                                             **gkw)
+        fstep = S.make_sharded_feature_step(world, net, raster_cfg=cfg,
+                                            **fkw)
+
+        def sharded_g():
+            return gstep(local, cam, gt, 0.5, 0.0, lrs, bg)
+
+        def sharded_f():
+            return fstep(local, cam, *fargs, **fopts)
+
+        # the main path's counted run: one step of each phase
+        reset_counts()
+        got_g = peak_of(sharded_g, peak, "gaussian_sharded")
+        got_f = peak_of(sharded_f, peak, "feature_sharded")
+        step_launches = layout_counts()
+        ms["gaussian_sharded"] = cuda_ms(sharded_g, 5)
+        ms["feature_sharded"] = cuda_ms(sharded_f, 5)
+        prof = {"gaussian": profile_frames(sharded_g, frames=3),
+                "feature": profile_frames(sharded_f, frames=3)}
+    finally:
+        close_world()
+    want = {k: 1 for k in MESH_SLAB_KEYS}
+    assert step_launches == want, (step_launches, want)
+    checks = {}
+    for name, (gs, gm), (rs, rm) in (("gaussian", got_g, ref_g),
+                                     ("feature", got_f, ref_f)):
+        checks[name] = {"loss": float(gm["loss"]),
+                        "loss_single": float(rm["loss"]),
+                        "finite": bool(gm["finite"]),
+                        "params_rel": states_rel(gs, rs, ("params",)),
+                        "moments_rel": states_rel(gs, rs, ("opt",))}
+    # the GAUSSIAN step in a world of one runs the single step's
+    # operations; the FEATURE step reads its sampled pixels through the
+    # four-tap gather where the single step resizes by products
+    g, f = checks["gaussian"], checks["feature"]
+    assert g["finite"] and f["finite"], checks
+    assert g["loss"] == g["loss_single"], g
+    assert abs(f["loss"] - f["loss_single"]) <= 1e-6 * abs(
+        f["loss_single"]), f
+    assert max(g["params_rel"], g["moments_rel"], f["moments_rel"]) \
+        <= MESH_STEP_TOL, checks
+
+    # the train CLI with --mesh 1 as torchrun starts it, counted
+    mdl = os.path.join(root, "mesh_cli")
+    flags = ["-s", src, "--iterations", str(MESH_CLI_ITERATIONS), "--eval",
+             "--warm_up", "20", "--densify_from_iter", "10",
+             "--densification_interval", "20", "--warm_up_3d_features",
+             "30", "--iterative_opt_interval", "14", "--densify_until_iter",
+             "50", "--num_sampled_pixels", "1024", "--num_sampled_masks", "3",
+             "--pairs_per_gaussian", "6", "--device", dev.type, "--quiet",
+             "--checkpoint_iterations", str(MESH_CLI_ITERATIONS),
+             "--test_iterations", str(MESH_CLI_ITERATIONS)]
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        reset_counts()
+        tr = peak_of(lambda: train_cli.main(flags + ["-m", mdl, "--mesh",
+                                                     "1"]), peak, "cli_mesh1")
+        launches, layouts = counts(), layout_counts()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    cli_s = time.perf_counter() - t0
+    assert tr.feature_calls > 0 and tr.step_calls > 0, (tr.feature_calls,
+                                                         tr.step_calls)
+    assert int(tr.skipped) == 0 and np.isfinite(tr.ema_loss), tr.ema_loss
+    # every compositor launch of the run in slab mode: one of each kernel
+    # per step (the FEATURE steps' backward full or values-only), plus
+    # the evaluation's forwards without residuals
+    gs, fs = tr.step_calls, tr.feature_calls
+    want = {"composite_fwd/4/0/1/1/slab": gs,
+            "composite_bwd/4/0/1/0/slab": gs,
+            "reduce_pair_grads/10/slab": gs,
+            "composite_fwd/32/16/0/1/slab": fs,
+            "reduce_pair_grads/38/slab": fs}
+    got = {k: layouts.get(k, 0) for k in want}
+    bwd_f = layouts.get("composite_bwd/32/16/0/0/slab", 0) + layouts.get(
+        "composite_bwd/32/16/0/1/slab", 0)
+    unslabbed = {k: v for k, v in layouts.items() if not k.endswith("/slab")
+                 and k.split("/")[0] in ("composite_fwd", "composite_bwd",
+                                         "reduce_pair_grads")}
+    assert got == want and bwd_f == fs and not unslabbed, (got, want, bwd_f,
+                                                          unslabbed, layouts)
+    # the same flags on one device, for its peak memory and time
+    t0 = time.perf_counter()
+    peak_of(lambda: train_cli.main(flags + ["-m", mdl + "_one"]), peak,
+            "cli_single")
+    cli_single_s = time.perf_counter() - t0
+    # its checkpoint in a single-device Trainer, bit for bit
+    ckpt = os.path.join(mdl, f"chkpnt{MESH_CLI_ITERATIONS}.pkl")
+    single = train_cli.main(flags + ["-m", os.path.join(root, "mesh_single"),
+                                     "--start_checkpoint", ckpt])
+    with open(ckpt, "rb") as f:
+        saved = _flat_state(pickle.load(f)["state"])
+    loaded = _flat_state(TT.train_state_to_numpy(single.state))
+    diff = [k for k, v in saved.items()
+            if v.dtype != loaded[k].dtype or not np.array_equal(v, loaded[k])]
+    assert sorted(saved) == sorted(loaded) and not diff, diff
+
+    # the spawn path, and a world larger than the machine
+    cmd = [sys.executable, "-m", "trase_tpu_torch.train"]
+    t0 = time.perf_counter()
+    spawn = subprocess.run(cmd + flags + ["-m", mdl + "_spawn", "--mesh",
+                                          "1"], capture_output=True,
+                           text=True, timeout=300)
+    spawn_s = time.perf_counter() - t0
+    assert spawn.returncode == 0 and "Training complete" in spawn.stdout, \
+        spawn.stderr[-2000:]
+    t0 = time.perf_counter()
+    two = subprocess.run(cmd + flags + ["-m", mdl + "_two", "--mesh", "2"],
+                         capture_output=True, text=True, timeout=120)
+    two_s = time.perf_counter() - t0
+    named = "needs 2 devices" in two.stderr and "has 1" in two.stderr
+    assert two.returncode != 0 and named, (two.returncode, two.stderr)
+    row = {"phase": "mesh", "world": 1, "backend": world.backend,
+           "card": nvidia_smi(),
+           "step_ms": ms, "checks": checks, "tol": MESH_STEP_TOL,
+           "peak_mib": peak,
+           "profile": {k: {"wall_ms": v["wall_ms"],
+                           "device_busy_ms": v["device_busy_ms"],
+                           "idle_share": v["idle_share"],
+                           "top": v["top"][:6]} for k, v in prof.items()},
+           "step_layouts": step_launches,
+           "cli": {"iterations": MESH_CLI_ITERATIONS, "seconds": cli_s,
+                   "single_seconds": cli_single_s,
+                   "feature_steps": tr.feature_calls,
+                   "gaussian_steps": tr.step_calls,
+                   "ema_loss": tr.ema_loss, "checkpoint_loads_single": True},
+           "cli_spawn_seconds": spawn_s,
+           "mesh2": {"returncode": two.returncode, "seconds": two_s,
+                     "error": two.stderr.strip().splitlines()[-1]},
+           "launches": launches}
+    return row, rows, launches, layouts, step_launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2645,6 +3137,13 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
         tmp.name, seg_dir, os.path.join(tmp.name, "benchmark"), it, dev)
     emit(lp)
     emit(losses_3d_phase(params, net, dev))
+
+    # 7e. the multi-device path on one card: the slab kernels, a world of
+    # one over NCCL, the --mesh CLI
+    (row, slab_rows, launches["mesh"], layouts["mesh_cli"],
+     layouts["mesh_steps"]) = mesh_phase(
+        params, aux, cam, net, cfg, dev, tmp.name, src)
+    emit(row)
     tmp.cleanup()
 
     # 8. where a frame's and a step's device time goes
@@ -2672,17 +3171,19 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
 
     # 9. kernels
     emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                      time.perf_counter() - t_start))
+                      slab_rows, time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 
 
 def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                 seconds):
+                 slab_rows, seconds):
     """The kernels line: one object per kernel with its headline numbers
     (the GAUSSIAN layout, as in earlier runs) and one variant per
-    instantiation, with its launches summed over the paths' counts."""
+    instantiation, with its launches summed over the paths' counts; the
+    slab mode's variants (the mesh phase) carry each slab's time beside
+    the whole image's, their sum, and the slabs' summed bound."""
     def launched(key):  # over every path (the FEATURE step's per arm)
         flat = [c for lc in layouts.values()
                 for c in (lc.values() if "densify_stats" in lc else [lc])]
@@ -2752,6 +3253,40 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                 bound_by=r["reduce_bound_by"],
                 library_ms=r["reduce_library_ms"],
                 ms_repeats=r["reduce_ms_repeats"]))
+    for r in slab_rows:
+        lay = f"{r['n_val']}/{r['n_packed']}/{int(r['with_color'])}"
+        ps = r["per_slab"]
+        same = dict(n_val=r["n_val"], n_packed=r["n_packed"],
+                    with_color=r["with_color"], slab=True,
+                    slabs=r["slabs"], whole_image_rows=r["h_pad"])
+
+        def slab_variant(kern, key, **extra):
+            return dict(same, launches=launched(key), **extra,
+                        ms=sum(p[f"{kern}_ms"] for p in ps),
+                        ms_per_slab=[p[f"{kern}_ms"] for p in ps],
+                        whole_image_ms=r["whole_ms"][kern],
+                        plain_ms=ps[0][f"{kern}_plain_ms"],
+                        plain_ms_of="slab 0",
+                        bound_ms=sum(p[f"{kern}_bound_ms"] for p in ps),
+                        bound_by=ps[0][f"{kern}_bound_by"])
+
+        fwd_variants.append(slab_variant(
+            "fwd", f"composite_fwd/{lay}/1/slab", residuals=True,
+            max_abs_err=max(max(p["fwd"]["image"], p["fwd"]["logt"])
+                            for p in ps)))
+        bwd_variants.append(slab_variant(
+            "bwd", f"composite_bwd/{lay}/0/slab", values_only=False,
+            max_rel_err=max(max(p["bwd_rel"].values()) for p in ps),
+            slab_sum_vs_whole_rel=max(r["slab_sum_vs_whole_rel"].values())))
+        words = 6 + r["n_val"]
+        red_variants.append(slab_variant(
+            "reduce", f"reduce_pair_grads/{words}/slab", words=words,
+            max_abs_err=max(p["reduce_max_abs_diff"] for p in ps),
+            library_ms=sum(p["index_add_ms"] for p in ps),
+            library_ms_per_slab=[p["index_add_ms"] for p in ps],
+            library="index_add_ over the slab's pairs",
+            per_gaussian_ms=sum(p["pergauss_ms"] for p in ps),
+            per_gaussian_ms_per_slab=[p["pergauss_ms"] for p in ps]))
     fwd_err = max(max(r["max_abs_diff"].values()) for r in rows)
     fwd_err = max([fwd_err] + [max(r["fwd_residuals"]["image"],
                                    r["fwd_residuals"]["logt"])

@@ -924,3 +924,111 @@ def test_lpips_on_card_matches_cpu(tmp_path):
                                  torch.from_numpy(b).to(dev)))
     assert np.isfinite(vals["cuda"]) and vals["cuda"] > 0
     assert abs(vals["cuda"] - vals["cpu"]) <= 1e-4, vals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(4, 0, True), (32, 16, False)],
+                         ids=["rgb_depth", "features_packed"])
+@pytest.mark.parametrize("slabs", [2, 3])
+def test_slab_mode_matches_plain_and_whole(layout, slabs):
+    """The three kernels' slab mode on a ragged image (its 5 tile rows
+    padded to a multiple of the slab count): each slab's forward, image
+    and residuals, bit for bit against composite_plain's slab and,
+    concatenated, against the whole image; each slab's backward rows bit
+    for bit against the whole image's and within 1e-4 of each column
+    group's scale of the plain version's; each slab's reduce bit for bit
+    against its plain version on the same rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_val, n_packed, color = layout
+    H, W = 72, 100
+    th, tw = -(-H // 16), -(-W // 16)
+    rows_local = -(-th // slabs)
+    h_pad = rows_local * slabs * 16
+    proj, feats = _scene(300, H, W, 0 if color else 32, "cuda")
+    ci = TRC.composite_inputs(proj, feats, h_pad, W, TR.RasterConfig(
+        pairs_per_gaussian=16, pack_features=bool(n_packed)), color)
+    kpay = (TRC.pack_feature_words(ci.payload, n_val, n_packed, color)
+            if n_packed else ci.payload)
+    args = (kpay, ci.sorted_gauss, ci.tile_start, h_pad, W, n_val, n_packed)
+    whole = TRC.composite_fwd(*args, residuals=True, with_color=color)
+    g = torch.randn((h_pad, W, 1 + n_val), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2))
+    wpair = TRC.composite_bwd(*args, g, whole[1], whole[2], with_color=color)
+    inv = TRC.inverse_pairs(ci.sorted_pid)
+    n = ci.payload.shape[0]
+    parts = []
+    for r in range(slabs):
+        sl = dict(t_lo=r * rows_local * tw, t_hi=(r + 1) * rows_local * tw)
+        out = TRC.composite_fwd(*args, residuals=True, with_color=color,
+                                **sl)
+        ref = TRC.composite_plain(*args, residuals=True, with_color=color,
+                                  **sl)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+        gr = g[r * rows_local * 16:(r + 1) * rows_local * 16].contiguous()
+        dpair = TRC.composite_bwd(*args, gr, out[1], out[2],
+                                  with_color=color, **sl)
+        lo = int(ci.tile_start[sl["t_lo"]])
+        hi = int(ci.tile_start[sl["t_hi"]])
+        assert torch.equal(dpair[lo:hi], wpair[lo:hi])
+        plain = TRC.composite_bwd_plain(*args, gr, out[1], out[2],
+                                        with_color=color, **sl)
+        for a, b in ((0, 2), (2, 5), (5, 6), (6, 6 + n_val)):
+            scale = float(plain[lo:hi, a:b].abs().max()) + 1e-30
+            assert float((dpair[lo:hi, a:b] - plain[lo:hi, a:b]).abs().max()
+                         ) <= 1e-4 * scale
+        dpay = TRC.reduce_pair_grads(dpair, inv, ci.tile_start, n, **sl,
+                                     sorted_gauss=ci.sorted_gauss)
+        assert torch.equal(dpay, TRC.reduce_pair_grads_plain(
+            dpair, inv, ci.tile_start, n, **sl))
+        parts.append(out)
+    for i in range(3):
+        assert torch.equal(torch.cat([p[i] for p in parts]), whole[i])
+
+
+@pytest.mark.cuda
+def test_world_of_one_steps_equal_single_on_card(tmp_path):
+    """A world of one over NCCL: the sharded GAUSSIAN step equals the
+    single-device step bit for bit (the same operations: one rank's
+    gathers copy, its slab is the whole image; without the deform
+    regulariser, whose global mean the sharded step takes as a sum over
+    the elements divided by their count)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.engine import trainer as TT
+    from trase_tpu_torch.models import gaussians as G
+    from trase_tpu_torch.models.deform import init_deform, make_deform_network
+    from trase_tpu_torch.parallel import sharded as S
+    from trase_tpu_torch.parallel.world import close_world, init_world
+    from trase_tpu_torch.renderer import make_render_camera
+
+    rng = np.random.default_rng(1)
+    pts = (rng.normal(size=(400, 3)) * 0.5).astype(np.float32)
+    pts[:, 2] += 3.0
+    params, aux = G.from_point_cloud(pts, rng.uniform(size=(400, 3)).astype(
+        np.float32), sh_degree=1, capacity=512, device="cuda")
+    net = init_deform(make_deform_network(device="cuda"),
+                      torch.Generator().manual_seed(0))
+    state = TT.init_train_state(params, aux, TT.deform_tensors(net))
+    cam = make_render_camera(np.eye(3), np.zeros(3), 0.8, 0.8, 72, 100,
+                             device="cuda")
+    gt = torch.rand((3, 72, 100), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    lrs = TT.LearningRates(*[1e-3] * 8)
+    kw = dict(sh_degree=1, use_deform=True, is_6dof=False, lambda_dssim=0.2,
+              lambda_reg_deform=0.0,
+              raster_cfg=TR.RasterConfig(pairs_per_gaussian=16))
+    single, sm = TT.gaussian_phase_step(state, cam, gt, 0.5, 0.0, lrs,
+                                        torch.zeros(3, device="cuda"),
+                                        deform_net=net, **kw)
+    world = init_world(1, 0, "cuda", store_dir=str(tmp_path / "store"))
+    try:
+        step = S.make_sharded_gaussian_step(world, net, **kw)
+        new, m = step(S.shard_train_state(state, world), cam, gt, 0.5, 0.0,
+                      lrs, torch.zeros(3, device="cuda"))
+    finally:
+        close_world()
+    assert float(m["loss"]) == float(sm["loss"])
+    for a, b in zip(TT.float_tensors(new), TT.float_tensors(single)):
+        assert torch.equal(a, b)

@@ -75,10 +75,29 @@
 //    hold a gaussian's K sorted positions inv[g K + k] (inv is the inverse
 //    of the sort's permutation) load them once, one lane each, and broadcast
 //    them by shuffles; words / 2 lanes per gaussian then sum its rows a
-//    float2 each, in k order, reading 0 for positions at or past
-//    tile_start[num_tiles] (the invalid-pair sentinel: the TPU's win_range
-//    mask), and write the (N, 6 + NV) per-gaussian payload gradient. The
-//    sums are the plain version's, in its order: bit for bit.
+//    float2 each, in k order, reading 0 for positions outside the pair
+//    range [lo, hi) (the TPU's win_range mask: for the whole image [0,
+//    tile_start[num_tiles]), which leaves out the invalid pairs), and write
+//    the (N, 6 + NV) per-gaussian payload gradient. The lane that loads a
+//    position tests it against the range once, before it is shuffled to
+//    the lanes that read the row. The sums are the plain version's, in its
+//    order: bit for bit.
+// Slab mode (the multi-device steps, trase_tpu_torch/parallel): the
+//    backward walks a slab of whole tile rows, given as the forward's slab
+//    is (its own tile_start, cotangent rows and residuals, and its first
+//    tile row ty0, from which alone the splat's origin is taken), and so
+//    writes its own pairs' rows only; the reduce then sums the slab's pair
+//    range [tile_start[t_lo], tile_start[t_hi]) alone, so the ranks'
+//    partial payload gradients sum to the whole image's. Counterpart of
+//    `g_lo` / `rows_local` in `_backward_impl` (rasterize_pallas.py:
+//    1095-1119) and of `win_range` in `_transpose_slots` (:1222-1259).
+//    The whole image is the slab of every tile: one backward
+//    instantiation serves both. The slab's reduce walks the slab's own
+//    pairs (reduce_slab_pairs_kernel): reduce_pair_grads_kernel over a
+//    slab's range reads every gaussian's K positions and writes every
+//    row, so each of 4 slabs cost 0.85-0.9 of the whole image's reduce;
+//    the walk costs a slab 0.4-0.6 of it at 38 words, and as much as
+//    reduce_pair_grads_kernel over the range at 10.
 //
 // Payload layouts (as the forward reads them, composite_fwd.cu): values
 // [rgb 3, depth] (the backward has no instantiation for rgb with features)
@@ -104,7 +123,8 @@
 //   all-reduce per word and pair, the design the products replaced, put
 //   it at 60-70 % of the kernel's time);
 //   reduce bytes: inv (4 B per pair), each valid gradient row once, the
-//   output once; work: K (6 + NV) adds per gaussian, so bytes bound it.
+//   output once; work: K (6 + NV) adds per gaussian, so bytes bound it. A
+//   slab's: its pairs' gaussians and rows, the output once;
 //   chip_smoke.py reckons both bounds from its run's counts.
 //
 // Shared memory is dynamic (cudaFuncSetAttribute at each launch): the 8
@@ -191,8 +211,8 @@ __global__ void __launch_bounds__(
     kPix, (Layout<NV, NPACK, WITH_COLOR, VALUES_ONLY>::kMinBlocks))
 composite_bwd_kernel(const float* __restrict__ payload,
                      const int* __restrict__ sorted_gauss,
-                     const int* __restrict__ tile_start, int tw, int height,
-                     int width, const float* __restrict__ grad_out,
+                     const int* __restrict__ tile_start, int tw, int ty0,
+                     int height, int width, const float* __restrict__ grad_out,
                      const float* __restrict__ res_logt,
                      const int* __restrict__ res_stop, float log_alpha_max,
                      float log_alpha_eps, float* __restrict__ dpair,
@@ -225,7 +245,7 @@ composite_bwd_kernel(const float* __restrict__ payload,
   const float fx = (float)lx;
   const float fy = (float)ly;
   const float ox = (float)(tx * kTile);
-  const float oy = (float)(ty * kTile);
+  const float oy = (float)((ty0 + ty) * kTile);  // in the image
   const int start = tile_start[tile];
   const int end = tile_start[tile + 1];
 
@@ -464,7 +484,8 @@ composite_bwd_kernel(const float* __restrict__ payload,
 __global__ void __launch_bounds__(256)
 reduce_pair_grads_kernel(const float* __restrict__ dpair,
                          const int* __restrict__ inv,
-                         const int* __restrict__ n_valid_at, int n, int k,
+                         const int* __restrict__ lo_at,
+                         const int* __restrict__ hi_at, int n, int k,
                          int words, int per_warp,
                          float* __restrict__ dpayload) {
   const int lane = threadIdx.x & 31;
@@ -479,19 +500,21 @@ reduce_pair_grads_kernel(const float* __restrict__ dpair,
   const int lg = lane / chunk;  // the gaussian whose position lane loads
   const int lk = lane - lg * chunk;
   const bool loads = lg < per_warp && g0 + lg < n;
-  const int n_valid = *n_valid_at;
+  const int lo = *lo_at;
+  const unsigned span = (unsigned)(*hi_at - lo);
   const float2* rows = reinterpret_cast<const float2*>(dpair);
   float2 s = make_float2(0.f, 0.f);
   for (int k0 = 0; k0 < k; k0 += chunk) {
     const int len = min(chunk, k - k0);
-    const int mine = loads && lk < len ? inv[(g0 + lg) * k + k0 + lk] : 0;
+    int mine = loads && lk < len ? inv[(g0 + lg) * k + k0 + lk] : 0;
+    if ((unsigned)(mine - lo) >= span) mine = -1;  // outside the range
     for (int r0 = 0; r0 < len; r0 += 8) {
       float2 v[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u) {  // the loads first, all in flight
         const int pos = __shfl_sync(kFull, mine, (gi * chunk + r0 + u) & 31);
         v[u] = make_float2(0.f, 0.f);
-        if (active && r0 + u < len && pos < n_valid)
+        if (active && r0 + u < len && pos >= 0)
           v[u] = rows[(size_t)pos * half + c2];
       }
 #pragma unroll
@@ -507,10 +530,112 @@ reduce_pair_grads_kernel(const float* __restrict__ dpair,
     reinterpret_cast<float2*>(dpayload)[(g0 + gi) * half + c2] = s;
 }
 
+// Slab mode's reduce: the slab's pairs alone, where reduce_pair_grads_kernel
+// reads every gaussian's K positions for every slab. dpayload is zeroed
+// first. Each warp takes 32 consecutive sorted positions p in [lo, hi) per
+// round (grid-stride); lane l's pair, of gaussian g = sorted_gauss[p], leads
+// g's sum when none of g's positions before p's own (inv[g K + j] == p)
+// lies in the range. The warp's leaders are summed as
+// reduce_pair_grads_kernel sums a gaussian, words / 2 lanes each, a float2
+// of the row per lane (coalesced rows), per_warp groups of lanes at a time
+// and kLeads leaders per group with their loads in flight together: every
+// slot in k order, reading 0 outside the range. These are the additions of
+// reduce_pair_grads_kernel, so the two agree bit for bit. Measured on the
+// bench scene's 4 slabs at 38 words (PERF.md, PR 11): 0.024-0.037 ms a
+// slab; one leader per group at a time took 0.037-0.049 (about ten
+// latency chains one after another), one thread per leader with its row
+// in registers 0.022-0.053 (each load instruction touching 32 rows), and
+// reduce_pair_grads_kernel over the slab's range 0.050-0.052, with four
+// gaussians a group in flight 0.039-0.048.
+constexpr int kLeads = 4;
+
+__global__ void __launch_bounds__(256)
+reduce_slab_pairs_kernel(const float* __restrict__ dpair,
+                         const int* __restrict__ sorted_gauss,
+                         const int* __restrict__ inv,
+                         const int* __restrict__ lo_at,
+                         const int* __restrict__ hi_at, int k, int words,
+                         int per_warp, float* __restrict__ dpayload) {
+  __shared__ int lead_g[8][32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int lo = *lo_at;
+  const int hi = *hi_at;
+  const unsigned span = (unsigned)(hi - lo);
+  const int half = words >> 1;
+  const int gi = lane / half;  // this lane's group
+  const int c2 = lane - gi * half;  // and its float2 of the row
+  const float2* rows = reinterpret_cast<const float2*>(dpair);
+  float2* out = reinterpret_cast<float2*>(dpayload);
+  const int64_t stride = (int64_t)gridDim.x * (blockDim.x >> 5) * 32;
+  for (int64_t base = lo + ((int64_t)blockIdx.x * (blockDim.x >> 5) + w) * 32;
+       base < hi; base += stride) {
+    const int64_t p = base + lane;
+    int g = 0;
+    bool lead = false;
+    if (p < hi) {
+      g = sorted_gauss[p];
+      const int* slots = inv + (int64_t)g * k;
+      lead = true;
+      for (int j = 0; j < k; ++j) {
+        const int q = slots[j];
+        if (q == p) break;
+        if ((unsigned)(q - lo) < span) {
+          lead = false;
+          break;
+        }
+      }
+    }
+    const unsigned leaders = __ballot_sync(kFull, lead);
+    if (lead) lead_g[w][__popc(leaders & ((1u << lane) - 1u))] = g;
+    __syncwarp();
+    const int nl = __popc(leaders);
+    for (int r0 = 0; r0 < nl; r0 += per_warp * kLeads) {
+      int gg[kLeads];
+      float2 s[kLeads];
+#pragma unroll
+      for (int l = 0; l < kLeads; ++l) {
+        const int r = r0 + l * per_warp + gi;
+        gg[l] = gi < per_warp && r < nl ? lead_g[w][r] : -1;
+        s[l] = make_float2(0.f, 0.f);
+      }
+      for (int jb = 0; jb < k; jb += 8) {
+        int q[kLeads][8];
+#pragma unroll
+        for (int l = 0; l < kLeads; ++l)  // the positions, then the rows
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            q[l][u] = gg[l] >= 0 && jb + u < k
+                          ? inv[(int64_t)gg[l] * k + jb + u] : lo - 1;
+        float2 v[kLeads][8];
+#pragma unroll
+        for (int l = 0; l < kLeads; ++l)
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            v[l][u] = (unsigned)(q[l][u] - lo) < span
+                          ? rows[(size_t)q[l][u] * half + c2]
+                          : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int l = 0; l < kLeads; ++l)  // the sums, in k order
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (jb + u < k) {
+              s[l].x += v[l][u].x;
+              s[l].y += v[l][u].y;
+            }
+      }
+#pragma unroll
+      for (int l = 0; l < kLeads; ++l)
+        if (gg[l] >= 0) out[(size_t)gg[l] * half + c2] = s[l];
+    }
+    __syncwarp();  // the leaders read before the next round's
+  }
+}
+
 template <int NV, int NPACK, bool COLOR, bool VONLY>
 int launch_bwd(int num_tiles, cudaStream_t s, const float* payload,
                const int* sorted_gauss, const int* tile_start, int tw,
-               int height, int width, const float* grad_out,
+               int ty0, int height, int width, const float* grad_out,
                const float* res_logt, const int* res_stop,
                float log_alpha_max, float log_alpha_eps, float* dpair,
                float* logt_first) {
@@ -520,7 +645,7 @@ int launch_bwd(int num_tiles, cudaStream_t s, const float* payload,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<num_tiles, kPix, bytes, s>>>(
-      payload, sorted_gauss, tile_start, tw, height, width, grad_out,
+      payload, sorted_gauss, tile_start, tw, ty0, height, width, grad_out,
       res_logt, res_stop, log_alpha_max, log_alpha_eps, dpair, logt_first);
   return (int)cudaGetLastError();
 }
@@ -529,13 +654,19 @@ int launch_bwd(int num_tiles, cudaStream_t s, const float* payload,
 
 // C interfaces for ctypes. Each returns the launch's cudaError_t
 // (0 = success), or cudaErrorInvalidValue for a value layout without an
-// instantiation. logt_first (num_tiles * 256) is optional: when not null it
+// instantiation. The backward walks num_tiles tiles of a tw-wide grid whose
+// first tile row is image row ty0 * 16 (a slab, as the forward's; the
+// whole image is ty0 = 0), tile_start pointing at the first one's entry,
+// grad_out (height, width, 1 + n_val) and the residuals the slab's; it
+// writes the rows of dpair at the slab's sorted pair positions only.
+// logt_first (num_tiles * 256) is optional: when not null it
 // receives each pixel's log T reconstructed back to the tile's first pair,
 // which is 0 up to rounding (a check of the reverse walk).
 extern "C" int trase_composite_bwd(const float* payload,
                                    const int* sorted_gauss,
                                    const int* tile_start, int num_tiles,
-                                   int tw, int height, int width, int n_val,
+                                   int tw, int ty0, int height, int width,
+                                   int n_val,
                                    int n_packed, int with_color,
                                    int values_only, const float* grad_out,
                                    const float* res_logt, const int* res_stop,
@@ -548,9 +679,9 @@ extern "C" int trase_composite_bwd(const float* payload,
   if (n_val == NV && n_packed == NPACK && (with_color != 0) == COLOR &&  \
       (values_only != 0) == VONLY)                                         \
     return launch_bwd<NV, NPACK, COLOR, VONLY>(                            \
-        num_tiles, s, payload, sorted_gauss, tile_start, tw, height, width, \
-        grad_out, res_logt, res_stop, log_alpha_max, log_alpha_eps, dpair, \
-        logt_first);
+        num_tiles, s, payload, sorted_gauss, tile_start, tw, ty0, height,  \
+        width, grad_out, res_logt, res_stop, log_alpha_max, log_alpha_eps, \
+        dpair, logt_first);
   TRASE_BWD(4, 0, true, false)
   TRASE_BWD(32, 0, false, false)
   TRASE_BWD(32, 0, false, true)
@@ -560,10 +691,13 @@ extern "C" int trase_composite_bwd(const float* payload,
   return (int)cudaErrorInvalidValue;
 }
 
-// n_valid_at points at tile_start[num_tiles] on the device (no host sync).
-// Rows of an even number of words, at most 64 (float2 lanes per gaussian).
+// lo_at / hi_at point at the sorted pair range's ends on the device (no
+// host sync): tile_start[t_lo] and tile_start[t_hi] of a slab, or
+// tile_start[0] = 0 and tile_start[num_tiles] for the whole image. Rows of
+// an even number of words, at most 64 (float2 lanes per gaussian).
 extern "C" int trase_reduce_pair_grads(const float* dpair, const int* inv,
-                                       const int* n_valid_at, int n, int k,
+                                       const int* lo_at, const int* hi_at,
+                                       int n, int k,
                                        int words, float* dpayload,
                                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -576,6 +710,35 @@ extern "C" int trase_reduce_pair_grads(const float* dpair, const int* inv,
   const int threads = 256;
   const int blocks = (int)((warps * 32 + threads - 1) / threads);
   reduce_pair_grads_kernel<<<blocks, threads, 0, s>>>(
-      dpair, inv, n_valid_at, n, k, words, per_warp, dpayload);
+      dpair, inv, lo_at, hi_at, n, k, words, per_warp, dpayload);
+  return (int)cudaGetLastError();
+}
+
+// Slab mode's reduce (reduce_slab_pairs_kernel): the slab's pair range
+// [*lo_at, *hi_at) alone, the (n, words) output zeroed first. Rows of an
+// even number of words, at most 64 (float2 lanes per gaussian). The grid
+// covers up to 16 blocks of 8 warps per SM and strides over the range,
+// whose size only the device knows.
+extern "C" int trase_reduce_slab_pairs(const float* dpair,
+                                       const int* sorted_gauss,
+                                       const int* inv, const int* lo_at,
+                                       const int* hi_at, int n, int k,
+                                       int words, float* dpayload,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || k <= 0 || words <= 0 || words % 2 || words > 64)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      dpayload, 0, (size_t)n * words * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int threads = 256;
+  const int64_t need = ((int64_t)n * k + threads - 1) / threads;
+  const int blocks = (int)(need < 16LL * sms ? need : 16LL * sms);
+  reduce_slab_pairs_kernel<<<blocks, threads, 0, s>>>(
+      dpair, sorted_gauss, inv, lo_at, hi_at, k, words, 32 / (words / 2),
+      dpayload);
   return (int)cudaGetLastError();
 }

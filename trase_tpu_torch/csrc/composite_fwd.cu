@@ -20,6 +20,14 @@
 // counterparts of `logt_out` / `stop_out` (rasterize_pallas.py:601-607),
 // which the TPU keeps per tile and 128-pair window; per-pixel bookkeeping
 // lets the backward decide which pairs counted by index alone.
+// Slab mode (the multi-device steps, trase_tpu_torch/parallel): a launch
+// composites a slab of whole tile rows, the counterpart of `g_lo` /
+// `rows_local` (rasterize_pallas.py:1014-1046). The caller passes the
+// slab's own tile_start (offset to its first tile), its output rows and
+// residuals, and ty0, its first tile row in the image: the kernel indexes
+// everything by the slab's tile and takes only the splat's origin from
+// ty0. The whole image is the slab of every tile (ty0 = 0), so the
+// single-device path runs the same instantiations.
 // T is carried in LOG space, as the Pallas kernel does (its live test is
 // `cum_incl + logt >= LOG_T_EPS`, rasterize_pallas.py:647). The plain
 // PyTorch version (ops/rasterize_cuda.py: composite_plain) evaluates the
@@ -193,8 +201,9 @@ __global__ void __launch_bounds__(
     (FwdLayout<NV, NPACK, WITH_COLOR>::kMinBlocks))
 composite_fwd_kernel(const float* __restrict__ payload,
                      const int* __restrict__ sorted_gauss,
-                     const int* __restrict__ tile_start, int tw, int height,
-                     int width, float log_alpha_max, float log_alpha_eps,
+                     const int* __restrict__ tile_start, int tw, int ty0,
+                     int height, int width, float log_alpha_max,
+                     float log_alpha_eps,
                      float log_t_eps, float* __restrict__ out,
                      float* __restrict__ res_logt,
                      int* __restrict__ res_stop) {
@@ -216,7 +225,7 @@ composite_fwd_kernel(const float* __restrict__ payload,
   const int ly0 = (t / kTile) * PPT;  // this thread's first pixel row
   const float fx = (float)lx;
   const float ox = (float)(tx * kTile);
-  const float oy = (float)(ty * kTile);
+  const float oy = (float)((ty0 + ty) * kTile);  // in the image
   const int start = tile_start[tile];
   const int end = tile_start[tile + 1];
 
@@ -389,7 +398,7 @@ composite_fwd_kernel(const float* __restrict__ payload,
 
 template <int NV, int NPACK, bool WITH_COLOR, bool WITH_RES>
 int launch(const float* payload, const int* sorted_gauss,
-           const int* tile_start, int num_tiles, int tw, int height,
+           const int* tile_start, int num_tiles, int tw, int ty0, int height,
            int width, float log_alpha_max, float log_alpha_eps,
            float log_t_eps, float* out, float* res_logt, int* res_stop,
            cudaStream_t stream) {
@@ -400,8 +409,8 @@ int launch(const float* payload, const int* sorted_gauss,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<num_tiles, L::kThreads, bytes, stream>>>(
-      payload, sorted_gauss, tile_start, tw, height, width, log_alpha_max,
-      log_alpha_eps, log_t_eps, out, res_logt, res_stop);
+      payload, sorted_gauss, tile_start, tw, ty0, height, width,
+      log_alpha_max, log_alpha_eps, log_t_eps, out, res_logt, res_stop);
   return (int)cudaGetLastError();
 }
 
@@ -410,14 +419,19 @@ int launch(const float* payload, const int* sorted_gauss,
 // C interface for ctypes. Returns the launch's cudaError_t (0 = success),
 // cudaErrorInvalidValue for a value layout without an instantiation, or
 // cudaErrorMisalignedAddress for a payload that is not 8-byte aligned (rows
-// are copied 8 bytes at a time). res_logt / res_stop (num_tiles * 256 each)
+// are copied 8 bytes at a time). Composites num_tiles tiles of a tw-wide
+// grid whose first tile row is image row ty0 * 16 (a slab; the whole image
+// is ty0 = 0), tile_start pointing at the first one's entry, into `out`:
+// (height, width, 1 + n_val), height the rows from ty0 * 16 that lie in
+// the image. res_logt / res_stop (num_tiles * 256 each)
 // are written when res_logt is not null; the residual instantiations exist
 // for the layouts the training steps composite: rgb + depth (GAUSSIAN) and
 // 32 features alone, unpacked or packed (FEATURE).
 extern "C" int trase_composite_fwd(const float* payload,
                                    const int* sorted_gauss,
                                    const int* tile_start, int num_tiles,
-                                   int tw, int height, int width, int n_val,
+                                   int tw, int ty0, int height, int width,
+                                   int n_val,
                                    int n_packed, int with_color,
                                    float log_alpha_max, float log_alpha_eps,
                                    float log_t_eps, float* out,
@@ -431,9 +445,9 @@ extern "C" int trase_composite_fwd(const float* payload,
   if (n_val == NV && n_packed == NPACK && (with_color != 0) == COLOR &&  \
       res == RES)                                                          \
     return launch<NV, NPACK, COLOR, RES>(                                  \
-        payload, sorted_gauss, tile_start, num_tiles, tw, height, width,   \
-        log_alpha_max, log_alpha_eps, log_t_eps, out, res_logt, res_stop,  \
-        s);
+        payload, sorted_gauss, tile_start, num_tiles, tw, ty0, height,     \
+        width, log_alpha_max, log_alpha_eps, log_t_eps, out, res_logt,     \
+        res_stop, s);
   TRASE_FWD(4, 0, true, true)
   TRASE_FWD(32, 0, false, true)
   TRASE_FWD(32, 16, false, true)

@@ -200,8 +200,21 @@ class Trainer:
         self._viewpoint_stack = []
         self._phase_restored = False  # load_ckpt restored the phase machine
         self._log_t = None
-        self.tb = TensorBoardLogger(dataset_args.model_path) \
-            if dataset_args.model_path else None
+        self.tb = self._make_logger()
+
+    def _make_logger(self):
+        """TensorBoard's logger under the model path, when there is one."""
+        path = self.args.model_path
+        return TensorBoardLogger(path) if path else None
+
+    def _num_alive(self) -> int:
+        """The number of live gaussians."""
+        return int(self.state.aux.alive.sum())
+
+    def _global_device(self):
+        """Where a loaded state lands (ShardedTrainer: the host, before
+        each rank takes its block)."""
+        return self.device
 
     # ------------------------------------------------------------ data
 
@@ -579,9 +592,9 @@ class Trainer:
                                iteration)
             if name == "test":
                 test_psnr = mean_psnr
+        n_alive = self._num_alive()
         if self.tb:
-            self.tb.scalar("total_points",
-                           int(self.state.aux.alive.sum()), iteration)
+            self.tb.scalar("total_points", n_alive, iteration)
         return test_psnr
 
     @torch.no_grad()
@@ -618,10 +631,12 @@ class Trainer:
         print(f"\n[ITER {iteration}] Saving Gaussians")
         smoothed = None
         if self.opt.smooth_K != 1:
+            # on the device, also where the state is on the host
+            p = self.state.params
             with torch.no_grad():
                 smoothed = smooth_features(
-                    self.state.params.gaussian_features,
-                    build_feature_smooth_map(self.state.params.xyz,
+                    p.gaussian_features.to(self.device),
+                    build_feature_smooth_map(p.xyz.to(self.device),
                                              max(int(self.opt.smooth_K), 1)))
         self.scene.save(iteration, self.state.params, self.state.aux.alive,
                         smoothed_features=smoothed)
@@ -695,7 +710,7 @@ class Trainer:
         else:
             warnings.warn(f"{path} carries no keyed schema; its fields are "
                           "restored by name unchecked")
-        self.state = T.train_state_from_numpy(state, self.device)
+        self.state = T.train_state_from_numpy(state, self._global_device())
         self.active_sh_degree = int(payload["active_sh_degree"])
         self.opt_state.state, self.opt_state.iterations = \
             payload["opt_state"]
@@ -734,7 +749,8 @@ class Trainer:
         tools/import_torch.py: import_deform_pth."""
         from ..tools.import_torch import import_chkpnt_pth
 
-        params, aux, opt, meta = import_chkpnt_pth(path, device=self.device)
+        params, aux, opt, meta = import_chkpnt_pth(
+            path, device=self._global_device())
         self.state = self.state._replace(params=params, aux=aux, opt=opt)
         self.active_sh_degree = int(meta["active_sh_degree"])
         self._postload()
@@ -744,4 +760,4 @@ class Trainer:
         """After a load: the smoothing map and the alive count are the
         loaded state's."""
         self._smooth_dirty = True
-        self._n_alive_cache = int(self.state.aux.alive.sum())
+        self._n_alive_cache = self._num_alive()

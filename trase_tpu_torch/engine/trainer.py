@@ -25,10 +25,15 @@ list in flax order (Dense_i kernel in nn.Linear's (out, in) layout, then
 its bias); the step runs the module on them with
 ``torch.func.functional_call``. Its hidden stack runs in bf16, as
 trase_tpu's does by default.
+
+The GAUSSIAN and FEATURE steps also serve a world of ranks that each
+hold a block of the gaussian rows (parallel/sharded.py): ``Ranks`` names
+the render and the few reductions that differ there, and is one device
+by default.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -168,6 +173,40 @@ def _commit(finite: torch.Tensor, new: TrainState,
     )
 
 
+def _same(x):
+    return x
+
+
+def feature_gram(feats_acc: torch.Tensor, sample: PixelSample, hm: int,
+                 wm: int) -> torch.Tensor:
+    """C_F, the cosine gram of the rendered features at the sampled
+    pixels: the (H, W, 1 + F) [acc | feats] image resized by products to
+    the masks' resolution (hm, wm) where it differs, then indexed."""
+    if feats_acc.shape[:2] != (hm, wm):
+        feats_acc = bilinear_resize_mm(feats_acc, hm, wm)
+    sampled = feats_acc.reshape(-1, feats_acc.shape[-1])[sample.pixel_idx]
+    return cosine_gram(sampled[:, 1:])
+
+
+class Ranks(NamedTuple):
+    """What the GAUSSIAN and FEATURE steps do differently when the
+    gaussian rows are split over a world of ranks. The defaults are one
+    device holding every row; parallel/sharded.py: world_ranks gives a
+    world's."""
+
+    # renderer.render's signature and output keys; radii and
+    # visibility_filter cover the rows this rank holds
+    render: Callable = render
+    # (feats_acc, sample, hm, wm) -> C_F
+    feature_gram: Callable = feature_gram
+    # the mean of a per-row tensor over every rank's rows
+    mean: Callable = torch.mean
+    # the replicated deform net's gradients, summed over the ranks
+    sum_grads: Callable = _same
+    # the NaN guard's flag, made the same on every rank
+    agree: Callable = _same
+
+
 def apply_deform(deform_net: DeformNetwork, deform: list, xyz, fid,
                  ast_noise, use_deform: bool, gaussian_features=None):
     """(d_xyz, d_rotation, d_scaling) for the step, the net run on the
@@ -205,10 +244,12 @@ def gaussian_phase_step(
     lambda_dssim: float,
     lambda_reg_deform: float,
     raster_cfg: RasterConfig,
+    ranks: Ranks = Ranks(),
 ):
     """One GAUSSIAN-phase step -> (new state, metrics). The metrics are
     0-d device tensors (loss, l1, finite, overflow, overflow_half): the
-    step itself never waits for the device."""
+    step itself never waits for the device. `ranks`: the world the rows
+    are split over (one device by default)."""
     p, aux = state.params, state.aux
     dev = p.xyz.device
     leaves = {k: getattr(p, k).detach().requires_grad_(True)
@@ -220,15 +261,16 @@ def gaussian_phase_step(
     d_xyz, d_rot, d_scale = apply_deform(
         deform_net, dparams, params.xyz, fid, ast_noise, use_deform,
         params.gaussian_features)
-    out = render(camera, params, aux.alive, bg_color, d_xyz, d_rot, d_scale,
-                 is_6dof=is_6dof, sh_degree=sh_degree, mean2d_offset=off,
-                 with_features=False, raster_cfg=raster_cfg)
+    out = ranks.render(camera, params, aux.alive, bg_color, d_xyz, d_rot,
+                       d_scale, is_6dof=is_6dof, sh_degree=sh_degree,
+                       mean2d_offset=off, with_features=False,
+                       raster_cfg=raster_cfg)
     image = out["render"]
     ll1 = l1_loss(image, gt_image)
     loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (
         1.0 - ssim(image, gt_image))
     if use_deform and lambda_reg_deform > 0:
-        loss = loss + lambda_reg_deform * torch.abs(d_xyz).mean()
+        loss = loss + lambda_reg_deform * ranks.mean(torch.abs(d_xyz))
     inputs = list(leaves.values()) + (dparams if use_deform else []) + [off]
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
@@ -244,8 +286,8 @@ def gaussian_phase_step(
         new_opt = state.opt._replace(**new_opt_fields)
         if use_deform:
             new_deform, new_deform_opt = adam_update_list(
-                state.deform, grads[len(TRAINED):-1], state.deform_opt,
-                lrs.deform)
+                state.deform, ranks.sum_grads(grads[len(TRAINED):-1]),
+                state.deform_opt, lrs.deform)
         else:
             new_deform, new_deform_opt = state.deform, state.deform_opt
         new_aux = G.add_densification_stats(
@@ -253,8 +295,8 @@ def gaussian_phase_step(
             out["radii"], camera.image_height, camera.image_width)
         new = TrainState(new_params, new_aux, new_opt, new_deform,
                          new_deform_opt)
-        finite = torch.isfinite(loss.detach()) & _all_finite(
-            float_tensors(new))
+        finite = ranks.agree(torch.isfinite(loss.detach()) & _all_finite(
+            float_tensors(new)))
         new_state = _commit(finite, new, state)
     metrics = {"loss": loss.detach(), "l1": ll1.detach(), "finite": finite,
                "overflow": out["overflow"],
@@ -287,6 +329,7 @@ def feature_phase_step(
     generator: torch.Generator | None = None,
     sample: PixelSample | None = None,
     smooth_perm: torch.Tensor | None = None,
+    ranks: Ranks = Ranks(),
 ):
     """One FEATURE step -> (new state, metrics): contrastive losses on
     the rendered features, Adam on `gaussian_features` alone
@@ -297,7 +340,10 @@ def feature_phase_step(
     densify_until_iter) differentiates the features alone, so the
     compositor's backward runs values-only and the densification
     statistics stay as they were. The metrics (loss, finite, rfn,
-    pos_sim, neg_sim, overflow, overflow_half) are 0-d device tensors."""
+    pos_sim, neg_sim, overflow, overflow_half) are 0-d device tensors.
+    `ranks`: the world the rows are split over (one device by default);
+    in a world, `smooth_map` holds this rank's rows of the neighbour map
+    and `generator` must draw the same numbers on every rank."""
     p, aux = state.params, state.aux
     dev = p.xyz.device
     if sample is None:
@@ -314,24 +360,21 @@ def feature_phase_step(
     feat = p.gaussian_features.detach().requires_grad_(True)
     off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32, device=dev,
                       requires_grad=with_densify_stats)
-    out = render(camera, p._replace(gaussian_features=feat), aux.alive,
-                 bg_color, d_xyz, d_rot, d_scale, is_6dof=is_6dof,
-                 sh_degree=sh_degree, mean2d_offset=off, with_features=True,
-                 with_color=False, grad_values_only=not with_densify_stats,
-                 norm_gaussian_features=True, smooth_map=smooth_map,
-                 smooth_perm=smooth_perm, smooth_generator=generator,
-                 raster_cfg=raster_cfg)
+    out = ranks.render(
+        camera, p._replace(gaussian_features=feat), aux.alive, bg_color,
+        d_xyz, d_rot, d_scale, is_6dof=is_6dof, sh_degree=sh_degree,
+        mean2d_offset=off, with_features=True, with_color=False,
+        grad_values_only=not with_densify_stats,
+        norm_gaussian_features=True, smooth_map=smooth_map,
+        smooth_perm=smooth_perm, smooth_generator=generator,
+        raster_cfg=raster_cfg)
     # (H, W, 1 + F) [acc | feats], unsliced: |feats|^2 per pixel is the
     # row's sum of squares less acc^2
     featsA = out["render_gaussian_features_acc_hwc"]
     sq = torch.sum(featsA * featsA, dim=-1) - featsA[..., 0] * featsA[..., 0]
     rf_norm = torch.sqrt(torch.clamp(sq, min=0.0) + 1e-12).mean()
     rfn_reg = (1.0 - rf_norm) ** 2
-    hm, wm = sam_masks.shape[1:]
-    if featsA.shape[:2] != (hm, wm):
-        featsA = bilinear_resize_mm(featsA, hm, wm)
-    sampled = featsA.reshape(-1, featsA.shape[-1])[sample.pixel_idx][:, 1:]
-    C_F = cosine_gram(sampled)
+    C_F = ranks.feature_gram(featsA, sample, *sam_masks.shape[1:])
     pos = positive_pixel_pair_loss[contrastive_mode](
         C, C_F, sample, positive_th=positive_th, weights=weights)
     neg = negative_pixel_pair_loss[contrastive_mode](
@@ -363,7 +406,8 @@ def feature_phase_step(
         checked = (list(new_params)
                    + [x for x in new_aux if x.is_floating_point()]
                    + [t for s in new_opt for t in (s.mu, s.nu)])
-        finite = torch.isfinite(loss.detach()) & _all_finite(checked)
+        finite = ranks.agree(torch.isfinite(loss.detach())
+                             & _all_finite(checked))
 
         def w(n, o):
             return torch.where(finite, n, o)

@@ -71,6 +71,14 @@ def cosine_gram(s: torch.Tensor) -> torch.Tensor:
     return s @ s.T
 
 
+def features_correspondence_matrix_hwc(rendered_features_hwc: torch.Tensor,
+                                       sample: PixelSample) -> torch.Tensor:
+    """Cosine gram of the rendered features at the sampled pixels, from a
+    channels-last (H, W, F) image (trase_tpu contrastive.py:84-91)."""
+    f = rendered_features_hwc.reshape(-1, rendered_features_hwc.shape[-1])
+    return cosine_gram(f[sample.pixel_idx])
+
+
 def pixel_weights(sam_masks: torch.Tensor,
                   sample: PixelSample) -> torch.Tensor:
     """Mask-size-balanced per-pair weights in [1, 10]

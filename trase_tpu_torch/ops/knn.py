@@ -62,14 +62,29 @@ def smooth_features(features: torch.Tensor, neighbor_idx: torch.Tensor,
     the permutation from a jax key; a test passes that one as `perm`.
 
     features: (N, F); neighbor_idx: (N, K). Returns (N, F)."""
-    k = neighbor_idx.shape[1]
     # safe norm: dead slots are all-zero
     normed = features / torch.sqrt(
         torch.sum(features * features, dim=-1, keepdim=True) + 1e-12)
+    return smooth_rows(normed, neighbor_idx,
+                       smooth_slots(neighbor_idx.shape[1], perm, generator))
+
+
+def smooth_slots(k: int, perm: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None):
+    """The neighbour slots a smoothing averages over: `perm` when given,
+    else the first max(int(k * SMOOTH_DROPOUT), 1) slots of a permutation
+    drawn from `generator`, else None (every slot)."""
     if perm is None and generator is not None:
         n_sel = max(int(k * SMOOTH_DROPOUT), 1)
         perm = torch.randperm(k, generator=generator,
                               device=generator.device)[:n_sel]
-    sel = neighbor_idx if perm is None else \
-        neighbor_idx[:, perm.to(neighbor_idx.device)]
+    return perm
+
+
+def smooth_rows(normed: torch.Tensor, neighbor_idx: torch.Tensor,
+                slots: torch.Tensor | None) -> torch.Tensor:
+    """Each row of `neighbor_idx`'s mean of the `normed` rows it names,
+    over the neighbour `slots` (None: every slot)."""
+    sel = neighbor_idx if slots is None else \
+        neighbor_idx[:, slots.to(neighbor_idx.device)]
     return normed[sel].mean(dim=1)

@@ -27,6 +27,15 @@ step), each with the features unpacked or bf16-packed two per word. The
 backward also has a values-only mode (``grad_values_only``): exact zeros
 for the geometry, the FEATURE step's after densification ends.
 
+Slab mode (the multi-device steps, trase_tpu_torch/parallel): every
+kernel and plain version takes a tile range [t_lo, t_hi) of whole tile
+rows, the counterpart of trase_tpu's ``g_lo`` / ``rows_local``. The
+forward composites that slab alone, the backward walks it alone and the
+reduce sums only its pair range, walking the slab's own pairs, so the
+slabs' payload gradients sum to the whole image's. The whole image is the
+range of every tile.
+``composite_slab`` is the slab entry of ``rasterize_tiled``.
+
 ``build_library`` builds every csrc/*.cu source, the fused deform MLP's
 (ops/mlp_cuda.py) included, and ``LAYOUT_LAUNCHES`` counts every kernel's
 launches.
@@ -80,7 +89,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # instantiation: one is added where each kernel is launched, nowhere else.
 # Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
 # for the compositor kernels, (kernel, words) for the reduce and
-# ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py).
+# ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py); a launch given
+# a tile range (slab mode) adds "slab" to its key.
 LAYOUT_LAUNCHES: dict = {}
 
 _LIBS: dict = {}
@@ -287,6 +297,19 @@ def _check_inputs(payload, sorted_gauss, tile_start, image_height,
     return th, tw
 
 
+def tile_range(th: int, tw: int, image_height: int, t_lo: int = 0,
+               t_hi: int | None = None):
+    """(t_hi, row0, rows) of the tile range [t_lo, t_hi) of a th x tw
+    grid (t_hi None: the last tile): whole tile rows, whose output starts at
+    image row row0 and holds `rows` rows inside image_height."""
+    t_hi = th * tw if t_hi is None else t_hi
+    if not 0 <= t_lo < t_hi <= th * tw or t_lo % tw or t_hi % tw:
+        raise ValueError(f"tile range [{t_lo}, {t_hi}) is not whole tile "
+                         f"rows of the {th}x{tw} grid")
+    row0 = t_lo // tw * TILE
+    return t_hi, row0, min(t_hi // tw * TILE, image_height) - row0
+
+
 def _tile_origins(tiles: torch.Tensor, tw: int):
     ox = ((tiles % tw) * TILE).to(torch.float32)[:, None]
     oy = (torch.div(tiles, tw, rounding_mode="floor")
@@ -305,10 +328,14 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                     tile_start: torch.Tensor, image_height: int,
                     image_width: int, n_val: int, n_packed: int = 0,
                     with_color: bool = True, tile_chunk: int = 2048,
-                    stats: dict | None = None, residuals: bool = False):
+                    stats: dict | None = None, residuals: bool = False,
+                    t_lo: int = 0, t_hi: int | None = None):
     """Plain PyTorch version of the CUDA compositor: same inputs, same
     output (H, W, 1 + n_val) = [acc, values...], same expressions in the
     same order (log-space T, skip below 1/255, stop before T < 1e-4).
+    With a tile range [t_lo, t_hi) of whole tile rows (slab mode), only
+    those tiles: (rows, W, 1 + n_val) from image row t_lo // tw * 16, and
+    residuals by slab tile.
 
     Walks the pairs by rank within their tile, all tiles of a chunk at
     once, so memory is bounded by `tile_chunk` x 256 pixels. With
@@ -322,13 +349,14 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     """
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed, with_color)
+    t_hi, _, rows = tile_range(th, tw, image_height, t_lo, t_hi)
     dev = payload.device
-    num_tiles = th * tw
+    num_tiles = t_hi - t_lo
     geom = payload[:, :GEOM_COLS]
     vals = unpack_values(payload, n_val, n_packed, with_color)
     fx, fy = _pixel_coords(dev)
-    starts = tile_start[:-1].long()
-    lens = (tile_start[1:] - tile_start[:-1]).long()
+    starts = tile_start[t_lo:t_hi].long()
+    lens = (tile_start[t_lo + 1:t_hi + 1] - tile_start[t_lo:t_hi]).long()
     last = max(sorted_gauss.shape[0] - 1, 0)
     out = torch.zeros((num_tiles, PIX, 1 + n_val), dtype=torch.float32,
                       device=dev)
@@ -337,7 +365,7 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     evaluated = contributing = 0
     for t0 in range(0, num_tiles, tile_chunk):
         t1 = min(num_tiles, t0 + tile_chunk)
-        tiles = torch.arange(t0, t1, device=dev)
+        tiles = torch.arange(t_lo + t0, t_lo + t1, device=dev)
         ln, st = lens[t0:t1], starts[t0:t1]
         ox, oy = _tile_origins(tiles, tw)
         n_t = t1 - t0
@@ -382,17 +410,16 @@ def composite_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     if stats is not None:
         stats["evaluated"] = stats.get("evaluated", 0) + evaluated
         stats["contributing"] = stats.get("contributing", 0) + contributing
-    img = out.reshape(th, tw, TILE, TILE, 1 + n_val).permute(0, 2, 1, 3, 4)
-    img = img.reshape(th * TILE, tw * TILE, 1 + n_val)[
-        :image_height, :image_width]
+    img = out.reshape(-1, tw, TILE, TILE, 1 + n_val).permute(0, 2, 1, 3, 4)
+    img = img.reshape(-1, tw * TILE, 1 + n_val)[:rows, :image_width]
     if residuals:
         return img, res_logt.reshape(-1), res_stop.reshape(-1)
     return img
 
 
 def _tile_cotangent(grad_out: torch.Tensor, th: int, tw: int) -> torch.Tensor:
-    """(H, W, C) image cotangent -> (num_tiles, 256, C), zero outside the
-    image."""
+    """(H, W, C) image (or slab) cotangent -> (th * tw, 256, C), zero
+    outside the image."""
     h, w, c = grad_out.shape
     pad = torch.zeros((th * TILE, tw * TILE, c), dtype=grad_out.dtype,
                       device=grad_out.device)
@@ -407,7 +434,8 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                         grad_out: torch.Tensor, res_logt: torch.Tensor,
                         res_stop: torch.Tensor, tile_chunk: int = 2048,
                         stats: dict | None = None, with_color: bool = True,
-                        values_only: bool = False) -> torch.Tensor:
+                        values_only: bool = False, t_lo: int = 0,
+                        t_hi: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel (composite_bwd.cu):
     (n_pairs, 6 + n_val) pair gradients [d mean2d, d conic, d log op,
     d values], row i for the pair at sorted position i. Rows of pairs at
@@ -424,19 +452,25 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     warps take, a warp being 32 consecutive pixels of the tile) to it, and
     sets "logt_first": each pixel's log T reconstructed back to the tile's
     first pair (0 up to rounding).
+
+    With a tile range [t_lo, t_hi) (slab mode): grad_out and the residuals
+    are the slab's, as composite_plain returns them for that range, and
+    only the rows of the slab's pairs, sorted positions [tile_start[t_lo],
+    tile_start[t_hi]), can be non-zero.
     """
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed, with_color)
+    t_hi, _, _ = tile_range(th, tw, image_height, t_lo, t_hi)
     dev = payload.device
-    num_tiles = th * tw
+    num_tiles = t_hi - t_lo
     words = GEOM_COLS + n_val
     geom = payload[:, :GEOM_COLS]
     vals = unpack_values(payload, n_val, n_packed, with_color)
     fx, fy = _pixel_coords(dev)
-    g_all = _tile_cotangent(grad_out, th, tw)
+    g_all = _tile_cotangent(grad_out, num_tiles // tw, tw)
     logt_all = res_logt.reshape(num_tiles, PIX)
     stop_all = res_stop.reshape(num_tiles, PIX).long()
-    starts = tile_start[:-1].long()
+    starts = tile_start[t_lo:t_hi].long()
     last = max(sorted_gauss.shape[0] - 1, 0)
     dpair = torch.zeros((sorted_gauss.shape[0], words), dtype=torch.float32,
                         device=dev)
@@ -446,7 +480,7 @@ def composite_bwd_plain(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     evaluated = counted_n = warp_steps = 0
     for t0 in range(0, num_tiles, tile_chunk):
         t1 = min(num_tiles, t0 + tile_chunk)
-        tiles = torch.arange(t0, t1, device=dev)
+        tiles = torch.arange(t_lo + t0, t_lo + t1, device=dev)
         st = starts[t0:t1]
         ox, oy = _tile_origins(tiles, tw)
         g = g_all[t0:t1]
@@ -514,15 +548,21 @@ def inverse_pairs(sorted_pid: torch.Tensor) -> torch.Tensor:
 
 
 def reduce_pair_grads_plain(dpair: torch.Tensor, inv: torch.Tensor,
-                            tile_start: torch.Tensor,
-                            n: int) -> torch.Tensor:
+                            tile_start: torch.Tensor, n: int, t_lo: int = 0,
+                            t_hi: int | None = None,
+                            sorted_gauss: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Plain PyTorch version of the reduce kernel: (n, words) per-gaussian
     gradients, gaussian g summing, in k order, the rows at sorted
-    positions inv[g K + k]; positions at or past tile_start[-1] (invalid
-    pairs) read zero."""
+    positions inv[g K + k]; positions outside [tile_start[t_lo],
+    tile_start[t_hi]) read zero: with the default range, those at or past
+    tile_start[-1] (invalid pairs); with a slab's, every other slab's.
+    `sorted_gauss` (the kernel's slab walk reads it) is not needed here:
+    the argument keeps the two signatures alike."""
     k = inv.shape[0] // n
     pos = inv.long().reshape(n, k)
-    valid = pos < tile_start[-1].long()
+    hi = tile_start[-1 if t_hi is None else t_hi].long()
+    valid = (pos >= tile_start[t_lo].long()) & (pos < hi)
     rows = dpair[torch.clamp(pos, max=dpair.shape[0] - 1)]
     zero = torch.zeros((), dtype=dpair.dtype, device=dpair.device)
     acc = torch.zeros((n, dpair.shape[1]), dtype=dpair.dtype,
@@ -585,10 +625,10 @@ def build_library(names=None) -> dict:
 
 _ARGTYPES = {
     "composite_fwd": ("trase_composite_fwd",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4),
     "composite_bwd": ("trase_composite_bwd",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
                       + [ctypes.c_void_p] * 3),
     "deform_mlp": ("trase_deform_mlp",
@@ -607,9 +647,13 @@ def _library(name: str):
         getattr(lib, fn_name).restype = ctypes.c_int
         if name == "composite_bwd":
             lib.trase_reduce_pair_grads.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p] * 2)
             lib.trase_reduce_pair_grads.restype = ctypes.c_int
+            lib.trase_reduce_slab_pairs.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p] * 2)
+            lib.trase_reduce_slab_pairs.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -631,14 +675,20 @@ def _count_layout(key):
     LAYOUT_LAUNCHES[key] = LAYOUT_LAUNCHES.get(key, 0) + 1
 
 
+def _slab_key(key, t_hi):
+    return key + ("slab",) if t_hi is not None else key
+
+
 def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                   tile_start: torch.Tensor, image_height: int,
                   image_width: int, n_val: int, n_packed: int = 0,
-                  with_color: bool = True, residuals: bool = False):
+                  with_color: bool = True, residuals: bool = False,
+                  t_lo: int = 0, t_hi: int | None = None):
     """Launch the CUDA compositor on CUDA tensors: (H, W, 1 + n_val)
     float32 [acc, values...], or with `residuals` (out, logt, stop) as
-    composite_plain returns them. Raises for CPU tensors, for value
-    layouts without a kernel instantiation and when the launch fails."""
+    composite_plain returns them, for the whole image or the slab of tiles
+    [t_lo, t_hi). Raises for CPU tensors, for value layouts without a
+    kernel instantiation and when the launch fails."""
     _require_cuda("composite_fwd", "composite_plain", payload=payload,
                   sorted_gauss=sorted_gauss, tile_start=tile_start)
     layout = (n_val, n_packed, with_color)
@@ -653,24 +703,28 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     if payload.data_ptr() % 8:
         raise ValueError("payload must be 8-byte aligned (the kernel copies "
                          "rows 8 bytes at a time)")
+    hi, row0, rows = tile_range(th, tw, image_height, t_lo, t_hi)
     lib = _library("composite_fwd")
     dev = payload.device
-    out = torch.empty((image_height, image_width, 1 + n_val),
+    out = torch.empty((rows, image_width, 1 + n_val),
                       dtype=torch.float32, device=dev)
     res_logt = res_stop = None
     if residuals:
-        res_logt = torch.empty(th * tw * PIX, dtype=torch.float32, device=dev)
-        res_stop = torch.empty(th * tw * PIX, dtype=torch.int32, device=dev)
+        res_logt = torch.empty((hi - t_lo) * PIX, dtype=torch.float32,
+                               device=dev)
+        res_stop = torch.empty((hi - t_lo) * PIX, dtype=torch.int32,
+                               device=dev)
     with torch.cuda.device(dev):
         rc = lib.trase_composite_fwd(
             payload.data_ptr(), sorted_gauss.data_ptr(),
-            tile_start.data_ptr(), th * tw, tw, image_height, image_width,
-            n_val, n_packed, int(with_color), LOG_ALPHA_MAX, LOG_ALPHA_EPS,
-            LOG_T_EPS, out.data_ptr(), None if res_logt is None else res_logt.data_ptr(),
+            tile_start[t_lo:].data_ptr(), hi - t_lo, tw, row0 // TILE, rows,
+            image_width, n_val, n_packed, int(with_color), LOG_ALPHA_MAX,
+            LOG_ALPHA_EPS, LOG_T_EPS, out.data_ptr(),
+            None if res_logt is None else res_logt.data_ptr(),
             None if res_stop is None else res_stop.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"composite_fwd launch failed: cudaError {rc}")
-    _count_layout(("composite_fwd", *layout, residuals))
+    _count_layout(_slab_key(("composite_fwd", *layout, residuals), t_hi))
     if residuals:
         return out, res_logt, res_stop
     return out
@@ -683,13 +737,16 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                   res_stop: torch.Tensor,
                   logt_first: torch.Tensor | None = None,
                   with_color: bool = True,
-                  values_only: bool = False) -> torch.Tensor:
+                  values_only: bool = False, t_lo: int = 0,
+                  t_hi: int | None = None) -> torch.Tensor:
     """Launch the backward kernel on CUDA tensors: (n_pairs, 6 + n_val)
     pair gradients as composite_bwd_plain returns them, except that rows
-    of invalid pairs (past tile_start[-1]) are left unwritten. With
-    `logt_first` (num_tiles * 256 float32), the kernel also writes each
-    pixel's log T reconstructed back to its tile's first pair. With
-    `values_only`, the geometry columns are exact zeros."""
+    of invalid pairs (past tile_start[-1]) are left unwritten, and so, with
+    a tile range [t_lo, t_hi) (slab mode: the slab's cotangent and
+    residuals), are the rows of every pair outside the slab. With
+    `logt_first` (256 float32 per tile of the range), the kernel also
+    writes each pixel's log T reconstructed back to its tile's first pair.
+    With `values_only`, the geometry columns are exact zeros."""
     _require_cuda("composite_bwd", "composite_bwd_plain", payload=payload,
                   sorted_gauss=sorted_gauss, tile_start=tile_start,
                   grad_out=grad_out, res_logt=res_logt, res_stop=res_stop)
@@ -701,11 +758,14 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                          "the layouts without colour")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed, with_color)
-    if grad_out.shape != (image_height, image_width, 1 + n_val) or \
+    hi, row0, rows = tile_range(th, tw, image_height, t_lo, t_hi)
+    if grad_out.shape != (rows, image_width, 1 + n_val) or \
             grad_out.dtype != torch.float32:
-        raise ValueError(f"grad_out must be float32 (H, W, {1 + n_val})")
-    if res_logt.shape != (th * tw * PIX,) or res_stop.dtype != torch.int32:
-        raise ValueError("residuals must be (num_tiles * 256,) float32 / int32")
+        raise ValueError(f"grad_out must be float32 ({rows}, {image_width}, "
+                         f"{1 + n_val})")
+    if res_logt.shape != ((hi - t_lo) * PIX,) or \
+            res_stop.dtype != torch.int32:
+        raise ValueError("residuals must be (tiles * 256,) float32 / int32")
     lib = _library("composite_bwd")
     dev = payload.device
     dpair = torch.empty((sorted_gauss.shape[0], GEOM_COLS + n_val),
@@ -713,8 +773,8 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.trase_composite_bwd(
             payload.data_ptr(), sorted_gauss.data_ptr(),
-            tile_start.data_ptr(), th * tw, tw, image_height, image_width,
-            n_val, n_packed, int(with_color), int(values_only),
+            tile_start[t_lo:].data_ptr(), hi - t_lo, tw, row0 // TILE, rows,
+            image_width, n_val, n_packed, int(with_color), int(values_only),
             grad_out.data_ptr(), res_logt.data_ptr(),
             res_stop.data_ptr(), LOG_ALPHA_MAX, LOG_ALPHA_EPS,
             dpair.data_ptr(),
@@ -722,16 +782,30 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
             _stream(dev))
     if rc != 0:
         raise RuntimeError(f"composite_bwd launch failed: cudaError {rc}")
-    _count_layout(("composite_bwd", *layout, values_only))
+    _count_layout(_slab_key(("composite_bwd", *layout, values_only), t_hi))
     return dpair
 
 
 def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
-                      tile_start: torch.Tensor, n: int) -> torch.Tensor:
+                      tile_start: torch.Tensor, n: int, t_lo: int = 0,
+                      t_hi: int | None = None,
+                      sorted_gauss: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """Launch the reduce kernel on CUDA tensors: (n, words) per-gaussian
-    gradients as reduce_pair_grads_plain returns them."""
+    gradients as reduce_pair_grads_plain returns them, over the pair range
+    of the whole image, or of the slab of tiles [t_lo, t_hi), where the
+    slab's own pairs are walked (reduce_slab_pairs_kernel, which takes the
+    sorted pairs' gaussians, `sorted_gauss`)."""
     _require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
                   dpair=dpair, inv=inv, tile_start=tile_start)
+    if t_hi is not None:
+        if sorted_gauss is None:
+            raise ValueError("a slab's reduce takes sorted_gauss")
+        _require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
+                      sorted_gauss=sorted_gauss)
+        if sorted_gauss.dtype != torch.int32 or \
+                sorted_gauss.shape != inv.shape:
+            raise ValueError("sorted_gauss must be int32, one per pair")
     if inv.dtype != torch.int32 or tile_start.dtype != torch.int32 or \
             dpair.dtype != torch.float32:
         raise ValueError("inv and tile_start must be int32, dpair float32")
@@ -739,6 +813,10 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
         raise ValueError(f"{inv.shape[0]} pairs do not split over {n} "
                          "gaussians or do not match dpair")
     words = dpair.shape[1]
+    hi = tile_start.shape[0] - 1 if t_hi is None else t_hi
+    if not 0 <= t_lo < hi < tile_start.shape[0]:
+        raise ValueError(f"tile range [{t_lo}, {hi}) outside the "
+                         f"{tile_start.shape[0] - 1} tiles")
     if words % 2 or words > 64:
         raise ValueError(f"the reduce kernel sums rows of an even number of "
                          f"words up to 64 (float2 lanes), not {words}")
@@ -746,22 +824,30 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
     dev = dpair.device
     out = torch.empty((n, words), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.trase_reduce_pair_grads(
-            dpair.data_ptr(), inv.data_ptr(),
-            tile_start[-1:].data_ptr(), n, inv.shape[0] // n, words,
-            out.data_ptr(), _stream(dev))
+        if t_hi is None:
+            rc = lib.trase_reduce_pair_grads(
+                dpair.data_ptr(), inv.data_ptr(), tile_start.data_ptr(),
+                tile_start[hi:].data_ptr(), n, inv.shape[0] // n, words,
+                out.data_ptr(), _stream(dev))
+        else:
+            rc = lib.trase_reduce_slab_pairs(
+                dpair.data_ptr(), sorted_gauss.data_ptr(), inv.data_ptr(),
+                tile_start[t_lo:].data_ptr(), tile_start[hi:].data_ptr(), n,
+                inv.shape[0] // n, words, out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"reduce_pair_grads launch failed: cudaError {rc}")
-    _count_layout(("reduce_pair_grads", words))
+    _count_layout(_slab_key(("reduce_pair_grads", words), t_hi))
     return out
 
 
 def composite(payload, sorted_gauss, tile_start, image_height, image_width,
-              n_val, n_packed=0, with_color=True, residuals=False):
+              n_val, n_packed=0, with_color=True, residuals=False, t_lo=0,
+              t_hi=None):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     fn = composite_plain if payload.device.type == "cpu" else composite_fwd
     return fn(payload, sorted_gauss, tile_start, image_height, image_width,
-              n_val, n_packed, with_color=with_color, residuals=residuals)
+              n_val, n_packed, with_color=with_color, residuals=residuals,
+              t_lo=t_lo, t_hi=t_hi)
 
 
 class _Composite(torch.autograd.Function):
@@ -769,22 +855,24 @@ class _Composite(torch.autograd.Function):
     residuals, the backward emits the (N, 6 + n_val) payload gradient
     through composite_bwd + reduce_pair_grads (CUDA tensors) or their
     plain versions (CPU tensors); with `values_only`, its geometry columns
-    are zero. Counterpart of pallas_composite's custom VJP
-    (rasterize_pallas.py:1322-1391)."""
+    are zero. With a tile range (t_hi not None), the slab's image and its
+    share of the payload gradient. Counterpart of pallas_composite's custom
+    VJP (rasterize_pallas.py:1322-1391)."""
 
     @staticmethod
     def forward(ctx, payload, sorted_gauss, sorted_pid, tile_start,
                 image_height, image_width, n_val, n_packed, with_color,
-                values_only):
+                values_only, t_lo, t_hi):
         kpay = (pack_feature_words(payload, n_val, n_packed, with_color)
                 if n_packed else payload)
         out, logt, stop = composite(kpay, sorted_gauss, tile_start,
                                     image_height, image_width, n_val,
-                                    n_packed, with_color, residuals=True)
+                                    n_packed, with_color, residuals=True,
+                                    t_lo=t_lo, t_hi=t_hi)
         ctx.save_for_backward(kpay, sorted_gauss, sorted_pid, tile_start,
                               logt, stop)
         ctx.dims = (image_height, image_width, n_val, n_packed,
-                    payload.shape[0], with_color, values_only)
+                    payload.shape[0], with_color, values_only, t_lo, t_hi)
         return out
 
     @staticmethod
@@ -792,19 +880,22 @@ class _Composite(torch.autograd.Function):
         kpay, sorted_gauss, sorted_pid, tile_start, logt, stop = \
             ctx.saved_tensors
         image_height, image_width, n_val, n_packed, n, with_color, \
-            values_only = ctx.dims
+            values_only, t_lo, t_hi = ctx.dims
         grad_out = grad_out.contiguous()
         args = (kpay, sorted_gauss, tile_start, image_height, image_width,
                 n_val, n_packed, grad_out, logt, stop)
-        mode = dict(with_color=with_color, values_only=values_only)
+        mode = dict(with_color=with_color, values_only=values_only,
+                    t_lo=t_lo, t_hi=t_hi)
         inv = inverse_pairs(sorted_pid)
         if kpay.device.type == "cpu":
             dpair = composite_bwd_plain(*args, **mode)
-            dpayload = reduce_pair_grads_plain(dpair, inv, tile_start, n)
+            dpayload = reduce_pair_grads_plain(dpair, inv, tile_start, n,
+                                               t_lo, t_hi)
         else:
             dpair = composite_bwd(*args, **mode)
-            dpayload = reduce_pair_grads(dpair, inv, tile_start, n)
-        return (dpayload,) + (None,) * 9
+            dpayload = reduce_pair_grads(dpair, inv, tile_start, n, t_lo,
+                                         t_hi, sorted_gauss=sorted_gauss)
+        return (dpayload,) + (None,) * 11
 
 
 class CompositeInputs(NamedTuple):
@@ -854,6 +945,52 @@ def check_card_backward(layout, values_only: bool = False) -> None:
             "lie on no training path and are not ported")
 
 
+def composite_image(ci: CompositeInputs, image_height: int,
+                    image_width: int, grad_values_only: bool = False,
+                    t_lo: int = 0, t_hi: int | None = None) -> torch.Tensor:
+    """The [acc | values] image (H, W, 1 + n_val) of composite_inputs'
+    `ci`, or with a tile range the slab's rows; under autograd (the payload
+    requires grad) the forward keeps its residuals for the backward
+    kernels."""
+    if torch.is_grad_enabled() and ci.payload.requires_grad:
+        if ci.payload.device.type == "cuda":
+            check_card_backward((ci.n_val, ci.n_packed, ci.with_color),
+                                grad_values_only)
+        return _Composite.apply(ci.payload, ci.sorted_gauss, ci.sorted_pid,
+                                ci.tile_start, image_height, image_width,
+                                ci.n_val, ci.n_packed, ci.with_color,
+                                grad_values_only, t_lo, t_hi)
+    payload = (pack_feature_words(ci.payload, ci.n_val, ci.n_packed,
+                                  ci.with_color)
+               if ci.n_packed else ci.payload)
+    return composite(payload, ci.sorted_gauss, ci.tile_start, image_height,
+                     image_width, ci.n_val, ci.n_packed, ci.with_color,
+                     t_lo=t_lo, t_hi=t_hi)
+
+
+def image_outputs(hwc: torch.Tensor, overflow: torch.Tensor,
+                  bg_color: torch.Tensor, with_color: bool,
+                  with_extra: bool) -> dict:
+    """rasterize_tiled's output dict from the [acc | values] image."""
+    acc = hwc[..., 0]
+    result = {
+        "alpha": acc[None],
+        "overflow": overflow[0],
+        "overflow_half": overflow[1],
+    }
+    if with_color:
+        rgb = hwc[..., 1:4] + (1.0 - acc)[..., None] * bg_color[None, None, :]
+        result["render"] = rgb.permute(2, 0, 1)
+        result["depth"] = hwc[..., -1][None]
+    else:
+        result["feats_acc_hwc"] = hwc
+    if with_extra:
+        feats_hwc = hwc[..., 4:-1] if with_color else hwc[..., 1:]
+        result["feats_hwc"] = feats_hwc
+        result["feats"] = feats_hwc.permute(2, 0, 1)
+    return result
+
+
 def rasterize_tiled(
     proj: ProjectedGaussians,
     extra_channels: torch.Tensor | None,
@@ -879,35 +1016,38 @@ def rasterize_tiled(
     mean2d, conic and opacity and skips their chain."""
     ci = composite_inputs(proj, extra_channels, image_height, image_width,
                           cfg, with_color)
-    if torch.is_grad_enabled() and ci.payload.requires_grad:
-        if ci.payload.device.type == "cuda":
-            check_card_backward((ci.n_val, ci.n_packed, with_color),
-                                grad_values_only)
-        hwc = _Composite.apply(ci.payload, ci.sorted_gauss, ci.sorted_pid,
-                               ci.tile_start, image_height, image_width,
-                               ci.n_val, ci.n_packed, with_color,
-                               grad_values_only)
-    else:
-        payload = (pack_feature_words(ci.payload, ci.n_val, ci.n_packed,
-                                      with_color)
-                   if ci.n_packed else ci.payload)
-        hwc = composite(payload, ci.sorted_gauss, ci.tile_start,
-                        image_height, image_width, ci.n_val, ci.n_packed,
-                        with_color)
-    acc = hwc[..., 0]
-    result = {
-        "alpha": acc[None],
-        "overflow": ci.overflow[0],
-        "overflow_half": ci.overflow[1],
-    }
-    if with_color:
-        rgb = hwc[..., 1:4] + (1.0 - acc)[..., None] * bg_color[None, None, :]
-        result["render"] = rgb.permute(2, 0, 1)
-        result["depth"] = hwc[..., -1][None]
-    else:
-        result["feats_acc_hwc"] = hwc
-    if extra_channels is not None:
-        feats_hwc = hwc[..., 4:-1] if with_color else hwc[..., 1:]
-        result["feats_hwc"] = feats_hwc
-        result["feats"] = feats_hwc.permute(2, 0, 1)
-    return result
+    hwc = composite_image(ci, image_height, image_width, grad_values_only)
+    return image_outputs(hwc, ci.overflow, bg_color, with_color,
+                         extra_channels is not None)
+
+
+class Slab(NamedTuple):
+    hwc: torch.Tensor  # (rows_local * 16, W, 1 + n_val) this rank's rows
+    overflow: torch.Tensor  # (2,) f32, of the whole (padded) image
+    rows_pad: int  # tile rows of the padded image, a multiple of world
+
+
+def composite_slab(proj: ProjectedGaussians,
+                   extra_channels: torch.Tensor | None, image_height: int,
+                   image_width: int, cfg: RasterConfig, rank: int,
+                   world: int, with_color: bool = True,
+                   grad_values_only: bool = False) -> Slab:
+    """The slab entry of rasterize_tiled: rank `rank` of `world` composites
+    its slab of tile rows. The tile rows are padded to a multiple of the
+    world and the binning runs at the padded height, as trase_tpu's
+    _composite_my_rows_pallas does (sharded.py:219-237), so every rank
+    bins the same gathered projection identically; the slab is tile rows
+    [rank rows_local, (rank + 1) rows_local). Concatenated over the ranks
+    and cropped to the image, the slabs are rasterize_tiled's image of the
+    padded binning; under autograd each slab's payload gradient covers its
+    own pairs, and the slabs' gradients sum to the whole image's."""
+    th, tw = _tile_grid(image_height, image_width)
+    rows_pad = -(-th // world) * world
+    rows_local = rows_pad // world
+    h_pad = rows_pad * TILE
+    ci = composite_inputs(proj, extra_channels, h_pad, image_width, cfg,
+                          with_color)
+    t_lo = rank * rows_local * tw
+    hwc = composite_image(ci, h_pad, image_width, grad_values_only, t_lo,
+                          t_lo + rows_local * tw)
+    return Slab(hwc, ci.overflow, rows_pad)

@@ -93,6 +93,45 @@ def apply_deformation(params: G.GaussianParams, d_xyz, d_rotation, d_scaling,
     return means3d, scales, rots
 
 
+def project_view(camera: RenderCamera, params: G.GaussianParams,
+                 aux_alive: torch.Tensor, d_xyz=0.0, d_rotation=0.0,
+                 d_scaling=0.0, *, is_6dof: bool = False,
+                 scaling_modifier: float = 1.0, sh_degree: int = 3,
+                 override_color: torch.Tensor | None = None,
+                 mask: torch.Tensor | None = None, mean2d_offset=None,
+                 with_color: bool = True):
+    """The projection stage of `render`: deformation, opacity masked by
+    `aux_alive` (and `mask`), covariance, EWA projection with SH colour
+    (a zero placeholder without colour), and `mean2d_offset` added to the
+    projected means."""
+    H, W = camera.image_height, camera.image_width
+    means3d, scales, rots = apply_deformation(
+        params, d_xyz, d_rotation, d_scaling, is_6dof)
+    zero = torch.zeros((), dtype=means3d.dtype, device=means3d.device)
+    opacity = torch.where(aux_alive, G.get_opacity(params)[:, 0], zero)
+    if mask is not None:
+        opacity = torch.where(mask, opacity, zero)
+
+    cov3d = compute_cov3d(scales, rots, scaling_modifier)
+    if not with_color:
+        # colour is never composited: a zero placeholder skips SH
+        proj = project_gaussians(
+            means3d, cov3d, opacity, camera.buffers, H, W,
+            colors_precomp=torch.zeros((means3d.shape[0], 3),
+                                       dtype=means3d.dtype,
+                                       device=means3d.device))
+    elif override_color is not None:
+        proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
+                                 H, W, colors_precomp=override_color)
+    else:
+        proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
+                                 H, W, sh_coeffs=G.get_features(params),
+                                 sh_degree=sh_degree)
+    if mean2d_offset is not None:
+        proj = proj._replace(mean2d=proj.mean2d + mean2d_offset)
+    return proj
+
+
 def render(
     camera: RenderCamera,
     params: G.GaussianParams,
@@ -141,31 +180,12 @@ def render(
     if not with_color and not with_features:
         raise ValueError("with_color=False requires with_features=True")
     H, W = camera.image_height, camera.image_width
-
-    means3d, scales, rots = apply_deformation(
-        params, d_xyz, d_rotation, d_scaling, is_6dof)
-    zero = torch.zeros((), dtype=means3d.dtype, device=means3d.device)
-    opacity = torch.where(aux_alive, G.get_opacity(params)[:, 0], zero)
-    if mask is not None:
-        opacity = torch.where(mask, opacity, zero)
-
-    cov3d = compute_cov3d(scales, rots, scaling_modifier)
-    if not with_color:
-        # colour is never composited: a zero placeholder skips SH
-        proj = project_gaussians(
-            means3d, cov3d, opacity, camera.buffers, H, W,
-            colors_precomp=torch.zeros((means3d.shape[0], 3),
-                                       dtype=means3d.dtype,
-                                       device=means3d.device))
-    elif override_color is not None:
-        proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
-                                 H, W, colors_precomp=override_color)
-    else:
-        proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
-                                 H, W, sh_coeffs=G.get_features(params),
-                                 sh_degree=sh_degree)
-    if mean2d_offset is not None:
-        proj = proj._replace(mean2d=proj.mean2d + mean2d_offset)
+    proj = project_view(camera, params, aux_alive, d_xyz, d_rotation,
+                        d_scaling, is_6dof=is_6dof,
+                        scaling_modifier=scaling_modifier,
+                        sh_degree=sh_degree, override_color=override_color,
+                        mask=mask, mean2d_offset=mean2d_offset,
+                        with_color=with_color)
 
     extra = None
     if with_features:
@@ -182,9 +202,16 @@ def render(
     out = rasterize_tiled(proj, extra, bg_color, H, W, raster_cfg,
                           with_color=with_color,
                           grad_values_only=grad_values_only)
+    return render_outputs(out, proj.radius, with_color, with_features)
+
+
+def render_outputs(out: dict, radius: torch.Tensor, with_color: bool,
+                   with_features: bool) -> dict:
+    """render's output dict from rasterize_tiled's and the projected
+    radii."""
     result = {
-        "visibility_filter": proj.radius > 0,
-        "radii": proj.radius,
+        "visibility_filter": radius > 0,
+        "radii": radius,
         "alpha": out["alpha"],
         "overflow": out["overflow"],
         "overflow_half": out["overflow_half"],

@@ -26,16 +26,28 @@ into ``<model>/trace/`` as a Chrome trace. Python's, numpy's and torch's
 global generators are seeded with 0 first (the reference's safe_state),
 so the camera shuffle, and with it a resumed run, repeats.
 
-Not ported yet, and refused when given: ``--mesh`` and ``--mesh_backend``
-(ROADMAP.md, Queue 1 item 13). ``--ip`` and ``--port`` are accepted and
-unused, as in the root CLI.
+``--mesh N`` trains over a world of N ranks (parallel/trainer.py:
+ShardedTrainer): rank r holds block r of the gaussians and composites
+slab r of the image's tile rows, NCCL on ``cuda:r`` (``--device cuda``)
+or gloo on the CPU (``--device cpu``). Started alone, the CLI spawns the
+N ranks itself (torch.multiprocessing; the rendezvous is a file store
+under the model path); under ``torchrun --nproc_per_node N -m
+trase_tpu_torch.train ... --mesh N`` each process joins torchrun's world.
+On CUDA N may not exceed the device count: NCCL cannot put two ranks on
+one card, and the CLI exits at once, naming both numbers. Rank 0 alone
+prints and writes; its checkpoints and snapshots have the single-device
+layout. ``--mesh_backend`` takes None or ``pallas``, which run the same
+slab kernels; ``dense`` (trase_tpu's XLA compositor) is not ported.
+``--ip`` and ``--port`` are accepted and unused, as in the root CLI.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import random
+import shutil
 import sys
+import uuid
 
 import numpy as np
 import torch
@@ -44,10 +56,7 @@ from .config import ModelParams, OptimizationParams, PipelineParams, save_cfg
 
 # flags whose feature is not ported: (flag, its value when not given,
 # the ROADMAP item that ports it)
-NOT_PORTED = (
-    ("mesh", 0, "Queue 1 item 13"),
-    ("mesh_backend", None, "Queue 1 item 13"),
-)
+NOT_PORTED = ()
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -82,11 +91,12 @@ def make_parser() -> argparse.ArgumentParser:
                              "bf16 pairs (default; --no-pack_features "
                              "composites them in float32)")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="devices to train over (0 = one; more is not "
-                             "ported)")
+                        help="train over a world of N ranks, one card "
+                             "each (0 = one device, no world)")
     parser.add_argument("--mesh_backend", type=str, default=None,
                         choices=[None, "pallas", "dense"],
-                        help="sharded compositor backend (not ported)")
+                        help="sharded compositor: None and pallas run the "
+                             "compositor's slab mode; dense is not ported")
     parser.add_argument("--profile_iters", nargs=2, type=int, default=None,
                         metavar=("START", "STOP"),
                         help="torch.profiler trace of iterations START+1.."
@@ -100,7 +110,8 @@ def make_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     """Parse and check a command line: a flag whose feature is not ported
     raises (argparse's error, exit 2) when it is given a value other than
-    its default, and so does --profile_iters with STOP <= START."""
+    its default, and so do --profile_iters with STOP <= START, --mesh_backend
+    dense, and a --mesh on CUDA larger than the device count."""
     parser = make_parser()
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     for name, unset, item in NOT_PORTED:
@@ -109,6 +120,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"(ROADMAP.md, {item})")
     if args.profile_iters and args.profile_iters[1] <= args.profile_iters[0]:
         parser.error("--profile_iters STOP must be > START")
+    if args.mesh_backend == "dense":
+        parser.error("--mesh_backend dense is not ported: the port has one "
+                     "compositor, whose slab mode --mesh runs (ROADMAP.md, "
+                     "Queue 1, not to port: the dense backend)")
+    if args.mesh < 0:
+        parser.error("--mesh must be >= 0")
+    if args.mesh > 0 and torch.device(args.device).type == "cuda":
+        from .parallel.world import check_devices
+
+        try:
+            check_devices(args.mesh)
+        except RuntimeError as e:
+            parser.error(f"--mesh {args.mesh}: {e}")
     args.save_iterations.append(args.iterations)
     return args
 
@@ -159,39 +183,100 @@ class IterationProfiler:
 
 
 def main(argv=None):
+    """Parse the command line and train: on one device, or with --mesh N
+    over N ranks (joining torchrun's world when WORLD_SIZE is set, else
+    spawning them). Returns the trainer, or under torchrun this rank's;
+    None when it spawned the ranks."""
     args = parse_args(argv)
+    dataset = _prepare_model_dir(args)
+    if args.mesh == 0:
+        return train_run(args, dataset)
+    if "WORLD_SIZE" in os.environ:
+        size, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        if size != args.mesh:
+            raise SystemExit(f"--mesh {args.mesh} under a torchrun world of "
+                             f"{size} processes: they must be equal")
+        return _mesh_worker(rank, args, dataset, None)
+    import torch.multiprocessing as mp
+
+    store = os.path.join(dataset.model_path, f".mesh_{uuid.uuid4().hex}")
+    try:
+        # the workers by module name: this module may be __main__
+        worker = sys.modules["trase_tpu_torch.train"]._mesh_worker \
+            if "trase_tpu_torch.train" in sys.modules else _mesh_worker
+        mp.start_processes(worker, args=(args, dataset, store),
+                           nprocs=args.mesh, join=True,
+                           start_method="spawn")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    print("\nTraining complete.")
+    return None
+
+
+def _prepare_model_dir(args):
+    """The model directory and its cfg_args, written once per run."""
+    dataset = ModelParams.extract(args)
+    if not dataset.model_path:
+        dataset.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
+    print("Optimizing " + dataset.model_path)
+    os.makedirs(dataset.model_path, exist_ok=True)
+    args.model_path = dataset.model_path
+    save_cfg(dataset.model_path, args)
+    return dataset
+
+
+def _mesh_worker(rank, args, dataset, store_dir):
+    """One rank of a --mesh run: join the world (a file store in
+    `store_dir`, or torchrun's environment), train, leave; returns the
+    rank's trainer. Ranks other than 0 print nothing."""
+    from .parallel.world import close_world, init_world
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.mesh))
+    world = init_world(args.mesh, rank, args.device, store_dir=store_dir)
+    try:
+        return train_run(args, dataset, world)
+    finally:
+        close_world()
+
+
+def train_run(args, dataset, world=None):
+    """Build the scene and the trainer (a ShardedTrainer in a world), load
+    what the flags name, train, and return the trainer."""
     # the reference's safe_state: the camera shuffle (python's random)
-    # and every global draw repeat from run to run
+    # and every global draw repeat from run to run (and from rank to rank)
     random.seed(0)
     np.random.seed(0)
     torch.manual_seed(0)
 
     from . import resolve_device
 
-    device = resolve_device(args.device)
-    dataset = ModelParams.extract(args)
+    device = resolve_device(args.device) if world is None else world.device
     opt = OptimizationParams.extract(args)
     pipe = PipelineParams.extract(args)
-    if not dataset.model_path:
-        import uuid
-
-        dataset.model_path = os.path.join("./output", str(uuid.uuid4())[:10])
-    print("Optimizing " + dataset.model_path)
-    os.makedirs(dataset.model_path, exist_ok=True)
-    args.model_path = dataset.model_path
-    save_cfg(dataset.model_path, args)
 
     from .data.scene import Scene
     from .engine.loop import Trainer
     from .ops.rasterize import RasterConfig
 
     load_iter = args.load_iteration if args.load_iteration != -1 else None
-    scene = Scene(dataset, load_iteration=load_iter, device=device)
+    # a world builds the global state on the host (ShardedTrainer)
+    scene = Scene(dataset, load_iteration=load_iter,
+                  device=device if world is None else "cpu")
     raster_cfg = RasterConfig(pairs_per_gaussian=args.pairs_per_gaussian,
                               max_per_tile=args.max_per_tile,
                               pack_features=args.pack_features)
-    trainer = Trainer(dataset, opt, pipe, scene, raster_cfg=raster_cfg,
-                      device=device)
+    if world is None:
+        trainer = Trainer(dataset, opt, pipe, scene, raster_cfg=raster_cfg,
+                          device=device)
+    else:
+        from .parallel.trainer import ShardedTrainer
+
+        trainer = ShardedTrainer(dataset, opt, pipe, scene, world,
+                                 raster_cfg=raster_cfg)
+    lead = world is None or world.rank == 0
 
     # --load_iteration starts from that snapshot's gaussians; the deform
     # net is not reloaded from deform/iteration_N (trase_tpu's behaviour)
@@ -215,7 +300,7 @@ def main(argv=None):
 
         hooks.append(debug_hook)
     profiler = None
-    if args.profile_iters:
+    if args.profile_iters and lead:
         profiler = IterationProfiler(
             *args.profile_iters, os.path.join(dataset.model_path, "trace"),
             device)
@@ -230,14 +315,15 @@ def main(argv=None):
                       testing_iterations=set(args.test_iterations),
                       saving_iterations=set(args.save_iterations),
                       checkpoint_iterations=set(args.checkpoint_iterations),
-                      progress=not args.quiet,
+                      progress=not args.quiet and lead,
                       on_iteration=on_iteration if hooks else None)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
         if profiler is not None:
             profiler.finish()
     trainer.profile_trace = None if profiler is None else profiler.path
-    print("\nTraining complete.")
+    if world is None:
+        print("\nTraining complete.")
     return trainer
 
 

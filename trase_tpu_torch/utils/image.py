@@ -7,7 +7,9 @@ keeping the batch dimension) and, at :54-87, ``_lerp_matrix`` /
 torch.nn.functional.interpolate(mode="bilinear", align_corners=False,
 antialias=False), the reference's feature-image resample (train.py:284),
 written as two contractions against static 2-tap lerp matrices, so that
-its gradient is two dense products too.
+its gradient is two dense products too. ``bilinear_sample_flat``
+(:90-123) gathers the same resample's four taps at sampled pixels only,
+as the multi-device FEATURE step reads it (parallel/sharded.py).
 float32 products with TF32 off (trase_tpu_torch turns it off at import).
 """
 from __future__ import annotations
@@ -48,3 +50,32 @@ def bilinear_resize_mm(img: torch.Tensor, out_h: int,
     ww = torch.from_numpy(_lerp_matrix(out_w, w)).to(img.device)
     rows = torch.einsum("oh,hwc->owc", wh, img)
     return torch.einsum("pw,owc->opc", ww, rows)
+
+
+def _bilinear_taps(dst: torch.Tensor, in_size: int, out_size: int):
+    """Source taps (i0, i1, frac) for output coordinates `dst` under the
+    align_corners=False convention (the same formula as _lerp_matrix, in
+    float32 as trase_tpu computes it)."""
+    src = torch.clamp((dst.to(torch.float32) + 0.5) * (in_size / out_size)
+                      - 0.5, 0.0, in_size - 1)
+    i0 = torch.floor(src).to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=in_size - 1)
+    return i0, i1, src - i0
+
+
+def bilinear_sample_flat(img: torch.Tensor, pixel_idx: torch.Tensor,
+                         out_h: int, out_w: int) -> torch.Tensor:
+    """Rows `pixel_idx` of ``bilinear_resize_mm(img, out_h, out_w)
+    .reshape(-1, C)`` without the resized image: the four taps of each
+    sampled pixel, lerped in the same association. img: (H, W, C);
+    pixel_idx: (P,) flat indices into the (out_h, out_w) grid. Returns
+    (P, C)."""
+    h, w = img.shape[:2]
+    y0, y1, wy = _bilinear_taps(torch.div(pixel_idx, out_w,
+                                          rounding_mode="floor"), h, out_h)
+    x0, x1, wx = _bilinear_taps(pixel_idx % out_w, w, out_w)
+    wy = wy[:, None]
+    wx = wx[:, None]
+    r0 = img[y0, x0] * (1.0 - wy) + img[y1, x0] * wy
+    r1 = img[y0, x1] * (1.0 - wy) + img[y1, x1] * wy
+    return r0 * (1.0 - wx) + r1 * wx
