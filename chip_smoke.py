@@ -14,6 +14,9 @@ JSON line per phase:
                 registers and spill bytes (a spill fails), and the SASS
                 instructions of its compositing loop per evaluated and
                 per contributing pair-pixel, and its MUFU instructions;
+   bwd-res      the backward library's registers, stack, spill and shared
+                bytes for each of its 10 composite_bwd instantiations and
+                the two reduces (a spill fails);
 3. compare      the CUDA compositor against its plain PyTorch version
                 (composite_plain) on the same inputs, bit for bit, for 4
                 values (rgb+depth), 36 (+32 features) and 36 with
@@ -32,9 +35,11 @@ JSON line per phase:
                 against their plain versions on the same inputs and
                 cotangent, with errors per column group, and the log T the
                 reverse walk reconstructs at each tile's first pair against
-                log 1 = 0: 4 values at both scenes; 32 features alone,
-                full and values-only (geometry exactly 0, values equal to
-                the full mode's), unpacked and packed at both scenes;
+                log 1 = 0, for every layout in both modes, full and
+                values-only (geometry exactly 0, values bit for bit the
+                full mode's), at both scenes: 4 values (rgb + depth), 32
+                features alone and 36 (colour beside the features, a
+                42-word gradient row), these two unpacked and packed;
                 each kernel launched twice (bit-identical); at the full
                 scene the median and range of 5 rounds of 20 launches each
                 (device time, queued behind a sleep kernel; the reduce and
@@ -62,6 +67,14 @@ JSON line per phase:
                 its time and its image against the float32-deform frame,
                 and its time when the weights are repacked every frame
                 (frame_ms_fused_repack, the cache dropped before each);
+                then frames under autograd through rasterize_tiled for
+                each backward instantiation no training step launches
+                (36 values packed and unpacked, full and values-only; 4
+                values values-only), counted: the packed full frame's
+                gradients in every projected input against the plain
+                versions' on the card within BWD_TOL, each values-only
+                frame's geometry exactly 0 and its value gradients bit for
+                bit its full frame's;
 5. cli          writes a small Blender-format dataset and a model
                 directory with the port's own writers and runs
                 trase_tpu_torch.render;
@@ -195,6 +208,16 @@ JSON line per phase:
                 for bit; the same CLI spawning its rank (a subprocess);
                 --mesh 2, which must exit non-zero at once naming the
                 device count;
+   convert      the interop tools: synthetic Neu3D videos (4 cameras at
+                64x96, cv2) -> trase_tpu_torch.neu3d2blender
+                --random_points; label maps -> trase_tpu_torch.
+                extract_masks --from_dir into the scene's masks/, read
+                back by data/masks.py; trase_tpu_torch.train on the card
+                through both phases on that scene (60 iterations,
+                counted) to a finite test PSNR; the render CLI with
+                --text_prompt beside --text_prompt_mask (Grounded-SAM
+                absent: the warning, and text-prompt objects byte for
+                byte a run with the mask alone's); seconds for each;
 8. profile      torch.profiler over a few frames of phase 4 (float32 and
                 fused deform), of the viewer's Render mode, and a few steps
                 of phase 6, of each FEATURE arm and of the style step:
@@ -275,6 +298,10 @@ CLI_FEATURE_FROM, CLI_INTERVAL, CLI_DENSIFY_UNTIL = 150, 49, 260
 # <n_val, n_packed, with_color, residuals>
 FWD_KERNEL_RE = re.compile(
     r"composite_fwd_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E")
+# and the backward's: composite_bwd_kernel<n_val, n_packed, with_color,
+# values_only>
+BWD_KERNEL_RE = re.compile(
+    r"composite_bwd_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E")
 KERNELS = {
     "composite_fwd": ("trase_tpu_torch/csrc/composite_fwd.cu",
                       "trase_tpu/ops/rasterize_pallas.py:590"),
@@ -341,6 +368,10 @@ MESH_SLAB_KEYS = ("composite_fwd/4/0/1/1/slab", "composite_bwd/4/0/1/0/slab",
                   "reduce_pair_grads/10/slab", "composite_fwd/32/16/0/1/slab",
                   "composite_bwd/32/16/0/0/slab",
                   "reduce_pair_grads/38/slab")
+# the interop tools: synthetic Neu3D videos (tests/test_converters.py's
+# size), label-map objects per image, the converted scene's train run
+CONVERT_SIZE, CONVERT_CAMS, CONVERT_FRAMES = (64, 96), 4, 4
+CONVERT_LABELS, CONVERT_ITERATIONS = 4, 60
 # host IO: cameras' SAM-style mask stacks (native .npz) at the bench
 # FEATURE step's size and at full size; the loop's FEATURE run
 MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
@@ -372,6 +403,17 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_call(fn):
+    """(fn(), its device time in ms) of one call (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def queued_ms(fn, iters: int) -> float:
@@ -453,6 +495,22 @@ def res_usage(lib: str) -> dict:
                          "stack": int(use["STACK"]),
                          "local": int(use["LOCAL"]),
                          "shared": int(use["SHARED"])}
+    return out
+
+
+def bwd_res_usage(lib: str) -> dict:
+    """Registers, stack, local (spill) and shared bytes of every kernel of
+    the backward library: composite_bwd_kernel by its instantiation
+    (n_val/n_packed/with_color/values_only) and the two reduces."""
+    out = {}
+    for fn, use in res_usage(lib).items():
+        m = BWD_KERNEL_RE.search(fn)
+        if m:
+            out["composite_bwd/" + "/".join(m.groups())] = use
+        elif "reduce_pair_grads_kernel" in fn:
+            out["reduce_pair_grads"] = use
+        elif "reduce_slab_pairs_kernel" in fn:
+            out["reduce_slab_pairs"] = use
     return out
 
 
@@ -937,8 +995,9 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
                 with_color=True, sass=None):
     """Forward residuals, backward kernel and reduce kernel against their
     plain versions on one input and one seeded cotangent, one row per
-    backward mode (full; and values-only for the features-only layouts);
-    each kernel launched twice (bit-identical results). With `timed`, also
+    backward mode (full, then values-only: geometry exactly 0, value words
+    bit for bit the full mode's); each kernel launched twice
+    (bit-identical results). With `timed`, also
     times each (medians of repeated rounds) and reckons the bounds and the
     backward's shuffle floor from this input's counts."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
@@ -967,7 +1026,7 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
     inv = RC.inverse_pairs(ci.sorted_pid)
     groups = dict(GEOM_GROUPS, values=(6, words))
     rows, full_pair = [], None
-    for values_only in ((False,) if with_color else (False, True)):
+    for values_only in (False, True):
         mode = dict(with_color=with_color, values_only=values_only)
         first = torch.empty_like(logt)
         dpair = RC.composite_bwd(*args, g, logt, stop, logt_first=first,
@@ -975,8 +1034,11 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
         again = RC.composite_bwd(*args, g, logt, stop, **mode)
         torch.cuda.synchronize()
         stats = {}
-        ref_pair = RC.composite_bwd_plain(*args, g, logt, stop, stats=stats,
-                                          **mode)
+        # the plain version's time is this one call's, which also counts
+        # the stats (three host syncs per pair rank, ~1 % at the bench
+        # scene): a second plain walk of the bench scene costs 0.7-2.5 s
+        ref_pair, plain_ms = timed_call(lambda: RC.composite_bwd_plain(
+            *args, g, logt, stop, stats=stats, **mode))
         dpay = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
         dpay_again = RC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
         torch.cuda.synchronize()
@@ -1034,8 +1096,7 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
             row["walk"] = {"tiles": walk.numel(), "max": int(walk.max()),
                            "mean": float(walk.float().mean()),
                            "p99": float(walk.float().quantile(0.99))}
-            row["bwd_plain_ms"] = cuda_ms(lambda: RC.composite_bwd_plain(
-                *args, g, logt, stop, **mode), 1)
+            row["bwd_plain_ms"] = plain_ms
             nbytes = (nv * (4 * kpay.shape[1] + 4) + nv * 4 * words
                       + 4 * H * W * (1 + n_val) + 8 * logt.numel()
                       + 4 * ci.tile_start.numel())
@@ -1043,15 +1104,15 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
             ops = 16 * stats["evaluated"] + per_counted * stats["counted"]
             # the kernel's shuffles: every warp takes every 8-pair
             # sub-batch below its tile's largest stop, and the geometry
-            # moments (and rgb + depth beside them) take two xor steps each
-            # in it; values-only takes none. A model of the design this
+            # moments (full mode) and rgb + depth beside them (with colour)
+            # take two xor steps each in it. A model of the design this
             # kernel replaced: a warp-wide all-reduce (5 shuffles) per word
             # summed, in every (pair, warp) step with a counted lane
             sub_steps = BWD_WARPS * int(
                 ((walk // BWD_BATCH) * (BWD_BATCH // BWD_SUB)
                  + (walk % BWD_BATCH + BWD_SUB - 1) // BWD_SUB).sum())
-            shuffles = 0 if values_only else 2 * (6 + (n_val if with_color
-                                                       else 0))
+            shuffles = 2 * ((0 if values_only else 6)
+                            + (4 if with_color else 0))
             summed = words - 6 if values_only else words
             row.update(bwd_bytes=nbytes, bwd_ops=ops,
                        evaluated=stats["evaluated"], counted=stats["counted"],
@@ -2881,6 +2942,11 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
                              for k, v in sorted(sass.items())}})
     spills = {k: v for k, v in sass.items() if v["local"] or v["stack"]}
     assert not spills, f"forward instantiations spill: {spills}"
+    bwd_res = bwd_res_usage(libs["composite_bwd"][0])
+    emit({"phase": "bwd-res", "instantiations": bwd_res})
+    spills = {k: v for k, v in bwd_res.items() if v["local"] or v["stack"]}
+    assert len(bwd_res) == 12 and not spills, \
+        f"backward library: {sorted(bwd_res)}, spills: {spills}"
 
     # 3. kernels vs plain (and the small scene vs the oracle)
     rows = []
@@ -2904,8 +2970,9 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     assert oracle_err <= 2e-3, oracle_err
     bwd_rows = compare_bwd("small", proj, None, H, W, cfg16, False)
     for pack in (False, True):
-        bwd_rows += compare_bwd("small", proj, feats, H, W, cfg16, False,
-                                pack=pack, with_color=False)
+        for with_color in (False, True):
+            bwd_rows += compare_bwd("small", proj, feats, H, W, cfg16, False,
+                                    pack=pack, with_color=with_color)
 
     n, cap, H, W = N_GAUSSIANS, CAPACITY, HEIGHT, WIDTH
     rng = np.random.default_rng(0)
@@ -2937,6 +3004,10 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
         for pack in (True, False):
             bench_bwd += compare_bwd("bench", bproj, bfeats, H, W, cfg, True,
                                      pack=pack, with_color=False, sass=sass)
+        # colour beside the features (36 values), packed as served
+        for pack in (True, False):
+            bench_bwd += compare_bwd("bench", bproj, bfeats, H, W, cfg, True,
+                                     pack=pack, with_color=True, sass=sass)
     bwd_rows += bench_bwd
     kb = bench_bwd[0]
     # the fused deform MLP: a ragged tile, then the bench scene's capacity
@@ -3049,6 +3120,9 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
           "fused_vs_f32_image_mean_abs_diff": float(fused_diff.mean()),
           "overflow": float(out["overflow"]),
           "alpha_mean": float(out["alpha"].mean())})
+    grad_row, launches["render_grad"], layouts["render_grad"] = \
+        render_grad_check(params, aux, cam, net, cfg, dev)
+    emit(grad_row)
 
     # 5. the render CLI on the card
     from trase_tpu_torch import render as cli
@@ -3144,6 +3218,13 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
      layouts["mesh_steps"]) = mesh_phase(
         params, aux, cam, net, cfg, dev, tmp.name, src)
     emit(row)
+
+    # 7f. the interop tools: a converted dataset trained on the card, masks
+    # from label maps, the render CLI's --text_prompt fallback
+    conv = convert_phase(tmp.name, src, seg_dir, it, seg["segment_id"], dev)
+    launches["convert"] = conv.pop("launches")
+    layouts["convert"] = conv.pop("layouts")
+    emit(conv)
     tmp.cleanup()
 
     # 8. where a frame's and a step's device time goes
@@ -3175,6 +3256,237 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+def render_grad_check(params, aux, cam, net, cfg, dev):
+    """Bench-scene frames under autograd through rasterize_tiled, one per
+    backward instantiation no training step launches: colour beside the
+    32 features (36 values), packed (as served) and unpacked, full and
+    values-only, and rgb + depth values-only. The gradient of a seeded
+    loss in every projected input (the payload's columns before
+    build_payload's masks and log) through the kernels, counted. The
+    packed full frame against the same frame through the plain versions
+    on the card, within BWD_TOL of each field's largest magnitude; each
+    values-only frame: exact zeros in mean2d, conic and opacity, and the
+    value inputs' gradients bit for bit its full frame's."""
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    H, W = HEIGHT, WIDTH
+    with torch.no_grad():
+        proj, feats = projected(params, aux, cam, deltas(params, net, 0.5),
+                                True)
+    names = ("mean2d", "conic", "opacity", "color", "depth")
+    geometry = ("mean2d", "conic", "opacity")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w_rgb = torch.randn((3, H, W), generator=gen, device=dev)
+    w_feat = torch.randn((32, H, W), generator=gen, device=dev)
+    bg = torch.zeros(3, device=dev)
+
+    def frame(pack, with_features, values_only):
+        leaves = {k: getattr(proj, k).detach().clone().requires_grad_(True)
+                  for k in names}
+        inputs = list(leaves.values())
+        f = None
+        if with_features:
+            f = feats.detach().clone().requires_grad_(True)
+            inputs.append(f)
+        out = RC.rasterize_tiled(proj._replace(**leaves), f, bg, H, W,
+                                 cfg._replace(pack_features=pack),
+                                 grad_values_only=values_only)
+        loss = ((out["render"] * w_rgb).sum() + out["alpha"].sum()
+                + 0.1 * out["depth"].sum())
+        if with_features:
+            loss = loss + (out["feats"] * w_feat).sum()
+        g = torch.autograd.grad(loss, inputs)
+        return dict(zip(names + ("features",), g))
+
+    cases = {"36/16/1": (True, True), "36/0/1": (False, True),
+             "4/0/1": (False, False)}
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {}
+    for lay, (pack, with_features) in cases.items():
+        for vo in (False, True) if with_features else (True,):
+            got[f"{lay}/{int(vo)}"] = frame(pack, with_features, vo)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, layouts = counts(), layout_counts()
+    want = {"composite_fwd/36/16/1/1": 2, "composite_fwd/36/0/1/1": 2,
+            "composite_fwd/4/0/1/1": 1, "reduce_pair_grads/42": 4,
+            "reduce_pair_grads/10": 1,
+            **{f"composite_bwd/{k}": 1 for k in got}}
+    assert layouts == want, layouts
+    t0 = time.perf_counter()
+    with PlainKernels():
+        ref = frame(True, True, False)
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    full = got["36/16/1/0"]
+    rel = {k: float((full[k] - ref[k]).abs().max())
+           / (float(ref[k].abs().max()) + 1e-30) for k in ref}
+    scale = {k: float(ref[k].abs().max()) for k in ref}
+    bad = [k for k, v in rel.items()
+           if not (v <= BWD_TOL and bool(torch.isfinite(full[k]).all()))]
+    assert not bad and min(scale.values()) > 0, (bad, rel, scale)
+    vo_check = {}
+    for key, g in got.items():
+        if key.endswith("/1"):
+            zero = all(not bool(g[k].any()) for k in geometry)
+            full_key = key[:-1] + "0"
+            same = (full_key not in got
+                    or all(torch.equal(g[k], got[full_key][k])
+                           for k in g if k not in geometry))
+            vo_check[key] = {"geometry_zero": zero,
+                             "values_equal_full": same}
+            assert zero and same, (key, vo_check[key])
+    return ({"phase": "render", "check": "gradients on the card",
+             "height": H, "width": W, "layouts": layouts,
+             "packed_full_vs_plain_max_rel_diff": rel, "grad_scale": scale,
+             "tol": BWD_TOL, "values_only": vo_check,
+             "seconds": seconds, "plain_seconds": plain_seconds},
+            launches, layouts)
+
+
+def llff_pose_row(eye, h, w, fl=80.0):
+    """One LLFF poses_bounds row for a camera at `eye` looking at the
+    origin ([down right back] columns, tests/test_converters.py's)."""
+    fwd = -eye / np.linalg.norm(eye)
+    right = np.cross(fwd, np.array([0, 1, 0.0]))
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    c2w = np.stack([down, right, -fwd, eye], axis=1)
+    hwf = np.array([[h], [w], [fl]])
+    return np.concatenate([c2w, hwf], axis=1).reshape(-1).tolist() + [0.5,
+                                                                      8.0]
+
+
+def convert_phase(root, src, seg, it, sid, dev) -> dict:
+    """The interop tools on the card's machine. Synthetic Neu3D videos
+    (CONVERT_CAMS cameras at CONVERT_SIZE, cv2's mp4v) and LLFF poses ->
+    trase_tpu_torch.neu3d2blender --random_points (a 100k-point cloud);
+    label maps (CONVERT_LABELS vertical stripes) -> extract_masks
+    --from_dir into the scene's masks/, read back by data/masks.py equal
+    to the labels; trase_tpu_torch.train on the card through both phases
+    (GAUSSIAN, then FEATURE blocks on those masks) to a finite test PSNR,
+    counted; then the render CLI on the segment-cli model with
+    --text_prompt beside its --text_prompt_mask: without Grounded-SAM it
+    warns and writes the text-prompt objects of the mask alone, byte for
+    byte those of a run with the mask alone. Seconds for each."""
+    import contextlib
+    import io
+    import shutil
+
+    import cv2
+    from PIL import Image
+
+    from trase_tpu_torch import extract_masks as masks_cli
+    from trase_tpu_torch import neu3d2blender
+    from trase_tpu_torch import render as cli
+    from trase_tpu_torch import train as train_cli
+    from trase_tpu_torch.data.masks import decode_mask_file
+
+    h, w = CONVERT_SIZE
+    scene = os.path.join(root, "neu3d")
+    os.makedirs(scene)
+    eyes = [np.array(e) for e in ((0, 0, 4.0), (1.2, 0.2, 3.8),
+                                  (-1.2, -0.2, 3.8), (0.6, -0.4, 3.9))]
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(CONVERT_CAMS):
+        vw = cv2.VideoWriter(os.path.join(scene, f"cam{i:02d}.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+        assert vw.isOpened(), "cv2 cannot write mp4v"
+        for f in range(CONVERT_FRAMES):  # smooth colour fields + noise
+            base = np.stack([(xx + 7 * f + 13 * i) % w / w * 255,
+                             (yy + 5 * f) % h / h * 255,
+                             np.full((h, w), 40.0 * i)], axis=-1)
+            vw.write(np.clip(base + rng.normal(0, 8, (h, w, 3)), 0,
+                             255).astype(np.uint8))
+        vw.release()
+    np.save(os.path.join(scene, "poses_bounds.npy"),
+            np.array([llff_pose_row(e, h, w) for e in eyes[:CONVERT_CAMS]]))
+    out = {"size": [h, w], "cameras": CONVERT_CAMS,
+           "frames": CONVERT_FRAMES}
+    t0 = time.perf_counter()
+    neu3d2blender.main(["--path", scene, "--random_points"])
+    out["neu3d2blender_s"] = time.perf_counter() - t0
+    counts_json = {}
+    for split in ("train", "test"):
+        with open(os.path.join(scene, f"transforms_{split}.json")) as f:
+            counts_json[split] = len(json.load(f)["frames"])
+    assert counts_json == {"train": (CONVERT_CAMS - 1) * CONVERT_FRAMES,
+                           "test": CONVERT_FRAMES}, counts_json
+    assert os.path.exists(os.path.join(scene, "points3d.ply"))
+    out["frames_by_split"] = counts_json
+
+    labels = os.path.join(root, "neu3d_labels")
+    os.makedirs(labels)
+    stripe = np.minimum(xx * CONVERT_LABELS // w, CONVERT_LABELS - 1) + 1
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(scene, "images")))
+    for name in names:
+        Image.fromarray(stripe.astype(np.uint8) * 40).save(
+            os.path.join(labels, name + ".png"))
+    t0 = time.perf_counter()
+    masks_cli.main(["--from_dir", labels, "--output", scene])
+    out["extract_masks_s"] = time.perf_counter() - t0
+    want = np.stack([stripe == v for v in range(1, CONVERT_LABELS + 1)])
+    for name in names:
+        got = decode_mask_file(os.path.join(scene, "masks", name + ".npz"))
+        assert got is not None and np.array_equal(got, want), name
+    out["mask_files"] = len(names)
+
+    mdl = os.path.join(root, "neu3d_model")
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([
+        "-s", scene, "-m", mdl, "--eval", "--iterations",
+        str(CONVERT_ITERATIONS), "--warm_up", "10",
+        "--warm_up_3d_features", "20", "--iterative_opt_interval", "10",
+        "--densify_from_iter", "15", "--densification_interval", "20",
+        "--densify_until_iter", "40", "--num_sampled_pixels", "512",
+        "--num_sampled_masks", str(CONVERT_LABELS), "--pairs_per_gaussian",
+        "6", "--device", dev.type, "--quiet"])
+    out["train_s"] = time.perf_counter() - t0
+    launches, layouts = counts(), layout_counts()
+    assert launches == dict(compositor(CONVERT_ITERATIONS), deform_mlp=0), \
+        launches
+    assert 0 < trainer.feature_calls < CONVERT_ITERATIONS, \
+        trainer.feature_calls
+    psnr = float(trainer.evaluate(CONVERT_ITERATIONS))
+    assert np.isfinite(psnr) and psnr > 0, psnr
+    out.update(iterations=CONVERT_ITERATIONS,
+               feature_steps=trainer.feature_calls, test_psnr=psnr)
+
+    # the render CLI on two copies of the segment-cli model: the mask
+    # alone, then --text_prompt beside it (the same objects folder name)
+    text, logs = {}, {}
+    for name, prompt in (("mask", []), ("prompt", ["--text_prompt",
+                                                   "center"])):
+        copy = os.path.join(root, f"segment_{name}")
+        shutil.copytree(seg, copy)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli.main(["-s", src, "-m", copy, "--iteration", str(it),
+                      "--pairs_per_gaussian", "6", "--use_kmeans",
+                      "--segment_ids", str(sid), "--text_prompt_mask",
+                      os.path.join(root, "center.png"), "--threshold", "50",
+                      "--skip_train", "--device", dev.type] + prompt)
+        out[f"render_{name}_s"] = time.perf_counter() - t0
+        logs[name] = log.getvalue()
+        folder = os.path.join(copy, "test", f"ours_{it}",
+                              "text_prompt_center_objects")
+        text[name] = {}
+        for f in sorted(os.listdir(folder)):
+            with open(os.path.join(folder, f), "rb") as fh:
+                text[name][f] = fh.read()
+    assert "Grounded-SAM unavailable" in logs["prompt"]
+    assert "Grounded-SAM unavailable" not in logs["mask"]
+    pngs = [f for f in text["mask"] if f.endswith(".png")]
+    assert pngs and text["prompt"] == text["mask"], sorted(text["prompt"])
+    out["text_prompt_fallback"] = {"warned": True, "pngs_equal": len(pngs)}
+    out.update(launches=launches, layouts=layouts)
+    return {"phase": "convert", **out}
 
 
 def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,

@@ -249,7 +249,8 @@ def _bwd_scene(name):
 
 # (n_val, n_packed, with_color, residuals): every forward instantiation
 FWD_LAYOUTS = [(4, 0, True, False), (4, 0, True, True), (36, 0, True, False),
-               (36, 16, True, False), (32, 0, False, False),
+               (36, 0, True, True), (36, 16, True, False),
+               (36, 16, True, True), (32, 0, False, False),
                (32, 0, False, True), (32, 16, False, False),
                (32, 16, False, True)]
 
@@ -309,9 +310,11 @@ def test_forward_instantiations_match_plain(scene, layout):
 
 
 # (n_val, n_packed, with_color, values_only): every backward instantiation
-BWD_LAYOUTS = [(4, 0, True, False), (32, 0, False, False),
-               (32, 0, False, True), (32, 16, False, False),
-               (32, 16, False, True)]
+BWD_LAYOUTS = [(4, 0, True, False), (4, 0, True, True),
+               (36, 0, True, False), (36, 0, True, True),
+               (36, 16, True, False), (36, 16, True, True),
+               (32, 0, False, False), (32, 0, False, True),
+               (32, 16, False, False), (32, 16, False, True)]
 
 
 @pytest.mark.cuda
@@ -332,7 +335,7 @@ def test_backward_instantiations_match_plain(scene, layout):
         pytest.skip("needs a CUDA device")
     n_val, n_packed, with_color, values_only = layout
     proj, feats, H, W, K = _bwd_scene(scene)
-    ci = TRC.composite_inputs(proj, None if with_color else feats, H, W,
+    ci = TRC.composite_inputs(proj, None if n_val == 4 else feats, H, W,
                               TR.RasterConfig(pairs_per_gaussian=K,
                                               pack_features=n_packed > 0),
                               with_color)
@@ -384,7 +387,7 @@ def test_backward_instantiations_match_plain(scene, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("words", [10, 38])
+@pytest.mark.parametrize("words", [10, 38, 42])
 @pytest.mark.parametrize("k", [6, 16, 64])
 def test_reduce_matches_plain_bitwise(words, k):
     """The reduce kernel on random rows through a random permutation,

@@ -208,19 +208,25 @@ def test_render_gradients_reach_params_and_deltas():
 
 @pytest.mark.parametrize("option", [
     dict(layout=(36, 0, True)), dict(layout=(36, 16, True)),
-    dict(layout=(4, 0, True), values_only=True)])
+    dict(layout=(4, 0, True), values_only=True),
+    dict(layout=(8, 0, True), raises=True)])
 def test_training_options_not_ported(option):
-    """What still has no backward kernel on the card: 32 features beside
-    rgb + depth under autograd (unpacked and packed), and values-only
-    with colour; the training layouts pass (on the CPU the plain versions
-    take every layout)."""
+    """The options the card's backward once lacked, 32 features beside rgb
+    + depth under autograd (unpacked and packed) and values-only with
+    colour, now pass check_card_backward, as does every forward layout in
+    both modes; a layout the forward has no kernel for either still
+    raises."""
     from trase_tpu_torch.ops import rasterize_cuda as TRC
 
-    with pytest.raises(NotImplementedError, match="36 values"):
-        TRC.check_card_backward(**option)
-    for layout in ((4, 0, True), (32, 0, False), (32, 16, False)):
+    option = dict(option)
+    if option.pop("raises", False):
+        with pytest.raises(NotImplementedError, match="no compositor kernel"):
+            TRC.check_card_backward(**option)
+        return
+    TRC.check_card_backward(**option)
+    for layout in TRC.SUPPORTED:
         TRC.check_card_backward(layout)
-        TRC.check_card_backward(layout, values_only=not layout[2])
+        TRC.check_card_backward(layout, values_only=True)
 
 
 @pytest.mark.parametrize("values_only", [False, True])

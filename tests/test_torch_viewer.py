@@ -196,10 +196,16 @@ def test_mode_frames(viewers, mode):
         assert tuple(to["render_u8"].shape) == (SIZE, SIZE, 3)
 
 
-def test_text_prompt_without_mask_raises(viewers):
-    _, tv = viewers
-    with pytest.raises(NotImplementedError, match="Grounded-SAM"):
-        tv.text_select("the red blob")
+def test_text_prompt_without_mask_raises(viewers, monkeypatch):
+    """Without mask2d both viewers ask Grounded-SAM for the mask: without
+    groundingdino / segment_anything (their imports blocked) that raises
+    ImportError in each."""
+    for name in ("groundingdino", "segment_anything"):
+        monkeypatch.setitem(sys.modules, name, None)
+    jv, tv = viewers
+    for v in (jv, tv):
+        with pytest.raises(ImportError, match="groundingdino"):
+            v.text_select("the red blob")
 
 
 @pytest.mark.parametrize("blob", [0, 1, 2])

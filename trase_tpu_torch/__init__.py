@@ -7,7 +7,9 @@ compositor and its gradient (``ops/rasterize_cuda.py`` +
 ``csrc/composite_fwd.cu``, ``csrc/composite_bwd.cu``) and the fused
 deform MLP (``ops/mlp_cuda.py`` + ``csrc/deform_mlp.cu``). The package
 imports torch and numpy only (sklearn for HDBSCAN clustering, scipy's
-Rotation for the viewer's orbit camera): never jax, flax or
+Rotation for the viewer's orbit camera and the Immersive converter, cv2
+for the dataset converters; groundingdino and segment_anything for text
+prompts and SAM masks where installed): never jax, flax or
 ``trase_tpu``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks

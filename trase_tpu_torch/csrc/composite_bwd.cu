@@ -2,8 +2,10 @@
 // gradients: the CUDA port of trase_tpu's Pallas kernels `_bwd_group_kernel`
 // (trase_tpu/ops/rasterize_pallas.py:817) and `_transpose_kernel` (:1195)
 // with the un-sort it feeds (`unsort_slot_gradients`, :1355). They carry the
-// gradient of both training steps: GAUSSIAN (rgb + depth) and FEATURE (32
-// features alone, unpacked or bf16-packed, full or values-only).
+// gradient of both training steps, GAUSSIAN (rgb + depth) and FEATURE (32
+// features alone, unpacked or bf16-packed), and of every other layout the
+// forward composites (rgb + depth beside 32 features, unpacked or packed),
+// each full or values-only, as trase_tpu differentiates any value layout.
 //
 // 1. composite_bwd_kernel: one 256-thread block per 16x16 tile, one thread
 //    per pixel. The forward (composite_fwd.cu, WITH_RES) left per pixel
@@ -41,12 +43,15 @@
 //      add the 4 with v dpow, v dpow u and v^2 dpow formed per row, and
 //      with dx = mx' - u, dy = my' - v (mx', my': the mean's offsets from
 //      the centre) each word is a combination of the six moments, e.g.
-//      sum dpow dx^2 = mx'^2 S - 2 mx' S_u + S_uu. rgb + depth (the
-//      GAUSSIAN layout) ride along in the same lanes: each sums w g_c over
-//      its 8 pixels (g_c from a per-warp copy in shared memory), and the
-//      same two xor steps add them. Per 8 pairs and warp that is 12 (20)
-//      shuffles, where a warp-wide all-reduce per word and pair took 5 x
-//      words: 190 at 38 words, 50 at 10;
+//      sum dpow dx^2 = mx'^2 S - 2 mx' S_u + S_uu. rgb + depth (value
+//      columns 0-2 and the last) ride along in the same lanes: each sums
+//      w g_c over its 8 pixels (g_c from a per-warp copy in shared
+//      memory), and the same two xor steps add them. Per 8 pairs and warp
+//      that is 12 (20 with rgb + depth) shuffles, where a warp-wide
+//      all-reduce per word and pair took 5 x words: 190 at 38 words, 50
+//      at 10. A layout with colour and features (42 words: rgb 3,
+//      features 32, depth) takes both: the features by the products
+//      (lane c, value column 3 + c), rgb + depth beside the moments;
 //    - the 8 warps' partials, staged in shared memory, summed in warp order.
 //    The per-pixel expressions are the plain version's (-fmad=false) up to
 //    w and dpow. The products do not round g_c w before they add it, the
@@ -68,9 +73,10 @@
 //    trase_tpu's values_only, rasterize_pallas.py:938-948) the kernel emits
 //    d v_c = g_c w alone and exact zeros in the 6 geometry words: it still
 //    reconstructs each pair's alpha and the reverse log T, but skips q, the
-//    suffix R, dalpha and the chain. The value words are the same
-//    expressions summed in the same order as the full mode's, so the two
-//    modes agree on them bit for bit.
+//    suffix R, dalpha and the chain; with colour its moment lanes sum
+//    rgb + depth alone. The value words are the same expressions summed
+//    in the same order as the full mode's, so the two modes agree on them
+//    bit for bit.
 // 2. reduce_pair_grads_kernel: one warp per few gaussians. The lanes that
 //    hold a gaussian's K sorted positions inv[g K + k] (inv is the inverse
 //    of the sort's permutation) load them once, one lane each, and broadcast
@@ -100,10 +106,12 @@
 //    reduce_pair_grads_kernel over the range at 10.
 //
 // Payload layouts (as the forward reads them, composite_fwd.cu): values
-// [rgb 3, depth] (the backward has no instantiation for rgb with features)
-// or features alone (WITH_COLOR false), unpacked or bf16-packed two per word
-// (NPACK > 0). The gradient row is always unpacked, 6 + NV words: a packed
-// payload row (6 + 16 words) is narrower than its gradient row (6 + 32).
+// [rgb 3, depth], [rgb 3, features 32, depth] or the features alone
+// (WITH_COLOR false), the features unpacked or bf16-packed two per word
+// (NPACK > 0; with colour the payload row is [geom | rgb 3, depth, 16
+// words]). The gradient row is always unpacked, 6 + NV words in value
+// column order: a packed payload row (6 + 16 or 6 + 20 words) is narrower
+// than its gradient row (38 or 42).
 //
 // Bound on one H100 SXM (3.35 TB/s, 67 TFLOP/s f32 non-tensor, 132 SMs):
 //   backward bytes: each valid pair's payload row (4 x its words) and
@@ -134,13 +142,17 @@
 // read a pair's words as 128-bit broadcasts (8 + 2 loads for q and the
 // geometry at 38 words, in place of 38), and each warp's w and dpow of 8
 // pairs: 44,320 B for the 10-word layout, 104,736 B for the 38-word ones
-// (96,544 B values-only), so two blocks fit on an SM. The launch bounds
-// ask for two blocks of 256 threads per SM (at most 128 registers) at 38
+// (96,544 B values-only), so two blocks fit on an SM; 118,048 B at 42
+// words (109,856 B values-only): one block (two). The launch bounds ask
+// for two blocks of 256 threads per SM (at most 128 registers) at 38
 // words and four (64) at 10: more blocks hide the 10-word walk's latency
 // better than more registers would (three blocks at 80 registers measured
-// 7 % slower on the H100). ptxas (-Xptxas -v, sm_90a): 127 registers at
-// 38 words full, 90-94 values-only, 64 at 10 words, 40 for the reduce; no
-// spills, no stack frame.
+// 7 % slower on the H100). The 42-word full mode asks for one: its 37
+// cotangents and 32 product terms per thread do not fit 128 registers
+// beside the rest. ptxas (-Xptxas -v, sm_90a): 127 registers at 38 words
+// full, 90-94 values-only, 64 at 10 words, 40 for the reduce; no spills,
+// no stack frame (chip_smoke.py reads every instantiation's registers and
+// spill bytes with cuobjdump and fails on a spill).
 //
 // Built with -fmad=false, like the forward, so that the plain PyTorch
 // versions (ops/rasterize_cuda.py: composite_bwd_plain,
@@ -161,20 +173,28 @@ constexpr int kSub = 8;              // pairs per product sub-batch
 constexpr unsigned kFull = 0xffffffffu;
 
 // Stages payload word cw of one pair unpacked into its staged row:
-// [values NV | geometry 6], the bf16 features packed two per payload word
-// (the features-only layout: feature f in the low half of word f, feature
-// f + NPACK in the high half) split into their halves.
-template <int NV, int NPACK>
+// [values NV | geometry 6]. Packed layouts (NPACK > 0) carry bf16 features
+// two per payload word, feature f in the low half of word f and feature
+// f + NPACK in the high half, after rgb + depth where there is colour
+// (payload [geom 6 | rgb 3, depth, NPACK words], staged [rgb 3, features
+// 2 NPACK, depth | geom 6], the forward's order).
+template <int NV, int NPACK, bool WITH_COLOR>
 __device__ __forceinline__ void stage_word(float* row, int cw, float word) {
   if (cw < kGeom) {
     row[NV + cw] = word;
   } else if constexpr (NPACK == 0) {
     row[cw - kGeom] = word;
   } else {
-    const int f = cw - kGeom;
-    const unsigned int u = __float_as_uint(word);
-    row[f] = __uint_as_float(u << 16);
-    row[f + NPACK] = __uint_as_float(u & 0xffff0000u);
+    constexpr int kPlain = WITH_COLOR ? 4 : 0;  // rgb + depth, unpacked
+    const int r = cw - kGeom;
+    if (r < kPlain) {
+      row[r < 3 ? r : NV - 1] = word;
+    } else {
+      const int f = (WITH_COLOR ? 3 : 0) + r - kPlain;
+      const unsigned int u = __float_as_uint(word);
+      row[f] = __uint_as_float(u << 16);
+      row[f + NPACK] = __uint_as_float(u & 0xffff0000u);
+    }
   }
 }
 
@@ -187,23 +207,33 @@ __device__ __forceinline__ void stage_word(float* row, int cw, float word) {
 // gid[kBatch] and warp_max[kWarps] ints.
 template <int NV, int NPACK, bool WITH_COLOR, bool VALUES_ONLY>
 struct Layout {
-  static constexpr int kPayWords = kGeom + (NPACK > 0 ? NPACK : NV);
+  static constexpr int kPlain = WITH_COLOR ? 4 : 0;  // rgb + depth
+  static constexpr int kPayWords = kGeom + (NPACK > 0 ? kPlain + NPACK : NV);
   static constexpr int kWords = kGeom + NV;  // gradient row, always unpacked
-  // 32 values: d v by lane c over the warp's pixels, value c; rgb + depth:
-  // beside the geometry moments, 4 lanes per pair over 8 pixels each
-  static constexpr bool kValueProduct = NV == 32;
+  // 32 features (alone, or at value columns 3-34 beside rgb + depth): d v
+  // by lane c over the warp's pixels, feature c
+  static constexpr bool kValueProduct = NV >= 32;
+  static constexpr int kFeat0 = WITH_COLOR ? 3 : 0;  // first feature column
+  // rgb + depth (value columns 0-2 and NV - 1): beside the geometry
+  // moments, 4 lanes per pair over 8 pixels each
+  static constexpr int kQV = kPlain;
+  // the moment lanes run for the geometry (full mode) or rgb + depth
+  static constexpr bool kMoments = !VALUES_ONLY || kQV > 0;
   static constexpr int kWbuf = kWarps * kSub * 32;
   static constexpr int kPbuf = VALUES_ONLY ? 0 : kWarps * kSub * 32;
-  static constexpr int kGbuf = kValueProduct ? 0 : kWarps * 32 * NV;
+  static constexpr int kGbuf = kQV > 0 ? kWarps * 32 * 4 : 0;
   static constexpr int kPart = kWarps * kBatch * kWords;
   static constexpr int kStride = (kWords + 3) / 4 * 4;  // 16-byte rows
   static constexpr int kRows = kBatch * kStride;
   static constexpr size_t kSmem =
       sizeof(float) * (kWbuf + kPbuf + kGbuf + kPart + kRows) +
       sizeof(int) * (kBatch + kWarps);
-  // blocks per SM the registers must allow: the 10-word layout keeps few
-  // values per pixel and needs more warps in flight to hide its latency
-  static constexpr int kMinBlocks = kValueProduct ? 2 : 4;
+  // blocks per SM the registers must allow: the 10-word layouts keep few
+  // values per pixel and need more warps in flight to hide their latency;
+  // the 42-word full mode holds 37 cotangents and 32 product terms per
+  // thread, and its shared memory (118,048 B) fits one block per SM anyway
+  static constexpr int kMinBlocks =
+      !kValueProduct ? 4 : (WITH_COLOR && !VALUES_ONLY ? 1 : 2);
 };
 
 template <int NV, int NPACK, bool WITH_COLOR, bool VALUES_ONLY>
@@ -218,11 +248,11 @@ composite_bwd_kernel(const float* __restrict__ payload,
                      float log_alpha_eps, float* __restrict__ dpair,
                      float* __restrict__ logt_first) {
   using L = Layout<NV, NPACK, WITH_COLOR, VALUES_ONLY>;
-  static_assert(NPACK == 0 || (!WITH_COLOR && NV == 2 * NPACK),
-                "packed value layout: the features alone");
-  static_assert(NV == 32 || (NV == 4 && !VALUES_ONLY),
-                "value words: 32 features (full or values-only) or rgb + "
-                "depth (full)");
+  static_assert(NPACK == 0 || NV == L::kPlain + 2 * NPACK,
+                "packed value layout: rgb + depth and 2 NPACK features, or "
+                "the features alone");
+  static_assert(NV == L::kQV + (L::kValueProduct ? 32 : 0),
+                "value words: rgb + depth, 32 features, or both");
   constexpr int kWords = L::kWords;
   constexpr int kPayWords = L::kPayWords;
   constexpr int kStride = L::kStride;
@@ -268,13 +298,14 @@ composite_bwd_kernel(const float* __restrict__ payload,
       const int qx = tx * kTile + (warp * 32 + p) % kTile;
       const int qy = ty * kTile + (warp * 32 + p) / kTile;
       gt[p] = qx < width && qy < height
-                  ? grad_out[((size_t)qy * width + qx) * (1 + NV) + 1 + lane]
+                  ? grad_out[((size_t)qy * width + qx) * (1 + NV) + 1 +
+                             L::kFeat0 + lane]
                   : 0.f;
     }
   }
-  if constexpr (!L::kValueProduct)  // read after the first batch's barrier
+  if constexpr (L::kQV > 0)  // read after the first batch's barrier
     reinterpret_cast<float4*>(gbuf)[threadIdx.x] =
-        make_float4(g[1], g[2], g[3], g[4]);
+        make_float4(g[1], g[2], g[3], g[NV]);
   float logt = res_logt[(size_t)tile * kPix + threadIdx.x];
   const int my_stop = res_stop[(size_t)tile * kPix + threadIdx.x];
   float suffix = 0.f;
@@ -303,7 +334,7 @@ composite_bwd_kernel(const float* __restrict__ payload,
     for (int i = threadIdx.x; i < n * kPayWords; i += kPix) {
       const int j = i / kPayWords;
       const int c = i - j * kPayWords;
-      stage_word<NV, NPACK>(
+      stage_word<NV, NPACK, WITH_COLOR>(
           rows + j * kStride, c, payload[(size_t)gid[j] * kPayWords + c]);
     }
     __syncthreads();
@@ -370,24 +401,26 @@ composite_bwd_kernel(const float* __restrict__ payload,
               acc = __fmaf_rn(v.w, gt[4 * p4 + 3], acc);
             }
           }
-          my_part[(s_lo + jj) * kWords + kGeom + lane] = acc;
+          my_part[(s_lo + jj) * kWords + kGeom + L::kFeat0 + lane] = acc;
         }
       }
-      if constexpr (!VALUES_ONLY) {
+      if constexpr (L::kMoments) {
         // the geometry words through the monomial basis: 4 lanes per pair,
         // each over 8 pixels of one pixel row (u, v: the pixel's offsets
         // from the tile's centre), sum dpow, dpow u, dpow u^2; the 4 are
         // summed by two xor steps with v dpow, v dpow u, v^2 dpow formed
         // per row; then, with dx = mx' - u and dy = my' - v (mx', my': the
         // mean's offsets from the centre), every sum of dpow times a
-        // quadratic in dx, dy is a combination of the six moments
+        // quadratic in dx, dy is a combination of the six moments.
+        // rgb + depth: the same lanes sum w g_c over the same pixels; in
+        // values-only mode these sums alone, the full mode's bit for bit
         const int jj = lane >> 2;
         const int quarter = lane & 3;
         const bool live = jj < m && ((counted_any >> jj) & 1u);
         const float u0 = (float)(8 * (quarter & 1)) - 7.5f;
         const float v = (float)(2 * warp + (quarter >> 1)) - 7.5f;
-        // rgb + depth: the same lanes sum w g_c over the same pixels
-        constexpr int kQV = L::kValueProduct ? 0 : NV;
+        constexpr int kQV = L::kQV;
+        constexpr int kM0 = VALUES_ONLY ? kGeom : 0;  // first moment summed
         float s0 = 0.f, su = 0.f, suu = 0.f;
         float mom[6 + kQV] = {};
         if (live) {
@@ -397,16 +430,30 @@ composite_bwd_kernel(const float* __restrict__ payload,
               reinterpret_cast<const float4*>(my_w + jj * 32 + 8 * quarter);
 #pragma unroll
           for (int x4 = 0; x4 < 2; ++x4) {
-            const float4 d4 = p4[x4];
-            const float d[4] = {d4.x, d4.y, d4.z, d4.w};
-            const float4 wq = w4[x4];
-            const float wk[4] = {wq.x, wq.y, wq.z, wq.w};
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            if constexpr (!VALUES_ONLY) {
+              const float4 d4 = p4[x4];
+              d[0] = d4.x;
+              d[1] = d4.y;
+              d[2] = d4.z;
+              d[3] = d4.w;
+            }
+            float wk[4] = {0.f, 0.f, 0.f, 0.f};
+            if constexpr (kQV > 0) {
+              const float4 wq = w4[x4];
+              wk[0] = wq.x;
+              wk[1] = wq.y;
+              wk[2] = wq.z;
+              wk[3] = wq.w;
+            }
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-              const float u = u0 + (float)(4 * x4 + k);
-              s0 += d[k];
-              su = __fmaf_rn(d[k], u, su);
-              suu = __fmaf_rn(d[k], u * u, suu);
+              if constexpr (!VALUES_ONLY) {
+                const float u = u0 + (float)(4 * x4 + k);
+                s0 += d[k];
+                su = __fmaf_rn(d[k], u, su);
+                suu = __fmaf_rn(d[k], u * u, suu);
+              }
               if constexpr (kQV > 0) {
                 const float4 gq = reinterpret_cast<const float4*>(
                     gbuf)[warp * 32 + 8 * quarter + 4 * x4 + k];
@@ -418,45 +465,50 @@ composite_bwd_kernel(const float* __restrict__ payload,
             }
           }
         }
-        mom[0] = s0;
-        mom[1] = su;
-        mom[2] = suu;
-        mom[3] = v * s0;
-        mom[4] = v * su;
-        mom[5] = v * v * s0;
+        if constexpr (!VALUES_ONLY) {
+          mom[0] = s0;
+          mom[1] = su;
+          mom[2] = suu;
+          mom[3] = v * s0;
+          mom[4] = v * su;
+          mom[5] = v * v * s0;
+        }
 #pragma unroll
         for (int off = 1; off <= 2; off <<= 1) {
 #pragma unroll
-          for (int k = 0; k < 6 + kQV; ++k)
+          for (int k = kM0; k < 6 + kQV; ++k)
             mom[k] += __shfl_xor_sync(kFull, mom[k], off);
         }
         if (quarter == 0 && jj < m) {
           float* pj = my_part + (s_lo + jj) * kWords;
-          float d[kGeom] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          if (live) {
-            const float* rj = rows + (s_lo + jj) * kStride;
-            const float4 ga = *reinterpret_cast<const float4*>(rj + NV);
-            const float cc = rj[NV + 4];
-            const float mx = (ga.x - ox) - 7.5f;
-            const float my = (ga.y - oy) - 7.5f;
-            const float s = mom[0], su_ = mom[1], suu_ = mom[2];
-            const float sv = mom[3], suv = mom[4], svv = mom[5];
-            const float sdx = mx * s - su_;  // sum dpow dx
-            const float sdy = my * s - sv;
-            const float sdxx = mx * (mx * s - 2.f * su_) + suu_;
-            const float sdxy = mx * (my * s - sv) - my * su_ + suv;
-            const float sdyy = my * (my * s - 2.f * sv) + svv;
-            d[0] = -(ga.z * sdx + ga.w * sdy);
-            d[1] = -(cc * sdy + ga.w * sdx);
-            d[2] = -0.5f * sdxx;
-            d[3] = -sdxy;
-            d[4] = -0.5f * sdyy;
-            d[5] = s;
+          if constexpr (!VALUES_ONLY) {
+            float d[kGeom] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            if (live) {
+              const float* rj = rows + (s_lo + jj) * kStride;
+              const float4 ga = *reinterpret_cast<const float4*>(rj + NV);
+              const float cc = rj[NV + 4];
+              const float mx = (ga.x - ox) - 7.5f;
+              const float my = (ga.y - oy) - 7.5f;
+              const float s = mom[0], su_ = mom[1], suu_ = mom[2];
+              const float sv = mom[3], suv = mom[4], svv = mom[5];
+              const float sdx = mx * s - su_;  // sum dpow dx
+              const float sdy = my * s - sv;
+              const float sdxx = mx * (mx * s - 2.f * su_) + suu_;
+              const float sdxy = mx * (my * s - sv) - my * su_ + suv;
+              const float sdyy = my * (my * s - 2.f * sv) + svv;
+              d[0] = -(ga.z * sdx + ga.w * sdy);
+              d[1] = -(cc * sdy + ga.w * sdx);
+              d[2] = -0.5f * sdxx;
+              d[3] = -sdxy;
+              d[4] = -0.5f * sdyy;
+              d[5] = s;
+            }
+#pragma unroll
+            for (int c = 0; c < kGeom; ++c) pj[c] = d[c];
           }
 #pragma unroll
-          for (int c = 0; c < kGeom; ++c) pj[c] = d[c];
-#pragma unroll
-          for (int c = 0; c < kQV; ++c) pj[kGeom + c] = live ? mom[6 + c] : 0.f;
+          for (int c = 0; c < kQV; ++c)  // rgb at columns 0-2, depth last
+            pj[kGeom + (c < 3 ? c : NV - 1)] = live ? mom[6 + c] : 0.f;
         }
       }
       __syncwarp();  // w, dpow of this sub-batch read before the next's
@@ -683,6 +735,11 @@ extern "C" int trase_composite_bwd(const float* payload,
         width, grad_out, res_logt, res_stop, log_alpha_max, log_alpha_eps, \
         dpair, logt_first);
   TRASE_BWD(4, 0, true, false)
+  TRASE_BWD(4, 0, true, true)
+  TRASE_BWD(36, 0, true, false)
+  TRASE_BWD(36, 0, true, true)
+  TRASE_BWD(36, 16, true, false)
+  TRASE_BWD(36, 16, true, true)
   TRASE_BWD(32, 0, false, false)
   TRASE_BWD(32, 0, false, true)
   TRASE_BWD(32, 16, false, false)

@@ -424,9 +424,8 @@ int launch(const float* payload, const int* sorted_gauss,
 // is ty0 = 0), tile_start pointing at the first one's entry, into `out`:
 // (height, width, 1 + n_val), height the rows from ty0 * 16 that lie in
 // the image. res_logt / res_stop (num_tiles * 256 each)
-// are written when res_logt is not null; the residual instantiations exist
-// for the layouts the training steps composite: rgb + depth (GAUSSIAN) and
-// 32 features alone, unpacked or packed (FEATURE).
+// are written when res_logt is not null; every layout has a residual
+// instantiation (the backward, composite_bwd.cu, differentiates each).
 extern "C" int trase_composite_fwd(const float* payload,
                                    const int* sorted_gauss,
                                    const int* tile_start, int num_tiles,
@@ -451,6 +450,8 @@ extern "C" int trase_composite_fwd(const float* payload,
   TRASE_FWD(4, 0, true, true)
   TRASE_FWD(32, 0, false, true)
   TRASE_FWD(32, 16, false, true)
+  TRASE_FWD(36, 0, true, true)
+  TRASE_FWD(36, 16, true, true)
   TRASE_FWD(4, 0, true, false)
   TRASE_FWD(36, 0, true, false)
   TRASE_FWD(36, 16, true, false)

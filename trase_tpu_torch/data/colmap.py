@@ -38,6 +38,7 @@ CAMERA_MODELS = {
     6: ("FULL_OPENCV", 12), 7: ("FOV", 5), 8: ("SIMPLE_RADIAL_FISHEYE", 4),
     9: ("RADIAL_FISHEYE", 5), 10: ("THIN_PRISM_FISHEYE", 12),
 }
+CAMERA_MODEL_IDS = {name: (mid, n) for mid, (name, n) in CAMERA_MODELS.items()}
 
 
 def qvec2rotmat(qvec):
@@ -49,6 +50,29 @@ def qvec2rotmat(qvec):
             [2 * x * z - 2 * w * y, 2 * y * z + 2 * w * x, 1 - 2 * x * x - 2 * y * y],
         ]
     )
+
+
+def rotmat2qvec(R):
+    """The unit quaternion (w, x, y, z), w >= 0, of a rotation matrix:
+    the eigenvector of the largest eigenvalue of the symmetric matrix
+    built from R (COLMAP's rotmat2qvec)."""
+    Rxx, Ryx, Rzx, Rxy, Ryy, Rzy, Rxz, Ryz, Rzz = R.flat
+    K = (
+        np.array(
+            [
+                [Rxx - Ryy - Rzz, 0, 0, 0],
+                [Ryx + Rxy, Ryy - Rxx - Rzz, 0, 0],
+                [Rzx + Rxz, Rzy + Ryz, Rzz - Rxx - Ryy, 0],
+                [Ryz - Rzy, Rzx - Rxz, Rxy - Ryx, Rxx + Ryy + Rzz],
+            ]
+        )
+        / 3.0
+    )
+    eigvals, eigvecs = np.linalg.eigh(K)
+    qvec = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    if qvec[0] < 0:
+        qvec *= -1
+    return qvec
 
 
 def _read(f, n, fmt):
@@ -168,3 +192,29 @@ def read_points3d_text(path):
             rgb.append([float(p) for p in parts[4:7]])
             err.append([float(parts[7])])
     return np.array(xyz), np.array(rgb), np.array(err)
+
+
+def write_images_binary(images: dict[int, ColmapImage], path):
+    """images.bin in COLMAP's binary layout (the dataset converters'
+    writer): count, then per image id, qvec, tvec, camera id, the
+    NUL-terminated name and its 2D points with their 3D point ids."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(images)))
+        for img in images.values():
+            f.write(struct.pack("<idddddddi", img.id, *img.qvec, *img.tvec,
+                                img.camera_id))
+            f.write(img.name.encode("utf-8") + b"\x00")
+            f.write(struct.pack("<Q", len(img.xys)))
+            for xy, pid in zip(img.xys, img.point3D_ids):
+                f.write(struct.pack("<ddq", xy[0], xy[1], pid))
+
+
+def write_cameras_binary(cams: dict[int, ColmapCamera], path):
+    """cameras.bin in COLMAP's binary layout: count, then per camera id,
+    model id, width, height and its float64 parameters."""
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for cam in cams.values():
+            mid, _ = CAMERA_MODEL_IDS[cam.model]
+            f.write(struct.pack("<iiQQ", cam.id, mid, cam.width, cam.height))
+            f.write(struct.pack("<" + "d" * len(cam.params), *cam.params))

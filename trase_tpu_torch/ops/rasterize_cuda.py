@@ -24,8 +24,9 @@ tensors. Nothing falls back from one to the other.
 Value layouts: [rgb, features, depth] (``with_color``, the GAUSSIAN step
 and serving) or the features alone (``with_color=False``, the FEATURE
 step), each with the features unpacked or bf16-packed two per word. The
-backward also has a values-only mode (``grad_values_only``): exact zeros
-for the geometry, the FEATURE step's after densification ends.
+backward differentiates every layout, also in a values-only mode
+(``grad_values_only``): exact zeros for the geometry, the FEATURE step's
+after densification ends.
 
 Slab mode (the multi-device steps, trase_tpu_torch/parallel): every
 kernel and plain version takes a tile range [t_lo, t_hi) of whole tile
@@ -65,17 +66,13 @@ LOG_ALPHA_MAX = float(np.log(ALPHA_MAX))
 LOG_ALPHA_EPS = float(np.log(ALPHA_EPS))
 LOG_T_EPS = float(np.log(T_EPS))
 
-# (n_val, n_packed, with_color) value layouts the forward kernel is
+# (n_val, n_packed, with_color) value layouts the kernels are
 # instantiated for: rgb + depth, + 32 features, + 32 bf16-packed features
-# (serving), and 32 features alone, unpacked or packed (the FEATURE step).
+# (serving), and 32 features alone, unpacked or packed (the FEATURE step);
+# each with and without the forward's residuals, and in the backward full
+# and values-only, as trase_tpu's backward takes any value layout.
 SUPPORTED = frozenset({(4, 0, True), (36, 0, True), (36, 16, True),
                        (32, 0, False), (32, 16, False)})
-
-# layouts the backward kernel (and the forward's residual instantiation)
-# is instantiated for: rgb + depth (the GAUSSIAN step) and 32 features
-# alone, unpacked or packed (the FEATURE step), each of the latter full or
-# values-only. The 36-value layouts lie on no training path.
-BWD_SUPPORTED = frozenset({(4, 0, True), (32, 0, False), (32, 16, False)})
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -692,12 +689,9 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     _require_cuda("composite_fwd", "composite_plain", payload=payload,
                   sorted_gauss=sorted_gauss, tile_start=tile_start)
     layout = (n_val, n_packed, with_color)
-    if layout not in SUPPORTED or (residuals
-                                   and layout not in BWD_SUPPORTED):
+    if layout not in SUPPORTED:
         raise ValueError(f"no kernel instantiation for (n_val, n_packed, "
-                         f"with_color)={layout}, residuals={residuals}; have "
-                         f"{sorted(SUPPORTED)}, residuals for "
-                         f"{sorted(BWD_SUPPORTED)}")
+                         f"with_color)={layout}; have {sorted(SUPPORTED)}")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed, with_color)
     if payload.data_ptr() % 8:
@@ -751,11 +745,10 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                   sorted_gauss=sorted_gauss, tile_start=tile_start,
                   grad_out=grad_out, res_logt=res_logt, res_stop=res_stop)
     layout = (n_val, n_packed, with_color)
-    if layout not in BWD_SUPPORTED or (values_only and with_color):
+    if layout not in SUPPORTED:
         raise ValueError(f"no backward instantiation for (n_val, n_packed, "
-                         f"with_color)={layout}, values_only={values_only}; "
-                         f"have {sorted(BWD_SUPPORTED)}, values-only for "
-                         "the layouts without colour")
+                         f"with_color)={layout}; have {sorted(SUPPORTED)}, "
+                         "full and values-only")
     th, tw = _check_inputs(payload, sorted_gauss, tile_start, image_height,
                            image_width, n_val, n_packed, with_color)
     hi, row0, rows = tile_range(th, tw, image_height, t_lo, t_hi)
@@ -932,17 +925,14 @@ def composite_inputs(proj: ProjectedGaussians,
 
 def check_card_backward(layout, values_only: bool = False) -> None:
     """Raise NotImplementedError for a (n_val, n_packed, with_color)
-    layout that has no backward kernel on the card: feature channels
-    beside colour (36 values) under autograd lie on no training path of
-    trase_tpu (the GAUSSIAN step renders no features, the FEATURE step no
-    colour) and are not ported; neither is values-only with colour."""
-    if tuple(layout) not in BWD_SUPPORTED or (values_only and layout[2]):
+    layout that has no backward kernel on the card: one the forward has
+    no kernel for either. Every forward layout differentiates, full and
+    values-only (`values_only` is accepted for each)."""
+    if tuple(layout) not in SUPPORTED:
         raise NotImplementedError(
-            f"the compositor backward on the card covers rgb + depth and "
-            f"32 features without colour, not (n_val, n_packed, "
-            f"with_color)={tuple(layout)}, values_only={values_only}: "
-            "feature channels beside colour under autograd (36 values) "
-            "lie on no training path and are not ported")
+            f"no compositor kernel on the card for (n_val, n_packed, "
+            f"with_color)={tuple(layout)}, values_only={values_only}: the "
+            f"forward and backward cover {sorted(SUPPORTED)}")
 
 
 def composite_image(ci: CompositeInputs, image_height: int,

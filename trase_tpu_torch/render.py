@@ -16,7 +16,8 @@ split, at the same paths and names as render.py, it writes under
     text_prompt_<tag>_objects/         with --text_prompt_mask <png>
 
 and an mp4 of every stream (video_<stream>.mp4). ``--text_prompt``
-needs Grounded-SAM, which is not part of the port: it prints
+asks Grounded-SAM (ext/grounded_sam.py, on --device) for the 2D mask;
+where groundingdino / segment_anything are not installed it prints
 trase_tpu's warning and uses --text_prompt_mask when one is given.
 """
 from __future__ import annotations
@@ -191,7 +192,8 @@ def render_sets(args):
 
             # text prompt -> 3D cluster lookup on the first frame
             if idx == 0 and (args.text_prompt_mask or args.text_prompt):
-                mask2d = _resolve_text_mask(args)
+                mask2d = _resolve_text_mask(
+                    args, out["render"].cpu().numpy(), device)
                 if mask2d is not None and cluster_ids is not None:
                     pts3d = _unproject(mask2d, out["depth"][0].cpu().numpy(),
                                        view)
@@ -272,13 +274,19 @@ def render_sets(args):
         run_split("test", scene.get_test_cameras())
 
 
-def _resolve_text_mask(args):
-    """The 2D text mask: a mask PNG (--text_prompt_mask). Grounded-SAM
-    (--text_prompt) is not part of the port; it warns as trase_tpu does
-    where those packages are absent."""
+def _resolve_text_mask(args, rendering=None, device=None):
+    """The 2D text mask: Grounded-SAM (ext/grounded_sam.py) on the
+    (3, H, W) `rendering` for --text_prompt, its networks on `device`;
+    where those packages are absent it warns as trase_tpu does and falls
+    back to the mask PNG of --text_prompt_mask."""
     if args.text_prompt:
-        print("[Warning] Grounded-SAM unavailable; pass "
-              "--text_prompt_mask <png> instead")
+        try:
+            from .ext.grounded_sam import text_prompt_mask
+
+            return text_prompt_mask(args.text_prompt, rendering, device)
+        except ImportError:
+            print("[Warning] Grounded-SAM unavailable; pass "
+                  "--text_prompt_mask <png> instead")
     if args.text_prompt_mask:
         from PIL import Image as PILImage
 

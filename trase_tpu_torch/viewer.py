@@ -14,8 +14,9 @@ object instead of a dearpygui window:
   inverse full projection -> nearest deformed gaussian -> its cluster,
   with the cosine score-threshold post-filter (gui.py:754-839, 456-464);
 - text-prompt selection from a 2D mask (``text_select(mask2d=...)``,
-  the CLI's ``textmask``); a text prompt alone needs Grounded-SAM, which
-  is not ported and raises;
+  the CLI's ``textmask``), or from a text prompt alone through
+  Grounded-SAM (ext/grounded_sam.py), which raises ImportError where
+  groundingdino / segment_anything are not installed;
 - removal (render with mask=~segmented, gui.py:414-417, 1070) and object
   save (save_ply(mask=...), gui.py:617-651);
 - composition of an extracted object with the scene in one
@@ -46,7 +47,7 @@ REPL / script commands:
   time <fid>             set the normalized timestamp [0, 1]
   cluster [kmeans [K]]   run HDBSCAN (or k-means) and save clusters.pt
   click <px> <py>        select the cluster under a pixel
-  text <prompt>          Grounded-SAM text selection (not ported: raises)
+  text <prompt>          Grounded-SAM text selection (needs its packages)
   textmask <png>         text selection from a precomputed 2D mask
   threshold <t>          cosine score threshold for selection
   clear                  clear selection
@@ -450,18 +451,20 @@ class HeadlessViewer:
         """Text-prompt selection (gui.py:1032-1064): a 2D mask -> depth
         unprojection -> nearest gaussian (KNN on the device) -> the
         clusters holding more than `threshold` of the mask's pixels.
-        Without `mask2d` the mask would come from Grounded-SAM, which is
-        not ported: that raises."""
+        Without `mask2d` the mask comes from Grounded-SAM
+        (ext/grounded_sam.py) on the current frame, its networks on the
+        viewer's device; without those packages that raises ImportError
+        (the CLI's 'textmask <png>' passes a mask)."""
         from .ops.knn import knn
 
         if self.cluster_ids is None:
             raise RuntimeError("run .cluster() first")
-        if mask2d is None:
-            raise NotImplementedError(
-                f"text prompt {text!r}: Grounded-SAM (trase_tpu/ext/"
-                "grounded_sam.py) is not ported; pass mask2d (the CLI's "
-                "'textmask <png>')")
         out, d_xyz = self._raw_frame()
+        if mask2d is None:
+            from .ext.grounded_sam import grounded_sam_mask
+
+            mask2d = grounded_sam_mask(text, _host(out["render"]),
+                                       device=self.device)
         depth = _host(out["depth"])[0]
         ys, xs = np.nonzero(np.asarray(mask2d))
         if len(ys) == 0:
