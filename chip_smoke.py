@@ -218,6 +218,15 @@ JSON line per phase:
                 --text_prompt beside --text_prompt_mask (Grounded-SAM
                 absent: the warning, and text-prompt objects byte for
                 byte a run with the mask alone's); seconds for each;
+   scale        the production-scale validation tool (python -m
+                trase_tpu_torch.tools.validate_scale, in this process) at
+                1008 px on the multi-view rig (2 cameras x 6 timestamps,
+                1 held-out camera x 6), 300 iterations with FEATURE from
+                150 (the 32 features unpacked, the tool's default), one
+                milestone at 150: two curve lines with a finite test PSNR,
+                the alive count above its start, both snapshots on disk,
+                each line unscored exactly when scikit-learn is absent;
+                seconds, it/s and PSNR, counted;
 8. profile      torch.profiler over a few frames of phase 4 (float32 and
                 fused deform), of the viewer's Render mode, and a few steps
                 of phase 6, of each FEATURE arm and of the style step:
@@ -372,6 +381,15 @@ MESH_SLAB_KEYS = ("composite_fwd/4/0/1/1/slab", "composite_bwd/4/0/1/0/slab",
 # size), label-map objects per image, the converted scene's train run
 CONVERT_SIZE, CONVERT_CAMS, CONVERT_FRAMES = (64, 96), 4, 4
 CONVERT_LABELS, CONVERT_ITERATIONS = 4, 60
+# the validation tool's short schedule at full size (its scale is the
+# tool's default scene, 5 blobs x 2400 points, cut to 300 iterations)
+SCALE_ITERATIONS, SCALE_MILESTONE = 300, 150
+SCALE_ARGS = ["--image_size", "1008", "--n_train", "12", "--n_test", "6",
+              "--n_times", "6", "--iterations", str(SCALE_ITERATIONS),
+              "--feature_warmup_frac", "0.5",
+              "--milestones", str(SCALE_MILESTONE),
+              "--target_alive", "0", "--densify_until_frac", "0.5"]
+SCALE_START_ALIVE = 5 * 2400
 # host IO: cameras' SAM-style mask stacks (native .npz) at the bench
 # FEATURE step's size and at full size; the loop's FEATURE run
 MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
@@ -3225,6 +3243,12 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     launches["convert"] = conv.pop("launches")
     layouts["convert"] = conv.pop("layouts")
     emit(conv)
+
+    # 7g. the production-scale validation tool at 1008 px
+    sc = scale_phase(tmp.name, dev)
+    launches["scale"] = sc.pop("launches")
+    layouts["scale"] = sc.pop("layouts")
+    emit(sc)
     tmp.cleanup()
 
     # 8. where a frame's and a step's device time goes
@@ -3358,6 +3382,50 @@ def llff_pose_row(eye, h, w, fl=80.0):
     hwf = np.array([[h], [w], [fl]])
     return np.concatenate([c2w, hwf], axis=1).reshape(-1).tolist() + [0.5,
                                                                       8.0]
+
+
+def scale_phase(root, dev) -> dict:
+    """The validation tool on the card (SCALE_ARGS), counted: two curve
+    lines (the milestone and the end) with a finite test PSNR, the alive
+    count above the initial cloud's, the snapshots (ply, deform.pkl) of
+    both on disk, and each line scored exactly when scikit-learn is
+    installed (the card's machine has none: the snapshots are then left
+    for --score_only). Seconds (the dataset's writing included), it/s and
+    PSNR."""
+    import importlib.util
+    import math
+
+    from trase_tpu_torch.tools import validate_scale as V
+
+    out = os.path.join(root, "scale")
+    reset_counts()
+    t0 = time.perf_counter()
+    result = V.main(["--out", out, "--device", dev.type] + SCALE_ARGS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, layouts = counts(), layout_counts()
+    with open(os.path.join(out, "curve.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    assert [ln["iteration"] for ln in lines] == [SCALE_MILESTONE,
+                                                 SCALE_ITERATIONS], lines
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    for ln in lines:
+        assert math.isfinite(ln["psnr_test"]), ln
+        assert ln["n_alive"] > SCALE_START_ALIVE, ln
+        assert ln["scored"] is sklearn, (ln, sklearn)
+        for path in (("point_cloud", f"iteration_{ln['iteration']}",
+                      "point_cloud.ply"),
+                     ("deform", f"iteration_{ln['iteration']}",
+                      "deform.pkl")):
+            assert os.path.exists(os.path.join(out, "model", *path)), path
+    assert all(launches[k] > 0 for k in ("composite_fwd", "composite_bwd",
+                                         "reduce_pair_grads")), launches
+    return {"phase": "scale", "seconds": seconds,
+            "iters_per_s": result["iters_per_s"],
+            "train_s": result["train_s"], "data_gen_s": result["data_gen_s"],
+            "psnr_test": result["psnr_test"], "n_alive": result["n_alive"],
+            "curve": lines, "sklearn": sklearn, "launches": launches,
+            "layouts": layouts}
 
 
 def convert_phase(root, src, seg, it, sid, dev) -> dict:

@@ -48,17 +48,26 @@ step, as trase_tpu's does, and submits its decode, and a step whose
 stack is not cached takes it from the prefetcher (decoding inline what
 was never submitted). The prefetcher closes when ``train`` returns.
 
-Left out: the metrics pipeline and the watchdog (they existed for a
-remote device). The step's metrics stay on
-the device; the host reads them every 10 iterations (progress line,
-skipped steps, TensorBoard's loss scalars and iteration time), every 100
-(pair budget), and at a block's end (phase switch).
+``train(stall_timeout_s=T)`` arms trase_tpu's stall watchdog
+(loop.py:443-476): a daemon thread, ``stall-watchdog``, that ends the
+process with exit code 86 when no iteration has completed for T seconds
+(a hung kernel or a hung collective blocks the host inside a native call,
+where no Python signal handler or deadline check runs). Each completed
+iteration refreshes its heartbeat, the thread ends with ``train``, and
+T = 0 starts none.
+
+Left out: the metrics pipeline (it existed for a remote device). The
+step's metrics stay on the device; the host reads them every 10
+iterations (progress line, skipped steps, TensorBoard's loss scalars and
+iteration time), every 100 (pair budget), and at a block's end (phase
+switch).
 """
 from __future__ import annotations
 
 import os
 import re
 import sys
+import threading
 import time
 import types
 import warnings
@@ -81,12 +90,14 @@ from ..renderer import render
 from ..utils.image import psnr
 from . import trainer as T
 
-# densify_and_prune's static budget of clones and of splits per call, the
+# densify_and_prune's default budget of clones and of splits per call, the
 # device GT cache's size, and the mask cache's floor and cap (the cache
 # holds the whole train set up to the cap), as trase_tpu's loop sets them
 MAX_NEW_PER_DENSIFY = 8192
 GT_CACHE_SIZE = 128
 MASK_CACHE_SIZE, MASK_CACHE_CAP = 8, 128
+# the stall watchdog's exit code (trase_tpu's: apart from timeout(1)'s 124)
+STALL_EXIT_CODE = 86
 
 
 def _load_gt(path: str, bg: np.ndarray) -> np.ndarray:
@@ -134,15 +145,16 @@ def _keyed(path: str) -> str:
 
 class Trainer:
     def __init__(self, dataset_args, opt_args, pipe_args, scene,
-                 raster_cfg: Optional[RasterConfig] = None, seed: int = 0,
-                 device="cuda"):
+                 raster_cfg: Optional[RasterConfig] = None,
+                 max_new_per_densify: int = MAX_NEW_PER_DENSIFY,
+                 seed: int = 0, device="cuda"):
         self.args = dataset_args
         self.opt = opt_args
         self.pipe = pipe_args
         self.scene = scene
         self.device = resolve_device(device)
         self.raster_cfg = raster_cfg or RasterConfig()
-        self.max_new = MAX_NEW_PER_DENSIFY
+        self.max_new = max_new_per_densify
 
         self.deform_net = make_deform_network(
             getattr(opt_args, "deform_type", "DeformNetwork"),
@@ -417,14 +429,41 @@ class Trainer:
 
     def train(self, first_iter: int = 0, testing_iterations=(),
               saving_iterations=(), checkpoint_iterations=(),
-              progress: bool = True, on_iteration=None):
+              progress: bool = True, on_iteration=None,
+              stall_timeout_s: float = 0.0):
         """Iterations first_iter + 1 .. opt.iterations; the mask
-        prefetcher, when one was started, is closed however this ends."""
+        prefetcher, when one was started, is closed however this ends.
+        stall_timeout_s > 0 arms the stall watchdog (module docstring)
+        for the duration of the call."""
+        done = self._start_watchdog(stall_timeout_s)
         try:
             self._train(first_iter, testing_iterations, saving_iterations,
                         checkpoint_iterations, progress, on_iteration)
         finally:
+            done.set()
             self._close_prefetcher()
+
+    def _start_watchdog(self, stall_timeout_s: float) -> threading.Event:
+        """Start the stall watchdog when stall_timeout_s > 0; setting the
+        returned event stops it."""
+        self._heartbeat = time.monotonic()
+        done = threading.Event()
+        if stall_timeout_s > 0:
+            def watch():
+                while not done.wait(min(stall_timeout_s / 4, 60.0)):
+                    dt = time.monotonic() - self._heartbeat
+                    if dt > stall_timeout_s:
+                        print(f"\n[watchdog] no iteration completed in "
+                              f"{dt:.0f}s (> {stall_timeout_s:.0f}s): the "
+                              "device or a collective is presumed hung; "
+                              f"exiting with code {STALL_EXIT_CODE}. The "
+                              "snapshots and curve written so far stay on "
+                              "disk.", flush=True)
+                        os._exit(STALL_EXIT_CODE)
+
+            threading.Thread(target=watch, daemon=True,
+                             name="stall-watchdog").start()
+        return done
 
     def _train(self, first_iter, testing_iterations, saving_iterations,
                checkpoint_iterations, progress, on_iteration):
@@ -533,6 +572,7 @@ class Trainer:
 
             if on_iteration is not None:
                 on_iteration(self, iteration, metrics)
+            self._heartbeat = time.monotonic()
 
         if iter_bar:
             iter_bar.close()

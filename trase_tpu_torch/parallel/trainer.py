@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..engine.loop import Trainer
+from ..engine.loop import MAX_NEW_PER_DENSIFY, Trainer
 from ..models import gaussians as G
 from ..ops.knn import knn
 from .sharded import (
@@ -54,14 +54,19 @@ class ShardedTrainer(Trainer):
 
     interleave_slots: round-robin permute the slot rows so alive and free
     slots spread over the ranks (the per-rank densify allocates from the
-    rank's own free slots); off only for row-aligned parity tests."""
+    rank's own free slots); off only for row-aligned parity tests.
+    max_new_per_densify: the world's clone and split budget per densify,
+    max_new_per_shard = ceil(max_new_per_densify / ranks) on each rank
+    (trase_tpu/parallel/trainer.py:60-81)."""
 
     def __init__(self, dataset_args, opt_args, pipe_args, scene,
-                 world: World, raster_cfg=None, seed: int = 0,
-                 interleave_slots: bool = True):
+                 world: World, raster_cfg=None,
+                 max_new_per_densify: int = MAX_NEW_PER_DENSIFY,
+                 seed: int = 0, interleave_slots: bool = True):
         self.world = world
         super().__init__(dataset_args, opt_args, pipe_args, scene,
-                         raster_cfg=raster_cfg, seed=seed,
+                         raster_cfg=raster_cfg,
+                         max_new_per_densify=max_new_per_densify, seed=seed,
                          device=world.device)
         self.n_shards = world.size
         self.interleave_slots = interleave_slots
