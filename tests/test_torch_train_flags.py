@@ -201,6 +201,20 @@ def test_run_state_flags_work(run_state, flag):
         assert trb.profile_trace is None
 
 
+def test_profile_trace_carries_spans(run_state):
+    """--profile_iters turns the port's spans on for its window: the
+    trace of iterations 4-5 holds each iteration's trase.iteration and
+    trase.step as user annotations, and spans are off again after it."""
+    from trase_tpu_torch.utils import trace
+
+    with open(run_state["a"][1].profile_trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("trase.iteration") == names.count("trase.step") == 2
+    assert "trase.render.composite" in names
+    assert not trace.enabled() and trace.take() == []
+
+
 @pytest.fixture(scope="module")
 def both_clis(tmp_path_factory):
     """The root and the port's train CLI on one synthetic dataset, 6

@@ -9,7 +9,8 @@ one static (M_max, H, W) float32 stack per dataset with a validity
 vector (``pad_masks``, ``load_padded_masks``: the native .npz format
 through the C++ unpacker of ``native.py``). ``MaskPrefetcher`` decodes
 on a background thread, so the training loop can start the next
-camera's decode before the current step.
+camera's decode before the current step; each decode is the span
+``trase.masks.decode`` of the iteration that submitted it.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import threading
 from typing import NamedTuple
 
 import numpy as np
+
+from ..utils import trace
 
 
 class PaddedMasks(NamedTuple):
@@ -139,22 +142,25 @@ class MaskPrefetcher:
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._jobs: queue.Queue = queue.Queue()
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="mask-prefetch")
         self._thread.start()
 
     def _worker(self):
         while True:
-            path = self._jobs.get()
-            if path is None or self._stop.is_set():
+            job = self._jobs.get()
+            if job is None or self._stop.is_set():
                 return
+            path, iteration = job
             try:
-                result = load_padded_masks(path, self.m_max)
+                with trace.span("trase.masks.decode", iteration=iteration):
+                    result = load_padded_masks(path, self.m_max)
             except Exception as e:  # noqa: BLE001 — handed to get()
                 result = e
             self._q.put((path, result))
 
     def submit(self, path: str):
-        self._jobs.put(path)
+        self._jobs.put((path, trace.current_iteration()))
 
     def get(self) -> tuple[str, PaddedMasks | None]:
         path, result = self._q.get()

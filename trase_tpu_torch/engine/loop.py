@@ -56,6 +56,14 @@ where no Python signal handler or deadline check runs). Each completed
 iteration refreshes its heartbeat, the thread ends with ``train``, and
 T = 0 starts none.
 
+Tracing (utils/trace.py): each iteration is the span ``trase.iteration``
+(up to the ``on_iteration`` call) and holds ``trase.loop.fetch`` (the GT
+image or mask stack: ``trase.loop.fetch.wait`` for the prefetcher or an
+inline read, ``trase.loop.fetch.upload`` for the host-to-device copy),
+the step's ``trase.step``, ``trase.loop.read_metrics`` and
+``trase.loop.densify``; the counter ``cache`` counts the GT and mask
+caches' hits and misses.
+
 Left out: the metrics pipeline (it existed for a remote device). The
 step's metrics stay on the device; the host reads them every 10
 iterations (progress line, skipped steps, TensorBoard's loss scalars and
@@ -87,6 +95,7 @@ from ..native import rgba_to_rgb_f32
 from ..ops.knn import build_feature_smooth_map, smooth_features
 from ..ops.rasterize import RasterConfig
 from ..renderer import render
+from ..utils import trace
 from ..utils.image import psnr
 from . import trainer as T
 
@@ -98,6 +107,8 @@ GT_CACHE_SIZE = 128
 MASK_CACHE_SIZE, MASK_CACHE_CAP = 8, 128
 # the stall watchdog's exit code (trase_tpu's: apart from timeout(1)'s 124)
 STALL_EXIT_CODE = 86
+# hits and misses of the device caches: ("gt" | "masks", "hit" | "miss")
+CACHE_COUNTS = trace.counter("cache")
 
 
 def _load_gt(path: str, bg: np.ndarray) -> np.ndarray:
@@ -234,13 +245,17 @@ class Trainer:
         key = (cam.image_path or cam.image_name, cam.image_width,
                cam.image_height)
         if key in self._gt_cache:
+            trace.bump(CACHE_COUNTS, ("gt", "hit"))
             self._gt_cache.move_to_end(key)
             return self._gt_cache[key]
+        trace.bump(CACHE_COUNTS, ("gt", "miss"))
         img = cam.image
         if img is None:
-            img = _load_gt(cam.image_path, self.bg_color.cpu().numpy())
-        self._gt_cache[key] = torch.as_tensor(
-            np.asarray(img, np.float32), device=self.device)
+            with trace.span("trase.loop.fetch.wait"):
+                img = _load_gt(cam.image_path, self.bg_color.cpu().numpy())
+        with trace.span("trase.loop.fetch.upload"):
+            self._gt_cache[key] = torch.as_tensor(
+                np.asarray(img, np.float32), device=self.device)
         while len(self._gt_cache) > GT_CACHE_SIZE:
             self._gt_cache.popitem(last=False)
         return self._gt_cache[key]
@@ -287,25 +302,32 @@ class Trainer:
         device, or None when the camera has no masks."""
         key = cam.image_path or cam.image_name
         if key in self._mask_cache:
+            trace.bump(CACHE_COUNTS, ("masks", "hit"))
             self._mask_cache.move_to_end(key)
             return self._mask_cache[key]
         padded = None
-        if cam.masks is not None:
-            padded = pad_masks(np.asarray(cam.masks), self._m_max)
-        elif cam.mask_path:
-            # drain the prefetcher up to this camera's file (the stacks
-            # decoded ahead of it are dropped, as in trase_tpu's loop)
-            while cam.mask_path in self._prefetched:
-                path, got = self._prefetcher.get()
-                del self._prefetched[path]
-                if path == cam.mask_path:
-                    padded = got
-            if padded is None:
-                padded = load_padded_masks(cam.mask_path, self._m_max)
+        with trace.span("trase.loop.fetch.wait"):
+            if cam.masks is not None:
+                padded = pad_masks(np.asarray(cam.masks), self._m_max)
+            elif cam.mask_path:
+                # drain the prefetcher up to this camera's file (the
+                # stacks decoded ahead of it are dropped, as in trase_tpu's
+                # loop)
+                while cam.mask_path in self._prefetched:
+                    path, got = self._prefetcher.get()
+                    del self._prefetched[path]
+                    if path == cam.mask_path:
+                        padded = got
+                if padded is None:
+                    with trace.span("trase.masks.decode"):
+                        padded = load_padded_masks(cam.mask_path,
+                                                   self._m_max)
         if padded is None:
             return None
-        entry = (torch.as_tensor(padded.masks, device=self.device),
-                 torch.as_tensor(padded.valid, device=self.device))
+        trace.bump(CACHE_COUNTS, ("masks", "miss"))
+        with trace.span("trase.loop.fetch.upload"):
+            entry = (torch.as_tensor(padded.masks, device=self.device),
+                     torch.as_tensor(padded.valid, device=self.device))
         self._mask_cache[key] = entry
         while len(self._mask_cache) > self.mask_cache_size:
             self._mask_cache.popitem(last=False)
@@ -324,9 +346,11 @@ class Trainer:
     def _gaussian_step(self, cam, iteration):
         use_deform = iteration >= self.opt.warm_up
         ast = self.ast_noise_fn(self.np_rng, iteration)
+        with trace.span("trase.loop.fetch"):
+            gt = self._gt_image(cam)
         self.state, metrics = T.gaussian_phase_step(
             self.state, cam.to_render_camera(self.device),
-            self._gt_image(cam), cam.fid, ast, self.lr_at(iteration),
+            gt, cam.fid, ast, self.lr_at(iteration),
             self.bg_color, deform_net=self.deform_net,
             sh_degree=self.active_sh_degree, use_deform=use_deform,
             is_6dof=self.args.is_6dof, lambda_dssim=self.opt.lambda_dssim,
@@ -338,7 +362,8 @@ class Trainer:
 
     def _feature_step(self, cam, iteration):
         """One FEATURE step, or None when the camera has no masks."""
-        entry = self._masks_for(cam)
+        with trace.span("trase.loop.fetch"):
+            entry = self._masks_for(cam)
         if entry is None:
             return None
         opt = self.opt
@@ -442,6 +467,7 @@ class Trainer:
         finally:
             done.set()
             self._close_prefetcher()
+            trace.set_iteration(None)
 
     def _start_watchdog(self, stall_timeout_s: float) -> threading.Event:
         """Start the stall watchdog when stall_timeout_s > 0; setting the
@@ -493,82 +519,77 @@ class Trainer:
         stack = self._viewpoint_stack
         t_start = self._log_t = time.time()
         for iteration in range(first_iter + 1, opt.iterations + 1):
-            if iteration % 1000 == 0 and \
-                    self.active_sh_degree < self.max_sh_degree:
-                self.active_sh_degree += 1
+            trace.set_iteration(iteration)
+            with trace.span("trase.iteration"):
+                if iteration % 1000 == 0 and \
+                        self.active_sh_degree < self.max_sh_degree:
+                    self.active_sh_degree += 1
 
-            if iteration >= opt.warm_up_3d_features and has_masks:
-                if self.opt_state.iterations > self.opt_state.max_iterations:
-                    # steps the NaN guard skipped do not count: take them
-                    # off before deciding (trase_tpu's retro-correction)
-                    skipped = int(self.skipped)
-                    self.opt_state.iterations = max(
-                        0, self.opt_state.iterations
-                        - (skipped - self._skipped_seen))
-                    self._skipped_seen = skipped
-                if self.opt_state.switch():
+                ops = self.opt_state
+                if iteration >= opt.warm_up_3d_features and has_masks:
+                    if ops.iterations > ops.max_iterations:
+                        # steps the NaN guard skipped do not count: take
+                        # them off before deciding (trase_tpu's
+                        # retro-correction)
+                        skipped = int(self.skipped)
+                        self.opt_state.iterations = max(
+                            0, self.opt_state.iterations
+                            - (skipped - self._skipped_seen))
+                        self._skipped_seen = skipped
+                    if self.opt_state.switch():
+                        stack[:] = train_cams
+                        if self.opt_state.state == T.FEATURE:
+                            self._smooth_dirty = True
+
+                if not stack:
                     stack[:] = train_cams
-                    if self.opt_state.state == T.FEATURE:
-                        self._smooth_dirty = True
+                if self._next_cam is not None:
+                    cam = self._next_cam
+                else:
+                    cam = stack.pop(int(self.np_rng.integers(0, len(stack))))
+                # trase_tpu pre-draws the next view here (to prefetch its
+                # masks); drawing it at the same point keeps the same views
+                if stack:
+                    self._next_cam = stack.pop(
+                        int(self.np_rng.integers(0, len(stack))))
+                    if has_masks:
+                        self._submit_mask_prefetch(self._next_cam)
+                else:
+                    self._next_cam = None
 
-            if not stack:
-                stack[:] = train_cams
-            if self._next_cam is not None:
-                cam = self._next_cam
-            else:
-                cam = stack.pop(int(self.np_rng.integers(0, len(stack))))
-            # trase_tpu pre-draws the next view here (to prefetch its
-            # masks); drawing it at the same point keeps the same views
-            if stack:
-                self._next_cam = stack.pop(
-                    int(self.np_rng.integers(0, len(stack))))
-                if has_masks:
-                    self._submit_mask_prefetch(self._next_cam)
-            else:
-                self._next_cam = None
+                metrics = None
+                if self.opt_state.state == T.FEATURE and has_masks:
+                    metrics = self._feature_step(cam, iteration)
+                if metrics is None:
+                    metrics = self._gaussian_step(cam, iteration)
+                self.opt_state.step()
+                if iteration % 10 == 0:
+                    # the reads of the step's metrics wait for the device
+                    with trace.span("trase.loop.read_metrics"):
+                        self._read_metrics(iteration, metrics, iter_bar)
 
-            metrics = None
-            if self.opt_state.state == T.FEATURE and has_masks:
-                metrics = self._feature_step(cam, iteration)
-            if metrics is None:
-                metrics = self._gaussian_step(cam, iteration)
-            self.opt_state.step()
-            if iteration % 100 == 0:
-                over = metrics["overflow"], metrics["overflow_half"]
-                self._handle_overflow(iteration, *[float(x) for x in over])
-            if iteration % 10 == 0:
-                loss, skipped = float(metrics["loss"]), int(self.skipped)
-                self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
-                if self.tb:
-                    self._log_scalars(iteration, metrics, loss)
-                if iter_bar:
-                    iter_bar.set_postfix({"Loss": f"{self.ema_loss:.3f}",
-                                          "State": self.opt_state.state,
-                                          "Points": self._n_alive_cache,
-                                          "Skipped": skipped})
-                    iter_bar.update(10)
+                if iteration in testing_iterations:
+                    cur = self.evaluate(iteration)
+                    if cur > self.best_psnr:
+                        self.best_psnr = cur
+                        self.best_iteration = iteration
 
-            if iteration in testing_iterations:
-                cur = self.evaluate(iteration)
-                if cur > self.best_psnr:
-                    self.best_psnr = cur
-                    self.best_iteration = iteration
+                if iteration in saving_iterations:
+                    self.save_snapshot(iteration)
 
-            if iteration in saving_iterations:
-                self.save_snapshot(iteration)
+                # densification (train.py:361-373)
+                if iteration < opt.densify_until_iter:
+                    if iteration > opt.densify_from_iter and \
+                            iteration % opt.densification_interval == 0:
+                        with trace.span("trase.loop.densify"):
+                            self._densify(iteration)
+                    if iteration % opt.opacity_reset_interval == 0 or (
+                            self.args.white_background
+                            and iteration == opt.densify_from_iter):
+                        self._reset_opacity()
 
-            # densification (train.py:361-373)
-            if iteration < opt.densify_until_iter:
-                if iteration > opt.densify_from_iter and \
-                        iteration % opt.densification_interval == 0:
-                    self._densify(iteration)
-                if iteration % opt.opacity_reset_interval == 0 or (
-                        self.args.white_background
-                        and iteration == opt.densify_from_iter):
-                    self._reset_opacity()
-
-            if iteration in checkpoint_iterations:
-                self.save_ckpt(iteration)
+                if iteration in checkpoint_iterations:
+                    self.save_ckpt(iteration)
 
             if on_iteration is not None:
                 on_iteration(self, iteration, metrics)
@@ -588,6 +609,23 @@ class Trainer:
         if n_iters > 0:
             print(f"[timing] {n_iters} iters in {dt:.1f}s = "
                   f"{n_iters / dt:.2f} it/s")
+
+    def _read_metrics(self, iteration: int, metrics: dict, iter_bar):
+        """Every 10th iteration: the loss and the skipped steps (progress
+        bar, TensorBoard) and, every 100th, the pair budget's check."""
+        if iteration % 100 == 0:
+            over = metrics["overflow"], metrics["overflow_half"]
+            self._handle_overflow(iteration, *[float(x) for x in over])
+        loss, skipped = float(metrics["loss"]), int(self.skipped)
+        self.ema_loss = 0.4 * loss + 0.6 * self.ema_loss
+        if self.tb:
+            self._log_scalars(iteration, metrics, loss)
+        if iter_bar:
+            iter_bar.set_postfix({"Loss": f"{self.ema_loss:.3f}",
+                                  "State": self.opt_state.state,
+                                  "Points": self._n_alive_cache,
+                                  "Skipped": skipped})
+            iter_bar.update(10)
 
     def _log_scalars(self, iteration: int, metrics: dict, loss: float):
         """TensorBoard's per-step scalars (trase_tpu loop.py:683-690), at

@@ -53,6 +53,7 @@ from ..models import gaussians as G
 from ..models.deform import DeformNetwork
 from ..ops.rasterize import RasterConfig
 from ..renderer import RenderCamera, render
+from ..utils import trace
 from ..utils.image import bilinear_resize_mm
 from ..utils.schedules import expon_lr_func, linear_noise_func
 from .optim import AdamState, adam_init, adam_update, adam_update_list
@@ -249,59 +250,68 @@ def gaussian_phase_step(
     """One GAUSSIAN-phase step -> (new state, metrics). The metrics are
     0-d device tensors (loss, l1, finite, overflow, overflow_half): the
     step itself never waits for the device. `ranks`: the world the rows
-    are split over (one device by default)."""
-    p, aux = state.params, state.aux
-    dev = p.xyz.device
-    leaves = {k: getattr(p, k).detach().requires_grad_(True)
-              for k in TRAINED}
-    dparams = [t.detach().requires_grad_(use_deform) for t in state.deform]
-    off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32, device=dev,
-                      requires_grad=True)
-    params = p._replace(**leaves)
-    d_xyz, d_rot, d_scale = apply_deform(
-        deform_net, dparams, params.xyz, fid, ast_noise, use_deform,
-        params.gaussian_features)
-    out = ranks.render(camera, params, aux.alive, bg_color, d_xyz, d_rot,
-                       d_scale, is_6dof=is_6dof, sh_degree=sh_degree,
-                       mean2d_offset=off, with_features=False,
-                       raster_cfg=raster_cfg)
-    image = out["render"]
-    ll1 = l1_loss(image, gt_image)
-    loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (
-        1.0 - ssim(image, gt_image))
-    if use_deform and lambda_reg_deform > 0:
-        loss = loss + lambda_reg_deform * ranks.mean(torch.abs(d_xyz))
-    inputs = list(leaves.values()) + (dparams if use_deform else []) + [off]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for x, g in zip(inputs, grads)]
+    are split over (one device by default). Its host work is the span
+    trase.step, in trase.step.deform, .render, .loss, .backward and .adam
+    (the update, the densification statistics and the NaN guard)."""
+    with trace.span("trase.step"):
+        p, aux = state.params, state.aux
+        dev = p.xyz.device
+        leaves = {k: getattr(p, k).detach().requires_grad_(True)
+                  for k in TRAINED}
+        dparams = [t.detach().requires_grad_(use_deform)
+                   for t in state.deform]
+        off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32,
+                          device=dev, requires_grad=True)
+        params = p._replace(**leaves)
+        with trace.span("trase.step.deform"):
+            d_xyz, d_rot, d_scale = apply_deform(
+                deform_net, dparams, params.xyz, fid, ast_noise, use_deform,
+                params.gaussian_features)
+        with trace.span("trase.step.render"):
+            out = ranks.render(camera, params, aux.alive, bg_color, d_xyz,
+                               d_rot, d_scale, is_6dof=is_6dof,
+                               sh_degree=sh_degree, mean2d_offset=off,
+                               with_features=False, raster_cfg=raster_cfg)
+        with trace.span("trase.step.loss"):
+            image = out["render"]
+            ll1 = l1_loss(image, gt_image)
+            loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (
+                1.0 - ssim(image, gt_image))
+            if use_deform and lambda_reg_deform > 0:
+                loss = loss + lambda_reg_deform * ranks.mean(torch.abs(d_xyz))
+        with trace.span("trase.step.backward"):
+            inputs = (list(leaves.values()) + (dparams if use_deform else [])
+                      + [off])
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(inputs, grads)]
 
-    with torch.no_grad():
-        new_fields, new_opt_fields = {}, {}
-        for name, g in zip(TRAINED, grads):
-            new_fields[name], new_opt_fields[name] = adam_update(
-                getattr(p, name), g, getattr(state.opt, name),
-                getattr(lrs, name), row_mask=aux.alive)
-        new_params = p._replace(**new_fields)
-        new_opt = state.opt._replace(**new_opt_fields)
-        if use_deform:
-            new_deform, new_deform_opt = adam_update_list(
-                state.deform, ranks.sum_grads(grads[len(TRAINED):-1]),
-                state.deform_opt, lrs.deform)
-        else:
-            new_deform, new_deform_opt = state.deform, state.deform_opt
-        new_aux = G.add_densification_stats(
-            aux, grads[-1], out["visibility_filter"] & aux.alive,
-            out["radii"], camera.image_height, camera.image_width)
-        new = TrainState(new_params, new_aux, new_opt, new_deform,
-                         new_deform_opt)
-        finite = ranks.agree(torch.isfinite(loss.detach()) & _all_finite(
-            float_tensors(new)))
-        new_state = _commit(finite, new, state)
-    metrics = {"loss": loss.detach(), "l1": ll1.detach(), "finite": finite,
-               "overflow": out["overflow"],
-               "overflow_half": out["overflow_half"]}
-    return new_state, metrics
+        with trace.span("trase.step.adam"), torch.no_grad():
+            new_fields, new_opt_fields = {}, {}
+            for name, g in zip(TRAINED, grads):
+                new_fields[name], new_opt_fields[name] = adam_update(
+                    getattr(p, name), g, getattr(state.opt, name),
+                    getattr(lrs, name), row_mask=aux.alive)
+            new_params = p._replace(**new_fields)
+            new_opt = state.opt._replace(**new_opt_fields)
+            if use_deform:
+                new_deform, new_deform_opt = adam_update_list(
+                    state.deform, ranks.sum_grads(grads[len(TRAINED):-1]),
+                    state.deform_opt, lrs.deform)
+            else:
+                new_deform, new_deform_opt = state.deform, state.deform_opt
+            new_aux = G.add_densification_stats(
+                aux, grads[-1], out["visibility_filter"] & aux.alive,
+                out["radii"], camera.image_height, camera.image_width)
+            new = TrainState(new_params, new_aux, new_opt, new_deform,
+                             new_deform_opt)
+            finite = ranks.agree(torch.isfinite(loss.detach()) & _all_finite(
+                float_tensors(new)))
+            new_state = _commit(finite, new, state)
+        metrics = {"loss": loss.detach(), "l1": ll1.detach(),
+                   "finite": finite, "overflow": out["overflow"],
+                   "overflow_half": out["overflow_half"]}
+        return new_state, metrics
 
 
 def feature_phase_step(
@@ -343,88 +353,96 @@ def feature_phase_step(
     pos_sim, neg_sim, overflow, overflow_half) are 0-d device tensors.
     `ranks`: the world the rows are split over (one device by default);
     in a world, `smooth_map` holds this rank's rows of the neighbour map
-    and `generator` must draw the same numbers on every rank."""
-    p, aux = state.params, state.aux
-    dev = p.xyz.device
-    if sample is None:
-        sample = sample_pixels_and_masks(generator, sam_masks, mask_valid,
-                                         num_sampled_pixels,
-                                         num_sampled_masks)
-    C = pixel_mask_correspondence_matrix(sam_masks, sample)
-    weights = pixel_weights(sam_masks, sample)
-    with torch.no_grad():
-        d_xyz, d_rot, d_scale = apply_deform(
-            deform_net, state.deform, p.xyz, fid, 0.0, use_deform,
-            p.gaussian_features)
+    and `generator` must draw the same numbers on every rank. Its host
+    work is the span trase.step, in trase.step.loss (the pixel sample,
+    the gram and the losses), .deform, .render, .backward and .adam."""
+    with trace.span("trase.step"):
+        p, aux = state.params, state.aux
+        dev = p.xyz.device
+        with trace.span("trase.step.loss"):
+            if sample is None:
+                sample = sample_pixels_and_masks(
+                    generator, sam_masks, mask_valid, num_sampled_pixels,
+                    num_sampled_masks)
+            C = pixel_mask_correspondence_matrix(sam_masks, sample)
+            weights = pixel_weights(sam_masks, sample)
+        with trace.span("trase.step.deform"), torch.no_grad():
+            d_xyz, d_rot, d_scale = apply_deform(
+                deform_net, state.deform, p.xyz, fid, 0.0, use_deform,
+                p.gaussian_features)
 
-    feat = p.gaussian_features.detach().requires_grad_(True)
-    off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32, device=dev,
-                      requires_grad=with_densify_stats)
-    out = ranks.render(
-        camera, p._replace(gaussian_features=feat), aux.alive, bg_color,
-        d_xyz, d_rot, d_scale, is_6dof=is_6dof, sh_degree=sh_degree,
-        mean2d_offset=off, with_features=True, with_color=False,
-        grad_values_only=not with_densify_stats,
-        norm_gaussian_features=True, smooth_map=smooth_map,
-        smooth_perm=smooth_perm, smooth_generator=generator,
-        raster_cfg=raster_cfg)
-    # (H, W, 1 + F) [acc | feats], unsliced: |feats|^2 per pixel is the
-    # row's sum of squares less acc^2
-    featsA = out["render_gaussian_features_acc_hwc"]
-    sq = torch.sum(featsA * featsA, dim=-1) - featsA[..., 0] * featsA[..., 0]
-    rf_norm = torch.sqrt(torch.clamp(sq, min=0.0) + 1e-12).mean()
-    rfn_reg = (1.0 - rf_norm) ** 2
-    C_F = ranks.feature_gram(featsA, sample, *sam_masks.shape[1:])
-    pos = positive_pixel_pair_loss[contrastive_mode](
-        C, C_F, sample, positive_th=positive_th, weights=weights)
-    neg = negative_pixel_pair_loss[contrastive_mode](
-        C, C_F, sample, negative_th=negative_th, weights=weights)
-    loss = pos + neg + rfn * rfn_reg
+        feat = p.gaussian_features.detach().requires_grad_(True)
+        off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32,
+                          device=dev, requires_grad=with_densify_stats)
+        with trace.span("trase.step.render"):
+            out = ranks.render(
+                camera, p._replace(gaussian_features=feat), aux.alive,
+                bg_color, d_xyz, d_rot, d_scale, is_6dof=is_6dof,
+                sh_degree=sh_degree, mean2d_offset=off, with_features=True,
+                with_color=False, grad_values_only=not with_densify_stats,
+                norm_gaussian_features=True, smooth_map=smooth_map,
+                smooth_perm=smooth_perm, smooth_generator=generator,
+                raster_cfg=raster_cfg)
+        with trace.span("trase.step.loss"):
+            # (H, W, 1 + F) [acc | feats], unsliced: |feats|^2 per pixel
+            # is the row's sum of squares less acc^2
+            featsA = out["render_gaussian_features_acc_hwc"]
+            sq = (torch.sum(featsA * featsA, dim=-1)
+                  - featsA[..., 0] * featsA[..., 0])
+            rf_norm = torch.sqrt(torch.clamp(sq, min=0.0) + 1e-12).mean()
+            rfn_reg = (1.0 - rf_norm) ** 2
+            C_F = ranks.feature_gram(featsA, sample, *sam_masks.shape[1:])
+            pos = positive_pixel_pair_loss[contrastive_mode](
+                C, C_F, sample, positive_th=positive_th, weights=weights)
+            neg = negative_pixel_pair_loss[contrastive_mode](
+                C, C_F, sample, negative_th=negative_th, weights=weights)
+            loss = pos + neg + rfn * rfn_reg
 
-    inputs = [feat, off] if with_densify_stats else [feat]
-    grads = torch.autograd.grad(loss, inputs)
-    with torch.no_grad():
-        pair = sample.pixel_valid[:, None] & sample.pixel_valid[None, :]
-        zero = torch.zeros((), device=dev)
+        with trace.span("trase.step.backward"):
+            inputs = [feat, off] if with_densify_stats else [feat]
+            grads = torch.autograd.grad(loss, inputs)
+        with trace.span("trase.step.adam"), torch.no_grad():
+            pair = sample.pixel_valid[:, None] & sample.pixel_valid[None, :]
+            zero = torch.zeros((), device=dev)
 
-        def mean_sim(sel):
-            return torch.where(sel, C_F, zero).sum() / torch.clamp(
-                sel.sum(), min=1)
+            def mean_sim(sel):
+                return torch.where(sel, C_F, zero).sum() / torch.clamp(
+                    sel.sum(), min=1)
 
-        pos_sim = mean_sim(pair & (C == 1))
-        neg_sim = mean_sim(pair & (C == 0))
-        new_feat, new_feat_opt = adam_update(
-            p.gaussian_features, grads[0], state.opt.gaussian_features,
-            lrs.gaussian_features, row_mask=aux.alive)
-        new_params = p._replace(gaussian_features=new_feat)
-        new_opt = state.opt._replace(gaussian_features=new_feat_opt)
-        new_aux = aux
-        if with_densify_stats:
-            new_aux = G.add_densification_stats(
-                aux, grads[1], out["visibility_filter"] & aux.alive,
-                out["radii"], camera.image_height, camera.image_width)
-        checked = (list(new_params)
-                   + [x for x in new_aux if x.is_floating_point()]
-                   + [t for s in new_opt for t in (s.mu, s.nu)])
-        finite = ranks.agree(torch.isfinite(loss.detach())
-                             & _all_finite(checked))
+            pos_sim = mean_sim(pair & (C == 1))
+            neg_sim = mean_sim(pair & (C == 0))
+            new_feat, new_feat_opt = adam_update(
+                p.gaussian_features, grads[0], state.opt.gaussian_features,
+                lrs.gaussian_features, row_mask=aux.alive)
+            new_params = p._replace(gaussian_features=new_feat)
+            new_opt = state.opt._replace(gaussian_features=new_feat_opt)
+            new_aux = aux
+            if with_densify_stats:
+                new_aux = G.add_densification_stats(
+                    aux, grads[1], out["visibility_filter"] & aux.alive,
+                    out["radii"], camera.image_height, camera.image_width)
+            checked = (list(new_params)
+                       + [x for x in new_aux if x.is_floating_point()]
+                       + [t for s in new_opt for t in (s.mu, s.nu)])
+            finite = ranks.agree(torch.isfinite(loss.detach())
+                                 & _all_finite(checked))
 
-        def w(n, o):
-            return torch.where(finite, n, o)
+            def w(n, o):
+                return torch.where(finite, n, o)
 
-        new_state = state._replace(
-            params=p._replace(gaussian_features=w(new_feat,
-                                                  p.gaussian_features)),
-            opt=state.opt._replace(gaussian_features=AdamState(
-                *[w(n, o) for n, o in zip(new_feat_opt,
-                                          state.opt.gaussian_features)])),
-            aux=G.GaussianAux(*[w(n, o) for n, o in zip(new_aux, aux)])
-            if with_densify_stats else aux)
-    metrics = {"loss": loss.detach(), "finite": finite,
-               "rfn": rf_norm.detach(), "pos_sim": pos_sim,
-               "neg_sim": neg_sim, "overflow": out["overflow"],
-               "overflow_half": out["overflow_half"]}
-    return new_state, metrics
+            new_state = state._replace(
+                params=p._replace(gaussian_features=w(new_feat,
+                                                      p.gaussian_features)),
+                opt=state.opt._replace(gaussian_features=AdamState(
+                    *[w(n, o) for n, o in zip(new_feat_opt,
+                                              state.opt.gaussian_features)])),
+                aux=G.GaussianAux(*[w(n, o) for n, o in zip(new_aux, aux)])
+                if with_densify_stats else aux)
+        metrics = {"loss": loss.detach(), "finite": finite,
+                   "rfn": rf_norm.detach(), "pos_sim": pos_sim,
+                   "neg_sim": neg_sim, "overflow": out["overflow"],
+                   "overflow_half": out["overflow_half"]}
+        return new_state, metrics
 
 
 def clip_unit(x: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .projection import ProjectedGaussians
 from .rasterize import TILE, RasterConfig, _tile_grid, _tile_rects, clamp_rect_to_budget
 from .rasterize_ref import ALPHA_EPS, ALPHA_MAX, T_EPS
@@ -87,8 +88,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
 # for the compositor kernels, (kernel, words) for the reduce and
 # ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py); a launch given
-# a tile range (slab mode) adds "slab" to its key.
-LAYOUT_LAUNCHES: dict = {}
+# a tile range (slab mode) adds "slab" to its key. The port's counter
+# "layout_launches" (utils/trace.py).
+LAYOUT_LAUNCHES: dict = trace.counter("layout_launches")
 
 _LIBS: dict = {}
 
@@ -669,7 +671,7 @@ def _stream(device):
 
 
 def _count_layout(key):
-    LAYOUT_LAUNCHES[key] = LAYOUT_LAUNCHES.get(key, 0) + 1
+    trace.bump(LAYOUT_LAUNCHES, key)
 
 
 def _slab_key(key, t_hi):
@@ -870,25 +872,26 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        kpay, sorted_gauss, sorted_pid, tile_start, logt, stop = \
-            ctx.saved_tensors
-        image_height, image_width, n_val, n_packed, n, with_color, \
-            values_only, t_lo, t_hi = ctx.dims
-        grad_out = grad_out.contiguous()
-        args = (kpay, sorted_gauss, tile_start, image_height, image_width,
-                n_val, n_packed, grad_out, logt, stop)
-        mode = dict(with_color=with_color, values_only=values_only,
-                    t_lo=t_lo, t_hi=t_hi)
-        inv = inverse_pairs(sorted_pid)
-        if kpay.device.type == "cpu":
-            dpair = composite_bwd_plain(*args, **mode)
-            dpayload = reduce_pair_grads_plain(dpair, inv, tile_start, n,
-                                               t_lo, t_hi)
-        else:
-            dpair = composite_bwd(*args, **mode)
-            dpayload = reduce_pair_grads(dpair, inv, tile_start, n, t_lo,
-                                         t_hi, sorted_gauss=sorted_gauss)
-        return (dpayload,) + (None,) * 11
+        with trace.span("trase.composite.backward"):
+            kpay, sorted_gauss, sorted_pid, tile_start, logt, stop = \
+                ctx.saved_tensors
+            image_height, image_width, n_val, n_packed, n, with_color, \
+                values_only, t_lo, t_hi = ctx.dims
+            grad_out = grad_out.contiguous()
+            args = (kpay, sorted_gauss, tile_start, image_height, image_width,
+                    n_val, n_packed, grad_out, logt, stop)
+            mode = dict(with_color=with_color, values_only=values_only,
+                        t_lo=t_lo, t_hi=t_hi)
+            inv = inverse_pairs(sorted_pid)
+            if kpay.device.type == "cpu":
+                dpair = composite_bwd_plain(*args, **mode)
+                dpayload = reduce_pair_grads_plain(dpair, inv, tile_start, n,
+                                                   t_lo, t_hi)
+            else:
+                dpair = composite_bwd(*args, **mode)
+                dpayload = reduce_pair_grads(dpair, inv, tile_start, n, t_lo,
+                                             t_hi, sorted_gauss=sorted_gauss)
+            return (dpayload,) + (None,) * 11
 
 
 class CompositeInputs(NamedTuple):

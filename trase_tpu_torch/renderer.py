@@ -17,6 +17,8 @@ the unsliced [acc | feats] image) and values-only gradients
 (``grad_values_only``). ``render_composite`` (trase_tpu/renderer.py:238,
 reference gaussian_renderer/__init__.py:251-331) composites a background
 set with a deformed, edited dynamic set in one rasterization.
+``render``'s stages are the spans ``trase.render.project``, ``.bin``
+and ``.composite`` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ from .models import gaussians as G
 from .ops.knn import smooth_features
 from .ops.projection import CameraBuffers, compute_cov3d, project_gaussians
 from .ops.rasterize import RasterConfig
-from .ops.rasterize_cuda import rasterize_tiled
-from .utils import graphics
+from .ops.rasterize_cuda import (composite_image, composite_inputs,
+                                 image_outputs, rasterize_tiled)
+from .utils import graphics, trace
 from .utils.rigid import from_homogeneous, to_homogeneous
 
 
@@ -180,28 +183,33 @@ def render(
     if not with_color and not with_features:
         raise ValueError("with_color=False requires with_features=True")
     H, W = camera.image_height, camera.image_width
-    proj = project_view(camera, params, aux_alive, d_xyz, d_rotation,
-                        d_scaling, is_6dof=is_6dof,
-                        scaling_modifier=scaling_modifier,
-                        sh_degree=sh_degree, override_color=override_color,
-                        mask=mask, mean2d_offset=mean2d_offset,
-                        with_color=with_color)
+    with trace.span("trase.render.project"):
+        proj = project_view(camera, params, aux_alive, d_xyz, d_rotation,
+                            d_scaling, is_6dof=is_6dof,
+                            scaling_modifier=scaling_modifier,
+                            sh_degree=sh_degree,
+                            override_color=override_color, mask=mask,
+                            mean2d_offset=mean2d_offset,
+                            with_color=with_color)
+        extra = None
+        if with_features:
+            feats = params.gaussian_features
+            if smooth_map is not None:
+                feats = smooth_features(feats, smooth_map, perm=smooth_perm,
+                                        generator=smooth_generator)
+            if norm_gaussian_features:
+                # safe norm: dead slots hold all-zero features
+                feats = feats / torch.sqrt(
+                    torch.sum(feats * feats, dim=-1, keepdim=True) + 1e-12)
+            extra = feats
 
-    extra = None
-    if with_features:
-        feats = params.gaussian_features
-        if smooth_map is not None:
-            feats = smooth_features(feats, smooth_map, perm=smooth_perm,
-                                    generator=smooth_generator)
-        if norm_gaussian_features:
-            # safe norm: dead slots hold all-zero features
-            feats = feats / torch.sqrt(
-                torch.sum(feats * feats, dim=-1, keepdim=True) + 1e-12)
-        extra = feats
-
-    out = rasterize_tiled(proj, extra, bg_color, H, W, raster_cfg,
-                          with_color=with_color,
-                          grad_values_only=grad_values_only)
+    # rasterize_tiled, split into its binning and its compositing
+    with trace.span("trase.render.bin"):
+        ci = composite_inputs(proj, extra, H, W, raster_cfg, with_color)
+    with trace.span("trase.render.composite"):
+        hwc = composite_image(ci, H, W, grad_values_only)
+        out = image_outputs(hwc, ci.overflow, bg_color, with_color,
+                            extra is not None)
     return render_outputs(out, proj.radius, with_color, with_features)
 
 

@@ -22,7 +22,11 @@ Run state, as the root CLI wires it (train.py:88-110, :131-172):
 ``point_cloud/iteration_N`` (the deform net starts from its init, as in
 trase_tpu); ``--profile_iters START STOP`` records a ``torch.profiler``
 trace (CPU and, on the card, CUDA activity) of iterations START+1..STOP
-into ``<model>/trace/`` as a Chrome trace. Python's, numpy's and torch's
+into ``<model>/trace/`` as a Chrome trace; the port's spans
+(utils/trace.py: trase.iteration, trase.loop.*, trase.step.*,
+trase.render.*, ...) are on for those iterations, so the trace carries
+them as ``user_annotation`` events on the kernels' timeline, and their
+summary is printed at its end. Python's, numpy's and torch's
 global generators are seeded with 0 first (the reference's safe_state),
 so the camera shuffle, and with it a resumed run, repeats.
 
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from .config import ModelParams, OptimizationParams, PipelineParams, save_cfg
+from .utils import trace
 
 # flags whose feature is not ported: (flag, its value when not given,
 # the ROADMAP item that ports it)
@@ -144,7 +149,9 @@ class IterationProfiler:
     first iteration past START, STOP when one is skipped), writing
     <trace_dir>/trace_<START>_<STOP>.json. CUDA activity is recorded
     when the device is the card, and a trace on the card without device
-    time raises, as does any failure to start."""
+    time raises, as does any failure to start. The port's spans are
+    recorded while it traces; it prints each one's count and mean total
+    and self time at the end."""
 
     def __init__(self, start: int, stop: int, trace_dir: str, device):
         self.start, self.stop, self.trace_dir = start, stop, trace_dir
@@ -159,6 +166,7 @@ class IterationProfiler:
             os.makedirs(self.trace_dir, exist_ok=True)
             self.prof = torch.profiler.profile(activities=self.activities)
             self.prof.start()
+            trace.enable(True)
             print(f"[profile] tracing -> {self.trace_dir}")
         elif self.prof is not None and iteration >= self.stop:
             self.finish()
@@ -171,6 +179,11 @@ class IterationProfiler:
             torch.cuda.synchronize()
         prof, self.prof = self.prof, None
         prof.stop()
+        trace.enable(False)
+        for name, d in sorted(trace.summarize(trace.take()).items()):
+            print(f"[profile] span {name}: {d['count']} x "
+                  f"{d['total_ms'] / d['count']:.3f} ms "
+                  f"(self {d['self_ms'] / d['count']:.3f} ms)")
         if len(self.activities) > 1 and not any(
                 str(e.device_type).endswith("CUDA")
                 and e.self_device_time_total > 0
