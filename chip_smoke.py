@@ -142,12 +142,21 @@ JSON line per phase:
    mask-io      native.py builds native/trase_io.cpp (it must); 8 cameras'
                 masks, 32 each, in the native .npz format at 504x672 and
                 1008x1344: ms per stack of load_padded_masks through the
-                numpy path and the native path (bit-identical);
+                numpy path and the native path (bit-identical) and of
+                load_stack's decode to page-locked bits;
                 rgba_to_rgb_f32 against the PIL + numpy load at
-                1008x1344; FEATURE steps of the train CLI with the masks
-                read from disk and a mask cache of one stack, with the
-                prefetcher and inline: ms per step waited on the
-                prefetcher against the inline decode's;
+                1008x1344; the mask unpack kernel (csrc/mask_unpack.cu)
+                at the n3v benchmark's stack, 64 masks of 1200x1600 into
+                M_max 64, equal to its plain version on the same bits on
+                the card, its queued ms beside the plain version's, the
+                bound and the bits' upload from page-locked memory;
+                FEATURE steps of the train CLI with the masks read from
+                disk and a mask cache of one stack, with the prefetcher
+                and inline: ms per step waited on the prefetcher against
+                the inline decode's (load_stack: since the bits path, a
+                decode that stops at the page-locked bits, no longer the
+                float32 stack), each arm's mask_fetch counts (every miss
+                "bits", one unpack launch each);
    style        engine.trainer.style_phase_step on the bench scene: VGG16
                 (seeded fallback) conv4_1 against a seeded 1008x1344 style
                 image of flat tiles and texture, one octant of the cloud
@@ -233,7 +242,8 @@ JSON line per phase:
                 device busy time by kernel and the idle share;
 9. kernels      one object per kernel: launches, error against the plain
                 version, times and the bound, with one variant per
-                instantiation a path launches.
+                instantiation a path launches; the mask unpack's launches
+                are the mask-io phase's training runs'.
 
     python3 chip_smoke.py --mlp-parent OLD.cu   # also times OLD.cu, an
                                                 # earlier deform_mlp.cu
@@ -320,6 +330,7 @@ KERNELS = {
                           "trase_tpu/ops/rasterize_pallas.py:1195"),
     "deform_mlp": ("trase_tpu_torch/csrc/deform_mlp.cu",
                    "trase_tpu/ops/mlp_pallas.py:41"),
+    "mask_unpack": ("trase_tpu_torch/csrc/mask_unpack.cu", "none"),
 }
 # k-means at scale: the bench scene's features, the cluster CLI's k
 KMEANS_K, KMEANS_ITERS = 64, 50
@@ -396,6 +407,9 @@ MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
 # host IO's training run: GAUSSIAN 1..F+1, then one FEATURE block of
 # F+1 steps (the phase machine switches once a block passes F steps)
 MASK_LOOP_SIZE, MASK_LOOP_FEATURE = 256, 16
+# the mask unpack at the n3v-1600x1200 benchmark configuration's stack:
+# (masks, height, width) and the loop's M_max
+MASK_UNPACK_SHAPE, MASK_UNPACK_M_MAX = (64, 1200, 1600), 64
 
 
 def emit(obj) -> None:
@@ -1350,12 +1364,14 @@ def compare_mlp(label, net, xyz, t, timed, parent=None):
 
 
 def counts():
+    """The launches since reset_counts by kernel; the mask unpack's only
+    where it ran."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     totals = dict.fromkeys(("composite_fwd", "composite_bwd",
                             "reduce_pair_grads", "deform_mlp"), 0)
     for key, n in RC.LAYOUT_LAUNCHES.items():
-        totals[key[0]] += n
+        totals[key[0]] = totals.get(key[0], 0) + n
     return totals
 
 
@@ -1824,6 +1840,47 @@ def viewer_web_phase(v, click_pixel):
     return row, counts(), layout_counts()
 
 
+def mask_unpack_check(dev) -> dict:
+    """The mask unpack kernel at the benchmark's stack (MASK_UNPACK_SHAPE
+    into MASK_UNPACK_M_MAX) on seeded bits: equal to unpack_masks_plain on
+    the same bits on the card, one counted launch; its queued ms beside
+    the bits' upload from page-locked memory, the plain version's ms and
+    the bound (the float32 stack written and the bits read at
+    HBM_BYTES_PER_S)."""
+    from trase_tpu_torch.ops import mask_unpack as MU
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    n, h, w = MASK_UNPACK_SHAPE
+    m_max = MASK_UNPACK_M_MAX
+    packed = np.random.default_rng(19).integers(0, 256, n * h * w // 8,
+                                                dtype=np.uint8)
+    host = torch.from_numpy(packed).pin_memory() if dev.type == "cuda" \
+        else torch.from_numpy(packed)
+    bits = host.to(dev)
+    before = RC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
+    got = MU.unpack_masks(bits, n, h, w, m_max)
+    if dev.type == "cuda":
+        assert RC.LAYOUT_LAUNCHES[("mask_unpack",)] == before + 1
+    ref = MU.unpack_masks_plain(bits, n, h, w, m_max)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.equal(got, ref), "mask_unpack differs from its plain version"
+    max_abs_err = float((got - ref).abs().max())
+    del got, ref
+    reps = repeated_ms({
+        "kernel": lambda: MU.unpack_masks(bits, n, h, w, m_max),
+        "upload": lambda: host.to(dev, non_blocking=True)})
+    moved = {"written": m_max * h * w * 4, "read": bits.numel()}
+    return {"shape": [n, h, w], "m_max": m_max, "max_abs_err": max_abs_err,
+            "equal_to_plain": True, "ms": reps["kernel"]["median"],
+            "ms_repeats": reps["kernel"],
+            "plain_ms": cuda_ms(
+                lambda: MU.unpack_masks_plain(bits, n, h, w, m_max), 5),
+            "bound_ms": sum(moved.values()) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": moved,
+            "bits_upload_ms": reps["upload"]["median"],
+            "bits_upload_ms_repeats": reps["upload"]}
+
+
 def mask_io_phase(root, dev):
     """Host IO on the card's machine (module docstring, phase mask-io).
     Returns (row, launches, layouts)."""
@@ -1836,6 +1893,7 @@ def mask_io_phase(root, dev):
     from trase_tpu_torch.data import masks as DM
     from trase_tpu_torch.data.synthetic import write_synthetic_dataset
     from trase_tpu_torch.engine import loop as TL
+    from trase_tpu_torch.ops import rasterize_cuda as RC
 
     t0 = time.perf_counter()
     assert native.available(), "native/trase_io.cpp did not build"
@@ -1858,7 +1916,7 @@ def mask_io_phase(root, dev):
             files[(h, w)].append(p)
     sizes = {}
     for (h, w), paths in files.items():
-        t = {"numpy": [], "native": []}
+        t = {"numpy": [], "native": [], "bits": []}
         for p in paths:
             t0 = time.perf_counter()
             plain = DM.pad_masks(DM.decode_mask_file(p), MASK_N)
@@ -1866,12 +1924,19 @@ def mask_io_phase(root, dev):
             t0 = time.perf_counter()
             fast = DM.load_padded_masks(p, MASK_N)
             t["native"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            bits = DM.load_stack(p, MASK_N)
+            t["bits"].append((time.perf_counter() - t0) * 1e3)
             assert np.array_equal(plain.masks, fast.masks)
             assert np.array_equal(plain.valid, fast.valid)
+            assert bits.shape == (MASK_N, h, w)
+            assert bits.bits.is_pinned() == (dev.type == "cuda")
         sizes[f"{h}x{w}"] = {
             "numpy_ms": float(np.median(t["numpy"])),
             "native_ms": float(np.median(t["native"])),
+            "bits_ms": float(np.median(t["bits"])),
             "numpy_ms_all": t["numpy"], "native_ms_all": t["native"],
+            "bits_ms_all": t["bits"],
             "npz_mb": os.path.getsize(paths[0]) / 2**20, "bit_identical": True}
     row["load_padded_masks"] = sizes
 
@@ -1910,7 +1975,7 @@ def mask_io_phase(root, dev):
     for i, p in enumerate(files[MASK_SIZES[0]]):
         shutil.copy(p, os.path.join(mdir, f"train_{i:04d}.npz"))
     waits, inline = [], []
-    get, load = DM.MaskPrefetcher.get, TL.load_padded_masks
+    get, load = DM.MaskPrefetcher.get, TL.load_stack
     submit = TL.Trainer._submit_mask_prefetch
 
     def timed_get(self):
@@ -1925,13 +1990,16 @@ def mask_io_phase(root, dev):
         inline.append((time.perf_counter() - t0) * 1e3)
         return out
 
+    row["mask_unpack"] = mask_unpack_check(dev)
     loops = {}
     cache = TL.MASK_CACHE_SIZE, TL.MASK_CACHE_CAP
     reset_counts()
     for arm in ("prefetch", "inline"):
         waits.clear()
         inline.clear()
-        DM.MaskPrefetcher.get, TL.load_padded_masks = timed_get, timed_load
+        fetch = dict(TL.MASK_FETCH)
+        unpacks = RC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
+        DM.MaskPrefetcher.get, TL.load_stack = timed_get, timed_load
         TL.MASK_CACHE_SIZE = TL.MASK_CACHE_CAP = 1
         if arm == "inline":
             TL.Trainer._submit_mask_prefetch = lambda self, cam: None
@@ -1948,13 +2016,22 @@ def mask_io_phase(root, dev):
                 "--pairs_per_gaussian", "16", "--load_mask_on_the_fly",
                 "--save_iterations", str(iters)])
         finally:
-            DM.MaskPrefetcher.get, TL.load_padded_masks = get, load
+            DM.MaskPrefetcher.get, TL.load_stack = get, load
             TL.MASK_CACHE_SIZE, TL.MASK_CACHE_CAP = cache
             TL.Trainer._submit_mask_prefetch = submit
         seconds = time.perf_counter() - t0
         assert tr.feature_calls == MASK_LOOP_FEATURE + 1, tr.feature_calls
         assert tr._prefetcher is None
+        fetch = {f"{k[0]}.{k[1]}": TL.MASK_FETCH[k] - fetch.get(k, 0)
+                 for k in TL.MASK_FETCH if TL.MASK_FETCH[k] != fetch.get(k, 0)}
+        unpacks = RC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0) - unpacks
+        # every miss of a native file goes up as bits, one unpack each
+        assert fetch.get("bits.miss", 0) > 0 and "float32.miss" not in fetch, \
+            fetch
+        if dev.type == "cuda":
+            assert unpacks == fetch["bits.miss"], (unpacks, fetch)
         loops[arm] = {"seconds": seconds, "feature_steps": tr.feature_calls,
+                      "mask_fetch": fetch, "unpack_launches": unpacks,
                       "prefetch_gets": len(waits),
                       "prefetch_wait_ms_per_step": sum(waits)
                       / tr.feature_calls,
@@ -3276,7 +3353,8 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
 
     # 9. kernels
     emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                      slab_rows, time.perf_counter() - t_start))
+                      slab_rows, mio["mask_unpack"],
+                      time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -3558,12 +3636,14 @@ def convert_phase(root, src, seg, it, sid, dev) -> dict:
 
 
 def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                 slab_rows, seconds):
+                 slab_rows, mu, seconds):
     """The kernels line: one object per kernel with its headline numbers
     (the GAUSSIAN layout, as in earlier runs) and one variant per
     instantiation, with its launches summed over the paths' counts; the
     slab mode's variants (the mesh phase) carry each slab's time beside
-    the whole image's, their sum, and the slabs' summed bound."""
+    the whole image's, their sum, and the slabs' summed bound. The mask
+    unpack (`mu`, mask_unpack_check's row) counts the mask-io phase's
+    training runs' launches."""
     def launched(key):  # over every path (the FEATURE step's per arm)
         flat = [c for lc in layouts.values()
                 for c in (lc.values() if "densify_stats" in lc else [lc])]
@@ -3714,6 +3794,15 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
             p: c["deform_mlp"] if "deform_mlp" in c
             else {arm: v["deform_mlp"] for arm, v in c.items()}
             for p, c in launches.items()}))
+    unpacks = launches["mask_io"].get("mask_unpack", 0)
+    assert unpacks > 0, launches["mask_io"]
+    entries.append(dict(
+        name="mask_unpack", launches=unpacks,
+        max_abs_err=mu["max_abs_err"], ms=mu["ms"],
+        ms_repeats=mu["ms_repeats"], plain_ms=mu["plain_ms"],
+        bound_ms=mu["bound_ms"], bound_by=mu["bound_by"], library_ms=None,
+        shape=mu["shape"], m_max=mu["m_max"],
+        bits_upload_ms=mu["bits_upload_ms"]))
     for e in entries:
         e["route"] = "cuda"
         e["source"], e["replaces"] = KERNELS[e["name"]]

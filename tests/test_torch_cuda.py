@@ -1,12 +1,14 @@
 """The CUDA kernels (trase_tpu_torch/csrc/composite_fwd.cu, composite_bwd.cu,
-deform_mlp.cu) against their plain PyTorch versions on the card: every
+deform_mlp.cu, mask_unpack.cu) against their plain versions on the card: every
 forward instantiation bit for bit and every backward instantiation on
 scenes built for their edges (long tiles, warps that stop far apart,
 empty tiles, early stops, ragged image sides), the compositor's
 gradients under autograd, the reduce at both widths, the fused deform
 MLP, the viewer's frames, composition and web server, the style step
 through the kernels against the same step through their plain versions,
-and LPIPS, on the card.
+LPIPS, the mask unpack against native.unpack_masks_padded and the training
+loop's mask miss (bits uploaded and unpacked, no synchronising call), on
+the card.
 Imports no jax, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1035,3 +1037,80 @@ def test_world_of_one_steps_equal_single_on_card(tmp_path):
     assert float(m["loss"]) == float(sm["loss"])
     for a, b in zip(TT.float_tensors(new), TT.float_tensors(single)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,m_max", [(3, 5, 7, 6), (64, 1200, 1600, 64),
+                                         (70, 8, 9, 64), (0, 5, 7, 4)])
+def test_mask_unpack_matches_native(n, h, w, m_max):
+    """The unpack kernel against the host unpacker, equal: bits that cross
+    byte boundaries, the benchmark's stack, truncation past m_max, no
+    masks; one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch import native
+    from trase_tpu_torch.ops import mask_unpack as MU
+
+    rng = np.random.default_rng(n + h)
+    packed = rng.integers(0, 256, -(-n * h * w // 8), dtype=np.uint8)
+    before = TRC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
+    got = MU.unpack_masks(torch.from_numpy(packed).cuda(), n, h, w, m_max)
+    assert TRC.LAYOUT_LAUNCHES[("mask_unpack",)] == before + 1
+    ref = torch.from_numpy(native.unpack_masks_padded(packed, n, h, w, m_max))
+    assert got.shape == (m_max, h, w) and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_mask_miss_on_card_is_bits_without_sync(tmp_path):
+    """A CUDA trainer's mask misses, one taken from the prefetcher and one
+    decoded inline, make no synchronising call (the sync debug mode
+    raises on one), go up as bits (counted under mask_fetch's "bits") and
+    cache the stack and validity of load_padded_masks, moved to the
+    device; a hit returns the cached tuple itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from trase_tpu_torch import train as t_train
+    from trase_tpu_torch.config import ModelParams, OptimizationParams
+    from trase_tpu_torch.data import masks as DM
+    from trase_tpu_torch.data.scene import Scene
+    from trase_tpu_torch.data.synthetic import write_synthetic_dataset
+    from trase_tpu_torch.engine import loop as TL
+
+    src = str(tmp_path / "data")
+    write_synthetic_dataset(src, n_train=4, n_test=1, image_size=64,
+                            device="cuda")
+    args = t_train.parse_args(["-s", src, "-m", str(tmp_path / "m"),
+                               "--is_blender", "--load_mask_on_the_fly"])
+    ds = ModelParams.extract(args)
+    os.makedirs(ds.model_path, exist_ok=True)
+    tr = TL.Trainer(ds, OptimizationParams.extract(args), None,
+                    Scene(ds, shuffle=False, device="cuda"), device="cuda")
+    cams = tr.scene.get_train_cameras()
+    assert all(c.mask_path and c.masks is None for c in cams)
+    assert DM.load_stack(cams[0].mask_path, 4).bits.is_pinned()
+    tr._prepare_mask_meta(cams)
+    before = dict(TL.MASK_FETCH)
+    try:
+        tr._masks_for(cams[3])  # builds the kernel and warms the allocators
+        tr._submit_mask_prefetch(cams[0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [tr._masks_for(cams[0]), tr._masks_for(cams[1])]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        tr._close_prefetcher()
+    assert TL.MASK_FETCH[("bits", "miss")] == before.get(("bits", "miss"),
+                                                         0) + 3
+    assert TL.MASK_FETCH.get(("float32", "miss"), 0) == before.get(
+        ("float32", "miss"), 0)
+    for cam, (masks, valid) in zip(cams, got):
+        ref = DM.load_padded_masks(cam.mask_path, tr._m_max)
+        assert masks.device.type == valid.device.type == "cuda"
+        assert torch.equal(masks.cpu(), torch.from_numpy(ref.masks))
+        assert torch.equal(valid.cpu(), torch.from_numpy(ref.valid))
+        assert tr._masks_for(cam) is got[cams.index(cam)]

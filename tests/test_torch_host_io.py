@@ -1,7 +1,9 @@
 """Port parity for host IO: trase_tpu_torch.native (the ctypes binding to
 native/trase_io.cpp, built into trase_tpu_torch/build/) against
 trase_tpu.native and against its own numpy paths; the native branch of
-data/masks.load_padded_masks; MaskPrefetcher against trase_tpu's; and a
+data/masks.load_padded_masks; the bits path (load_packed_masks, the
+prefetcher's packed bits, ops/mask_unpack's plain version against
+native.unpack_masks_padded); MaskPrefetcher against trase_tpu's; and a
 short FEATURE run of the training CLI with masks read from disk, with the
 prefetcher and without it: the same masks in every step and the same
 final state, bit for bit.
@@ -23,6 +25,7 @@ from trase_tpu_torch import native as t_native
 from trase_tpu_torch.data import masks as TM
 from trase_tpu_torch.engine import loop as TL
 from trase_tpu_torch.engine import trainer as TT
+from trase_tpu_torch.ops import mask_unpack as TMU
 
 torch.set_num_threads(2)
 
@@ -107,6 +110,74 @@ def test_load_padded_masks_native_branch(tmp_path, m_max):
     assert TM.load_padded_masks(str(tmp_path / "missing.npz"), m_max) is None
 
 
+def test_load_packed_masks_stops_at_the_bits(tmp_path):
+    """The native container's packed bits as the file holds them, with
+    (N, H, W); np.unpackbits of them is decode_mask_file's stack. Other
+    containers and missing files give None."""
+    paths, stacks = _mask_files(tmp_path, [(3, 5, 7), (4, 19, 27)])
+    for p, m in zip(paths, stacks):
+        got = TM.load_packed_masks(p)
+        assert got.shape == m.shape
+        np.testing.assert_array_equal(got.bits, np.load(p)["packed"])
+        n, h, w = got.shape
+        bits = np.unpackbits(got.bits, count=n * h * w).reshape(n, h, w)
+        np.testing.assert_array_equal(bits.astype(bool),
+                                      TM.decode_mask_file(p))
+    np.save(tmp_path / "m.npy", stacks[0])
+    np.savez(tmp_path / "plain.npz", masks=stacks[0])
+    for other in ("m.npy", "plain.npz", "missing.npz"):
+        assert TM.load_packed_masks(str(tmp_path / other)) is None
+
+
+@pytest.mark.parametrize("n,h,w,m_max", [(3, 5, 7, 6), (70, 8, 9, 64),
+                                         (0, 5, 7, 4), (7, 33, 61, 10)])
+def test_unpack_masks_plain_matches_native(n, h, w, m_max):
+    """ops/mask_unpack on a CPU tensor (its plain version): bits that
+    cross byte boundaries, truncation past m_max, no masks at all."""
+    _, packed = _packed(n, h, w, n + h)
+    got = TMU.unpack_masks(torch.from_numpy(packed), n, h, w, m_max)
+    ref = t_native.unpack_masks_padded(packed, n, h, w, m_max)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.from_numpy(ref))
+    with pytest.raises(ValueError, match="packed bytes"):
+        TMU.unpack_masks(torch.from_numpy(packed[:-1]), n + 1, h, w, m_max)
+
+
+def test_mask_prefetcher_bits_mode(tmp_path):
+    """The prefetcher yields the native files' bits as uint8 tensors,
+    page-locked where CUDA is present, in submission order; other
+    containers as the padded float32 stack, a missing file as None; a
+    decode's error is re-raised."""
+    paths, stacks = _mask_files(tmp_path, [(4, 19, 27), (2, 19, 27)])
+    np.save(tmp_path / "m.npy", stacks[0])
+    bad = tmp_path / "bad.npz"
+    bad.write_bytes(b"not a zip")
+    order = [paths[0], str(tmp_path / "missing.npz"),
+             str(tmp_path / "m.npy"), paths[1]]
+    pf = TM.MaskPrefetcher(4, depth=2)
+    try:
+        for p in order + [str(bad)]:
+            pf.submit(p)
+        got = [pf.get() for _ in order]
+        assert [p for p, _ in got] == order
+        for i in (0, 3):
+            packed = got[i][1]
+            assert isinstance(packed, TM.PackedMasks)
+            assert packed.bits.dtype == torch.uint8
+            assert packed.bits.is_pinned() == torch.cuda.is_available()
+            np.testing.assert_array_equal(packed.bits.numpy(),
+                                          np.load(order[i])["packed"])
+            assert packed.shape == stacks[i // 3].shape
+        assert got[1][1] is None
+        ref = TM.load_padded_masks(order[2], 4)
+        np.testing.assert_array_equal(got[2][1].masks, ref.masks)
+        with pytest.raises(Exception):
+            pf.get()
+    finally:
+        pf.close()
+    assert not pf._thread.is_alive()
+
+
 def test_mask_prefetcher_matches_trase_tpu(tmp_path):
     paths, _ = _mask_files(tmp_path, [(4, 19, 27), (2, 19, 27), (5, 19, 27),
                                       (3, 19, 27), (1, 19, 27), (4, 19, 27)])
@@ -122,8 +193,13 @@ def test_mask_prefetcher_matches_trase_tpu(tmp_path):
             if ref is None:
                 assert got is None
                 continue
-            np.testing.assert_array_equal(got.masks, ref.masks)
-            np.testing.assert_array_equal(got.valid, ref.valid)
+            # the port's prefetcher stops at a native file's bits: the
+            # loop's unpack of them is trase_tpu's stack
+            assert isinstance(got, TM.PackedMasks)
+            n, h, w = got.shape
+            np.testing.assert_array_equal(
+                TMU.unpack_masks(got.bits, n, h, w, 4).numpy(), ref.masks)
+            np.testing.assert_array_equal(np.arange(4) < n, ref.valid)
     finally:
         tp.close()
         jp.close()

@@ -3,7 +3,9 @@ records nothing, on nests parents and iterations (also on the mask
 prefetcher's thread), every span is a user_annotation of a CPU
 torch.profiler trace, a tiny CPU training run records the loop's, the
 step's and the renderer's spans in every iteration of each regime, and
-the cache counters count a planted cache's hits and misses."""
+the cache counters count a planted cache's hits and misses, and the
+mask_fetch counter the path each mask miss took: bits for a native mask
+file, float32 for in-memory masks."""
 import json
 import os
 import sys
@@ -235,3 +237,58 @@ def test_cache_counters_count_a_planted_cache(traced_run):
                                           cams[0], cams[1])]
     assert got[0] is planted and got[2] is planted
     assert delta() == {("masks", "hit"): 3, ("masks", "miss"): 2}
+
+
+def test_mask_fetch_counts_the_float32_path_on_the_cpu(traced_run):
+    """A camera's in-memory masks take the host path: the miss counts under
+    mask_fetch ("float32", ...) with the stack's and the validity vector's
+    bytes, and a later fetch returns the cached tuple itself."""
+    import dataclasses
+
+    tr, _, _ = traced_run
+    assert TL.MASK_FETCH is trace.counter("mask_fetch")
+    disk = tr.scene.get_train_cameras()[0]
+    cam = dataclasses.replace(disk, masks=TM.decode_mask_file(disk.mask_path))
+    tr._mask_cache.clear()
+    before = dict(TL.MASK_FETCH)
+    entry = tr._masks_for(cam)
+    masks, valid = entry
+    delta = {k: TL.MASK_FETCH[k] - before.get(k, 0) for k in TL.MASK_FETCH
+             if TL.MASK_FETCH[k] != before.get(k, 0)}
+    assert delta == {("float32", "miss"): 1,
+                     ("float32", "bytes"): masks.numel() * 4 + valid.numel()}
+    ref = TM.load_padded_masks(disk.mask_path, tr._m_max)
+    assert torch.equal(masks, torch.from_numpy(ref.masks))
+    assert torch.equal(valid, torch.from_numpy(ref.valid))
+    assert tr._masks_for(cam) is entry
+    assert dict(TL.MASK_FETCH) == {**before, **{k: before.get(k, 0) + v
+                                                for k, v in delta.items()}}
+
+
+def test_bits_path_caches_the_float32_stack(traced_run):
+    """A CPU trainer's mask files take the bits path (the unpack is its
+    plain version there): misses through the prefetcher and inline count
+    under mask_fetch ("bits", ...) with the packed bytes, and cache the
+    host path's stack and validity exactly."""
+    tr, _, _ = traced_run
+    cams = tr.scene.get_train_cameras()
+    tr._mask_cache.clear()
+    tr._prepare_mask_meta(cams)
+    before = dict(TL.MASK_FETCH)
+    try:
+        tr._submit_mask_prefetch(cams[0])
+        got = [tr._masks_for(cams[0]), tr._masks_for(cams[1])]
+    finally:
+        tr._close_prefetcher()
+    packed = [TM.load_packed_masks(c.mask_path).bits.size for c in cams[:2]]
+    assert TL.MASK_FETCH[("bits", "miss")] - before.get(("bits", "miss"),
+                                                        0) == 2
+    assert TL.MASK_FETCH[("bits", "bytes")] - before.get(
+        ("bits", "bytes"), 0) == sum(packed)
+    assert TL.MASK_FETCH.get(("float32", "miss")) == before.get(
+        ("float32", "miss"))
+    for cam, (masks, valid) in zip(cams, got):
+        ref = TM.load_padded_masks(cam.mask_path, tr._m_max)
+        assert masks.dtype == torch.float32 and valid.dtype == torch.bool
+        assert torch.equal(masks, torch.from_numpy(ref.masks))
+        assert torch.equal(valid, torch.from_numpy(ref.valid))

@@ -14,8 +14,9 @@ its spans wrapped from outside and the profiler's ATen ops):
 - after the window, the spans' means: ``trase.step`` per step call (the
   inside twin of ``step_enqueue_ms.train``), ``trase.iteration`` less its
   step per iteration (the twin of ``loop_host_ms.train``), the step's
-  parts, the fetch's wait and upload per iteration, a mask decode, and
-  the cache counter's hit shares over the window;
+  parts, the fetch's wait and upload per iteration, a mask decode, the
+  cache counter's hit shares over the window, and the mask_fetch
+  counter's misses and bytes by path (bits or float32);
 - with --trace 1, the profiled stretch's idle device time put down to the
   innermost ``trase.`` span whose time covers each gap's middle
   (``idle_by_span``), the share of it inside ``trase.step``, and the idle
@@ -59,17 +60,21 @@ def parse_args(argv=None):
     return ap.parse_known_args(argv)
 
 
-def _cache_delta(before: dict) -> dict:
-    now = trace.counter("cache")
+COUNTERS = ("cache", "mask_fetch")
+
+
+def _counter_delta(name: str, before: dict) -> dict:
+    now = trace.counter(name)
     return {f"{k[0]}.{k[1]}": now[k] - before.get(k, 0) for k in now
             if now[k] != before.get(k, 0)}
 
 
-def read_window(spans: list, cache: dict) -> dict:
-    """What the window's spans and the cache counter read."""
+def read_window(spans: list, cache: dict, mask_fetch: dict) -> dict:
+    """What the window's spans, the cache counter and the mask_fetch
+    counter read."""
     s = trace.summarize(spans)
     if "trase.step" not in s or "trase.iteration" not in s:
-        return {"spans": s, "cache": cache}
+        return {"spans": s, "cache": cache, "mask_fetch": mask_fetch}
     steps, its = s["trase.step"]["count"], s["trase.iteration"]["count"]
 
     def per(name, n):
@@ -99,6 +104,7 @@ def read_window(spans: list, cache: dict) -> dict:
                 out[f"{kind}_upload_ms_per_miss"] = (
                     s["trase.loop.fetch.upload"]["total_ms"] / miss)
     out["cache"] = cache
+    out["mask_fetch"] = mask_fetch
     out["spans"] = s
     return out
 
@@ -202,14 +208,15 @@ def patch(mode, opts, report: dict):
                 trace.take()
                 report["pair"]["on" if on else "off"] = n / dt
                 first_iter += n
-        before = dict(trace.counter("cache"))
+        before = {c: dict(trace.counter(c)) for c in COUNTERS}
         trace.take()
         trace.enable(bool(opts.spans))
         try:
             out = window(torch, run_, first_iter, seconds)
         finally:
             trace.enable(False)
-        report["window"] = read_window(trace.take(), _cache_delta(before))
+        report["window"] = read_window(
+            trace.take(), *[_counter_delta(c, before[c]) for c in COUNTERS])
         report["window"]["interval_ms"] = 1e3 * statistics.fmean(out[2])
         return out
 

@@ -1,4 +1,5 @@
-"""SAM mask loading/decoding (numpy; torch only for reference .pt files).
+"""SAM mask loading/decoding (numpy; torch for reference .pt files and
+the loop's page-locked bits).
 
 Counterpart of trase_tpu/data/masks.py. The reference stores per-image SAM masks as
 ``masks/<name>.pt`` holding either a raw (N,H,W) bool tensor or a dict
@@ -7,10 +8,19 @@ Counterpart of trase_tpu/data/masks.py. The reference stores per-image SAM masks
 shape, written by ``save_mask_file``) and .npy. The FEATURE step takes
 one static (M_max, H, W) float32 stack per dataset with a validity
 vector (``pad_masks``, ``load_padded_masks``: the native .npz format
-through the C++ unpacker of ``native.py``). ``MaskPrefetcher`` decodes
-on a background thread, so the training loop can start the next
-camera's decode before the current step; each decode is the span
-``trase.masks.decode`` of the iteration that submitted it.
+through the C++ unpacker of ``native.py``).
+
+Where the 0/1s become floats: ``load_packed_masks`` stops at the native
+container's bits, and ``load_stack``, what the training loop reads, hands
+them on in a uint8 tensor, page-locked where CUDA is present, for the
+loop to unpack on its device (ops/mask_unpack.py: the CUDA kernel on a
+card, its plain version on the CPU). Every other container (.pt, .npy,
+an .npz without packed bits) keeps the host path: the padded float32
+stack of ``load_padded_masks``. ``MaskPrefetcher`` decodes on a
+background thread, host work only (no launch, no stream), so the
+training loop can start the next camera's decode before the current
+step; each decode is the span ``trase.masks.decode`` of the iteration
+that submitted it.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import threading
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..utils import trace
 
@@ -27,6 +38,11 @@ from ..utils import trace
 class PaddedMasks(NamedTuple):
     masks: np.ndarray  # (M_max, H, W) float32
     valid: np.ndarray  # (M_max,) bool
+
+
+class PackedMasks(NamedTuple):
+    bits: np.ndarray | torch.Tensor  # (>= N*H*W/8,) uint8, np.packbits order
+    shape: tuple  # (N, H, W)
 
 
 def decode_mask_file(path: str) -> np.ndarray | None:
@@ -116,26 +132,53 @@ def load_padded_masks(path: str, m_max: int) -> PaddedMasks | None:
     """Decode + pad (None when the file is missing). The native bit-packed
     .npz format goes through native.unpack_masks_padded: one pass instead
     of unpackbits / reshape / astype / pad."""
-    if path.endswith(".npz") and os.path.exists(path):
-        z = np.load(path)
-        if "packed" in z:
-            from ..native import unpack_masks_padded
+    packed = load_packed_masks(path)
+    if packed is not None:
+        from ..native import unpack_masks_padded
 
-            n, h, w = int(z["N"]), int(z["H"]), int(z["W"])
-            padded = unpack_masks_padded(np.asarray(z["packed"]), n, h, w,
-                                         m_max)
-            return PaddedMasks(masks=padded, valid=np.arange(m_max) < n)
+        n, h, w = packed.shape
+        return PaddedMasks(
+            masks=unpack_masks_padded(packed.bits, n, h, w, m_max),
+            valid=np.arange(m_max) < n)
     masks = decode_mask_file(path)
     return None if masks is None else pad_masks(masks, m_max)
+
+
+def load_packed_masks(path: str) -> PackedMasks | None:
+    """The native .npz container's packed bits (numpy uint8), inflated and
+    not expanded, with (N, H, W); None when the file is missing or holds
+    no packed bits."""
+    if not (path.endswith(".npz") and os.path.exists(path)):
+        return None
+    z = np.load(path)
+    if "packed" not in z:
+        return None
+    return PackedMasks(bits=np.asarray(z["packed"]),
+                       shape=(int(z["N"]), int(z["H"]), int(z["W"])))
+
+
+def load_stack(path: str, m_max: int) -> PackedMasks | PaddedMasks | None:
+    """One mask file as the training loop uploads it: a native container's
+    packed bits in a uint8 tensor, page-locked where CUDA is present (its
+    upload then need not wait for queued work); every other container's
+    padded float32 stack. None when the file is missing."""
+    packed = load_packed_masks(path)
+    if packed is None:
+        masks = decode_mask_file(path)
+        return None if masks is None else pad_masks(masks, m_max)
+    host = torch.empty(packed.bits.size, dtype=torch.uint8,
+                       pin_memory=torch.cuda.is_available())
+    host.numpy()[:] = packed.bits
+    return packed._replace(bits=host)
 
 
 class MaskPrefetcher:
     """Decodes mask files on one background thread (trase_tpu's
     MaskPrefetcher; the reference decodes on the critical path,
     train.py:246-249). ``submit`` queues a path, ``get`` returns the next
-    decoded (path, PaddedMasks or None) in submission order and re-raises
-    a decode's exception; at most `depth` results wait decoded. ``close``
-    stops the thread: it drops what was not taken."""
+    decoded (path, ``load_stack(path, m_max)``) in submission order
+    and re-raises a decode's exception; at most `depth` results wait
+    decoded. ``close`` stops the thread: it drops what was not taken."""
 
     def __init__(self, m_max: int, depth: int = 4):
         self.m_max = m_max
@@ -154,7 +197,7 @@ class MaskPrefetcher:
             path, iteration = job
             try:
                 with trace.span("trase.masks.decode", iteration=iteration):
-                    result = load_padded_masks(path, self.m_max)
+                    result = load_stack(path, self.m_max)
             except Exception as e:  # noqa: BLE001 — handed to get()
                 result = e
             self._q.put((path, result))
@@ -162,7 +205,7 @@ class MaskPrefetcher:
     def submit(self, path: str):
         self._jobs.put((path, trace.current_iteration()))
 
-    def get(self) -> tuple[str, PaddedMasks | None]:
+    def get(self) -> tuple[str, PackedMasks | PaddedMasks | None]:
         path, result = self._q.get()
         if isinstance(result, Exception):
             raise result

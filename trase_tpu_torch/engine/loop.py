@@ -47,6 +47,16 @@ thread (``MaskPrefetcher``): the loop pre-draws the next view before each
 step, as trase_tpu's does, and submits its decode, and a step whose
 stack is not cached takes it from the prefetcher (decoding inline what
 was never submitted). The prefetcher closes when ``train`` returns.
+A native bit-packed mask file (``save_mask_file``'s .npz, what
+``extract_masks`` writes) decodes only to its bits, page-locked where
+CUDA is present; a miss copies them up without waiting for the queued
+work and the 0/1s become the cached float32 stack on the device
+(ops/mask_unpack.py: the CUDA kernel on a card, its plain version on the
+CPU), the same values bit for bit. In-memory ``cam.masks`` and .pt and
+.npy files keep the host path: the float32 stack is padded on the host
+and copied up as it is. The counter ``mask_fetch`` counts each miss's
+path and the bytes it uploaded:
+``("bits" | "float32", "miss" | "bytes")``.
 
 ``train(stall_timeout_s=T)`` arms trase_tpu's stall watchdog
 (loop.py:443-476): a daemon thread, ``stall-watchdog``, that ends the
@@ -86,13 +96,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.masks import (MaskPrefetcher, decode_mask_file,
-                          load_padded_masks, mask_file_shape, pad_masks)
+from ..data.masks import (MaskPrefetcher, PackedMasks, decode_mask_file,
+                          load_stack, mask_file_shape, pad_masks)
 from ..models import gaussians as G
 from ..models.deform import flax_variables, init_deform, make_deform_network
 from ..models.gaussians_io import load_checkpoint, save_checkpoint
 from ..native import rgba_to_rgb_f32
 from ..ops.knn import build_feature_smooth_map, smooth_features
+from ..ops.mask_unpack import unpack_masks
 from ..ops.rasterize import RasterConfig
 from ..renderer import render
 from ..utils import trace
@@ -109,6 +120,9 @@ MASK_CACHE_SIZE, MASK_CACHE_CAP = 8, 128
 STALL_EXIT_CODE = 86
 # hits and misses of the device caches: ("gt" | "masks", "hit" | "miss")
 CACHE_COUNTS = trace.counter("cache")
+# the mask cache's misses by the path their stack took, and the bytes each
+# path uploaded: ("bits" | "float32", "miss" | "bytes")
+MASK_FETCH = trace.counter("mask_fetch")
 
 
 def _load_gt(path: str, bg: np.ndarray) -> np.ndarray:
@@ -305,33 +319,51 @@ class Trainer:
             trace.bump(CACHE_COUNTS, ("masks", "hit"))
             self._mask_cache.move_to_end(key)
             return self._mask_cache[key]
-        padded = None
+        got = None
         with trace.span("trase.loop.fetch.wait"):
             if cam.masks is not None:
-                padded = pad_masks(np.asarray(cam.masks), self._m_max)
+                got = pad_masks(np.asarray(cam.masks), self._m_max)
             elif cam.mask_path:
                 # drain the prefetcher up to this camera's file (the
                 # stacks decoded ahead of it are dropped, as in trase_tpu's
                 # loop)
                 while cam.mask_path in self._prefetched:
-                    path, got = self._prefetcher.get()
+                    path, out = self._prefetcher.get()
                     del self._prefetched[path]
                     if path == cam.mask_path:
-                        padded = got
-                if padded is None:
+                        got = out
+                if got is None:
                     with trace.span("trase.masks.decode"):
-                        padded = load_padded_masks(cam.mask_path,
-                                                   self._m_max)
-        if padded is None:
+                        got = load_stack(cam.mask_path, self._m_max)
+        if got is None:
             return None
         trace.bump(CACHE_COUNTS, ("masks", "miss"))
         with trace.span("trase.loop.fetch.upload"):
-            entry = (torch.as_tensor(padded.masks, device=self.device),
-                     torch.as_tensor(padded.valid, device=self.device))
+            entry = self._upload_masks(got)
         self._mask_cache[key] = entry
         while len(self._mask_cache) > self.mask_cache_size:
             self._mask_cache.popitem(last=False)
         return entry
+
+    def _upload_masks(self, got):
+        """(masks, valid) on the device from a decoded stack. Packed bits
+        (page-locked on a card) go up asynchronously, and the unpack runs
+        behind the copy on the same stream; no call here waits for the
+        device. A float32 stack is copied up as it is."""
+        dev = self.device
+        if isinstance(got, PackedMasks):
+            n, h, w = got.shape
+            masks = unpack_masks(got.bits.to(dev, non_blocking=True), n, h,
+                                 w, self._m_max)
+            valid = torch.arange(self._m_max, device=dev) < n
+            kind, nbytes = "bits", got.bits.nbytes
+        else:
+            masks = torch.as_tensor(got.masks, device=dev)
+            valid = torch.as_tensor(got.valid, device=dev)
+            kind, nbytes = "float32", got.masks.nbytes + got.valid.nbytes
+        trace.bump(MASK_FETCH, (kind, "miss"))
+        trace.bump(MASK_FETCH, (kind, "bytes"), nbytes)
+        return masks, valid
 
     def _get_smooth_map(self):
         if self._smooth_dirty or self._smooth_map is None:

@@ -38,8 +38,8 @@ range of every tile.
 ``composite_slab`` is the slab entry of ``rasterize_tiled``.
 
 ``build_library`` builds every csrc/*.cu source, the fused deform MLP's
-(ops/mlp_cuda.py) included, and ``LAYOUT_LAUNCHES`` counts every kernel's
-launches.
+(ops/mlp_cuda.py) and the mask unpack's (ops/mask_unpack.py) included, and
+``LAYOUT_LAUNCHES`` counts every kernel's launches.
 """
 from __future__ import annotations
 
@@ -77,7 +77,8 @@ SUPPORTED = frozenset({(4, 0, True), (36, 0, True), (36, 16, True),
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("composite_fwd", "composite_bwd", "deform_mlp")}
+           for name in ("composite_fwd", "composite_bwd", "deform_mlp",
+                        "mask_unpack")}
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
@@ -87,7 +88,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # instantiation: one is added where each kernel is launched, nowhere else.
 # Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
 # for the compositor kernels, (kernel, words) for the reduce and
-# ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py); a launch given
+# ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py), ("mask_unpack",)
+# for the mask stack's unpack (ops/mask_unpack.py); a launch given
 # a tile range (slab mode) adds "slab" to its key. The port's counter
 # "layout_launches" (utils/trace.py).
 LAYOUT_LAUNCHES: dict = trace.counter("layout_launches")
@@ -633,6 +635,9 @@ _ARGTYPES = {
     "deform_mlp": ("trase_deform_mlp",
                    [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 8),
+    "mask_unpack": ("trase_unpack_masks",
+                    [ctypes.c_void_p] + [ctypes.c_int64] * 3
+                    + [ctypes.c_void_p] * 2),
 }
 
 
