@@ -15,8 +15,9 @@ its spans wrapped from outside and the profiler's ATen ops):
   inside twin of ``step_enqueue_ms.train``), ``trase.iteration`` less its
   step per iteration (the twin of ``loop_host_ms.train``), the step's
   parts, the fetch's wait and upload per iteration, a mask decode, the
-  cache counter's hit shares over the window, and the mask_fetch
-  counter's misses and bytes by path (bits or float32);
+  cache counter's hit shares over the window, the mask_fetch counter's
+  misses and bytes by path (bits or float32), and the nnfm counter's
+  calls by size (a style cell: its step's parts include ``.vgg``);
 - with --trace 1, the profiled stretch's idle device time put down to the
   innermost ``trase.`` span whose time covers each gap's middle
   (``idle_by_span``), the share of it inside ``trase.step``, and the idle
@@ -60,21 +61,23 @@ def parse_args(argv=None):
     return ap.parse_known_args(argv)
 
 
-COUNTERS = ("cache", "mask_fetch")
+COUNTERS = ("cache", "mask_fetch", "nnfm")
 
 
 def _counter_delta(name: str, before: dict) -> dict:
     now = trace.counter(name)
-    return {f"{k[0]}.{k[1]}": now[k] - before.get(k, 0) for k in now
+    return {".".join(map(str, k)): now[k] - before.get(k, 0) for k in now
             if now[k] != before.get(k, 0)}
 
 
-def read_window(spans: list, cache: dict, mask_fetch: dict) -> dict:
-    """What the window's spans, the cache counter and the mask_fetch
-    counter read."""
+def read_window(spans: list, cache: dict, mask_fetch: dict,
+                nnfm: dict) -> dict:
+    """What the window's spans, the cache counter, the mask_fetch counter
+    and the nnfm counter read."""
     s = trace.summarize(spans)
     if "trase.step" not in s or "trase.iteration" not in s:
-        return {"spans": s, "cache": cache, "mask_fetch": mask_fetch}
+        return {"spans": s, "cache": cache, "mask_fetch": mask_fetch,
+                "nnfm": nnfm}
     steps, its = s["trase.step"]["count"], s["trase.iteration"]["count"]
 
     def per(name, n):
@@ -86,7 +89,7 @@ def read_window(spans: list, cache: dict, mask_fetch: dict) -> dict:
                             - s["trase.step"]["total_ms"]) / its,
            "step_self_share": (s["trase.step"]["self_ms"]
                                / s["trase.step"]["total_ms"])}
-    for part in ("deform", "render", "loss", "backward", "adam"):
+    for part in ("deform", "render", "vgg", "loss", "backward", "adam"):
         out[f"{part}_host_ms"] = per(f"trase.step.{part}", steps)
     for part in ("fetch", "fetch.wait", "fetch.upload", "read_metrics"):
         out[f"{part.replace('.', '_')}_ms"] = per(f"trase.loop.{part}", its)
@@ -105,6 +108,7 @@ def read_window(spans: list, cache: dict, mask_fetch: dict) -> dict:
                     s["trase.loop.fetch.upload"]["total_ms"] / miss)
     out["cache"] = cache
     out["mask_fetch"] = mask_fetch
+    out["nnfm"] = nnfm
     out["spans"] = s
     return out
 
@@ -163,10 +167,10 @@ def read_stretch(prof: dict) -> dict:
             "annotations": len(spans)}
 
 
-def sync_check(torch, run, first_iter: int, n: int):
-    """n iterations with spans off, then n on, each under the sync debug
-    mode; returns the next iteration and the warnings each counted."""
-    tr = run.trainer
+def sync_check(torch, advance, first_iter: int, n: int):
+    """n iterations (advance(first_iter, n)) with spans off, then n on,
+    each under the sync debug mode; returns the next iteration and the
+    warnings each counted."""
     counts = {}
     for on in (False, True):
         trace.enable(on)
@@ -174,8 +178,7 @@ def sync_check(torch, run, first_iter: int, n: int):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                tr.opt.iterations = first_iter + n
-                tr.train(first_iter=first_iter, progress=False)
+                advance(first_iter, n)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
                 trace.enable(False)
@@ -195,10 +198,19 @@ def patch(mode, opts, report: dict):
     spans."""
     window, stretch, run = mode.window, mode.stretch, mode.run
 
+    def advance(run_, first_iter, n):
+        """n iterations of the mode's loop: the style entry or train."""
+        if hasattr(mode, "drive"):
+            mode.drive(run_, first_iter, n)
+            return
+        run_.trainer.opt.iterations = first_iter + n
+        run_.trainer.train(first_iter=first_iter, progress=False)
+
     def traced_window(torch, run_, first_iter, seconds):
         if opts.sync_check:
             first_iter, report["sync_check"] = sync_check(
-                torch, run_, first_iter, opts.sync_check)
+                torch, lambda first, n: advance(run_, first, n), first_iter,
+                opts.sync_check)
         if opts.pair_seconds:
             report["pair"] = {}
             for on in ((False, True) if report["seed"] % 2 else (True, False)):

@@ -72,7 +72,10 @@ image or mask stack: ``trase.loop.fetch.wait`` for the prefetcher or an
 inline read, ``trase.loop.fetch.upload`` for the host-to-device copy),
 the step's ``trase.step``, ``trase.loop.read_metrics`` and
 ``trase.loop.densify``; the counter ``cache`` counts the GT and mask
-caches' hits and misses.
+caches' hits and misses. ``train_style`` (the style CLI's loop: NNFM
+fine-tuning of one object's colours) names its iterations the same way,
+each holding the style step's ``trase.step`` and, every 10th, the loss
+EMA's read ``trase.loop.read_metrics``.
 
 Left out: the metrics pipeline (it existed for a remote device). The
 step's metrics stay on the device; the host reads them every 10
@@ -641,6 +644,69 @@ class Trainer:
         if n_iters > 0:
             print(f"[timing] {n_iters} iters in {dt:.1f}s = "
                   f"{n_iters / dt:.2f} it/s")
+
+    def train_style(self, vgg, ref_feats: torch.Tensor,
+                    style_mask: torch.Tensor, first_iter: int,
+                    last_iter: int, saving_iterations=(),
+                    progress: bool = True, on_iteration=None):
+        """NNFM style fine-tuning, iterations first_iter + 1 .. last_iter
+        (the style CLI's loop): each draws a view from ``np_rng`` popping
+        the view stack (refilled from the train cameras when empty) and
+        takes one ``style_phase_step`` against ``ref_feats`` (the style
+        image's features at the layer ``vgg`` was built for), changing
+        the colours of the rows of ``style_mask`` alone; a step the NaN
+        guard skipped counts in ``skipped``. The loss EMA
+        stays on the device and is read every 10 iterations (the span
+        ``trase.loop.read_metrics``) into ``ema_loss``, and once more at
+        the end; snapshots at ``saving_iterations``;
+        ``on_iteration(trainer, iteration, metrics)`` after each. Each
+        iteration is the span ``trase.iteration``."""
+        cams = self.scene.get_train_cameras()
+        stack = self._viewpoint_stack
+        fx_key = vgg.layer_names[0]
+        ema = torch.full((), float(self.ema_loss), device=self.device)
+        bar = None
+        if progress:
+            try:
+                from tqdm import tqdm
+
+                bar = tqdm(range(first_iter, last_iter), desc="Style transfer")
+            except ImportError:
+                pass
+        try:
+            for iteration in range(first_iter + 1, last_iter + 1):
+                trace.set_iteration(iteration)
+                with trace.span("trase.iteration"):
+                    if not stack:
+                        stack[:] = cams
+                    cam = stack.pop(int(self.np_rng.integers(0, len(stack))))
+                    self.state, metrics = T.style_phase_step(
+                        self.state, cam.to_render_camera(self.device),
+                        ref_feats, style_mask, cam.fid,
+                        self.lr_at(iteration), self.bg_color,
+                        deform_net=self.deform_net, vgg_ext=vgg,
+                        sh_degree=self.active_sh_degree, use_deform=True,
+                        is_6dof=self.args.is_6dof, fx_key=fx_key,
+                        raster_cfg=self.raster_cfg)
+                    self.skipped = self.skipped + (
+                        ~metrics["finite"]).to(torch.int32)
+                    ema = torch.where(metrics["finite"],
+                                      0.4 * metrics["loss"] + 0.6 * ema, ema)
+                    if iteration % 10 == 0:
+                        with trace.span("trase.loop.read_metrics"):
+                            self.ema_loss = float(ema)
+                        if bar is not None:
+                            bar.set_postfix({"Loss": f"{self.ema_loss:.3f}"})
+                            bar.update(10)
+                    if iteration in saving_iterations:
+                        self.save_snapshot(iteration)
+                if on_iteration is not None:
+                    on_iteration(self, iteration, metrics)
+            self.ema_loss = float(ema)
+        finally:
+            if bar is not None:
+                bar.close()
+            trace.set_iteration(None)
 
     def _read_metrics(self, iteration: int, metrics: dict, iter_bar):
         """Every 10th iteration: the loss and the skipped steps (progress

@@ -476,50 +476,64 @@ def style_phase_step(
     features_rest alone, on the rows of `style_mask` that are alive
     (set_background_zero_grad), and the densification statistics. The
     deform net runs detached (bf16 stack) and is not updated. The
-    metrics (loss, finite) are 0-d device tensors."""
+    metrics (loss, finite) are 0-d device tensors. Its host work is the
+    span trase.step, in trase.step.deform, .render (with the clip),
+    .vgg (the extractor's forward on the render), .loss (the NNFM),
+    .backward and .adam (the update, the densification statistics and
+    the NaN guard)."""
     from ..losses.style import loss_nnfm_style
 
-    p, aux = state.params, state.aux
-    with torch.no_grad():
-        d_xyz, d_rot, d_scale = apply_deform(
-            deform_net, state.deform, p.xyz, fid, 0.0, use_deform,
-            p.gaussian_features)
-    f_dc = p.features_dc.detach().requires_grad_(True)
-    f_rest = p.features_rest.detach().requires_grad_(True)
-    off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32,
-                      device=p.xyz.device, requires_grad=True)
-    out = render(camera, p._replace(features_dc=f_dc, features_rest=f_rest),
-                 aux.alive, bg_color, d_xyz, d_rot, d_scale,
-                 is_6dof=is_6dof, sh_degree=sh_degree, mean2d_offset=off,
-                 with_features=False, raster_cfg=raster_cfg)
-    image = clip_unit(out["render"])
-    # the reference normalizes outside the extractor and inside it: its
-    # features are of a twice-normalized image (models/vgg.py normalize)
-    feats = vgg_ext(vgg_ext.normalize(image))[fx_key][0]  # (C, h, w)
-    loss = loss_nnfm_style(feats.reshape(feats.shape[0], -1), ref_vgg_feats)
-    g_dc, g_rest, goff = torch.autograd.grad(loss, [f_dc, f_rest, off])
+    with trace.span("trase.step"):
+        p, aux = state.params, state.aux
+        with trace.span("trase.step.deform"), torch.no_grad():
+            d_xyz, d_rot, d_scale = apply_deform(
+                deform_net, state.deform, p.xyz, fid, 0.0, use_deform,
+                p.gaussian_features)
+        f_dc = p.features_dc.detach().requires_grad_(True)
+        f_rest = p.features_rest.detach().requires_grad_(True)
+        off = torch.zeros((p.xyz.shape[0], 2), dtype=torch.float32,
+                          device=p.xyz.device, requires_grad=True)
+        with trace.span("trase.step.render"):
+            out = render(camera, p._replace(features_dc=f_dc,
+                                            features_rest=f_rest),
+                         aux.alive, bg_color, d_xyz, d_rot, d_scale,
+                         is_6dof=is_6dof, sh_degree=sh_degree,
+                         mean2d_offset=off, with_features=False,
+                         raster_cfg=raster_cfg)
+            image = clip_unit(out["render"])
+        with trace.span("trase.step.vgg"):
+            # the reference normalizes outside the extractor and inside
+            # it: its features are of a twice-normalized image
+            # (models/vgg.py normalize)
+            feats = vgg_ext(vgg_ext.normalize(image))[fx_key][0]  # (C, h, w)
+        with trace.span("trase.step.loss"):
+            loss = loss_nnfm_style(feats.reshape(feats.shape[0], -1),
+                                   ref_vgg_feats)
+        with trace.span("trase.step.backward"):
+            g_dc, g_rest, goff = torch.autograd.grad(loss, [f_dc, f_rest,
+                                                            off])
 
-    with torch.no_grad():
-        row_mask = aux.alive & style_mask
-        new_dc, opt_dc = adam_update(
-            p.features_dc, g_dc, state.opt.features_dc, lrs.features_dc,
-            row_mask=row_mask)
-        new_rest, opt_rest = adam_update(
-            p.features_rest, g_rest, state.opt.features_rest,
-            lrs.features_rest, row_mask=row_mask)
-        new_params = p._replace(features_dc=new_dc, features_rest=new_rest)
-        new_opt = state.opt._replace(features_dc=opt_dc,
-                                     features_rest=opt_rest)
-        new_aux = G.add_densification_stats(
-            aux, goff, out["visibility_filter"] & aux.alive, out["radii"],
-            camera.image_height, camera.image_width)
-        checked = (list(new_params)
-                   + [x for x in new_aux if x.is_floating_point()]
-                   + [t for s in new_opt for t in (s.mu, s.nu)])
-        finite = torch.isfinite(loss.detach()) & _all_finite(checked)
-        new_state = _commit(finite, state._replace(
-            params=new_params, aux=new_aux, opt=new_opt), state)
-    return new_state, {"loss": loss.detach(), "finite": finite}
+        with trace.span("trase.step.adam"), torch.no_grad():
+            row_mask = aux.alive & style_mask
+            new_dc, opt_dc = adam_update(
+                p.features_dc, g_dc, state.opt.features_dc, lrs.features_dc,
+                row_mask=row_mask)
+            new_rest, opt_rest = adam_update(
+                p.features_rest, g_rest, state.opt.features_rest,
+                lrs.features_rest, row_mask=row_mask)
+            new_params = p._replace(features_dc=new_dc, features_rest=new_rest)
+            new_opt = state.opt._replace(features_dc=opt_dc,
+                                         features_rest=opt_rest)
+            new_aux = G.add_densification_stats(
+                aux, goff, out["visibility_filter"] & aux.alive, out["radii"],
+                camera.image_height, camera.image_width)
+            checked = (list(new_params)
+                       + [x for x in new_aux if x.is_floating_point()]
+                       + [t for s in new_opt for t in (s.mu, s.nu)])
+            finite = torch.isfinite(loss.detach()) & _all_finite(checked)
+            new_state = _commit(finite, state._replace(
+                params=new_params, aux=new_aux, opt=new_opt), state)
+        return new_state, {"loss": loss.detach(), "finite": finite}
 
 
 def densify_step(state: TrainState, scene_extent: float,

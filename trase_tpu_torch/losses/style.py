@@ -3,10 +3,20 @@
 Counterpart of trase_tpu/losses/style.py (reference
 utils/loss_utils.py:223-272): nearest-neighbour feature matching (NNFM)
 on VGG feature maps, and the gram / AdaIN / MSE content losses.
+
+The counter ``nnfm`` (utils/trace.py) counts the NNFM's calls by their
+sizes: the key ``(N1, N2, C)`` (the render's columns, the style's
+columns, the channels) maps to the number of calls at those sizes, so a
+reader counts the work the calls ran (4 N1 N2 C operations each, forward
+and feat1's gradient).
 """
 from __future__ import annotations
 
 import torch
+
+from ..utils import trace
+
+NNFM_CALLS = trace.counter("nnfm")
 
 
 def loss_nnfm_style(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
@@ -16,6 +26,7 @@ def loss_nnfm_style(feat1: torch.Tensor, feat2: torch.Tensor) -> torch.Tensor:
     The column max is `amax`, whose gradient splits evenly between tied
     entries as jnp.max's does (`.max(dim=)` gives it all to one): a style
     image with flat regions has identical feature columns."""
+    trace.bump(NNFM_CALLS, (feat1.shape[1], feat2.shape[1], feat1.shape[0]))
     f1 = feat1 / (torch.linalg.vector_norm(feat1, dim=0, keepdim=True)
                   + 1e-12)
     f2 = feat2 / (torch.linalg.vector_norm(feat2, dim=0, keepdim=True)

@@ -9,10 +9,12 @@ point_cloud/iteration_N/clusters.pt), selects the gaussians of
 ``--segment_ids`` (the whole scene, with a warning, when the ids match
 none), and optimizes only their SH colours (features_dc, features_rest)
 against ``--reference_img_path`` with the NNFM loss on VGG16 conv4_1
-features (engine/trainer.py: style_phase_step). The views are drawn from
-``np.random.default_rng(0)`` popping a view stack, as the root CLI
-draws them. Snapshots at ``--save_iterations`` and at the last
-iteration are what render.py (root and port) reads.
+features (engine/trainer.py: style_phase_step), through the training
+loop's style entry (engine/loop.py: ``Trainer.train_style``). The views
+are drawn from ``np.random.default_rng(0)`` (the Trainer's ``np_rng``
+at seed 0) popping a view stack, as the root CLI draws them. Snapshots
+at ``--save_iterations`` and at the last iteration are what render.py
+(root and port) reads.
 
 As in the root CLI, the densification statistics accumulate and nothing
 reads them: the loop does not densify. ``--vgg_weights`` takes a
@@ -85,6 +87,15 @@ def style_mask_from_clusters(cl_path: str, capacity: int, segment_ids,
     return torch.from_numpy(mask).to(alive.device)
 
 
+def style_features(vgg, image: torch.Tensor) -> torch.Tensor:
+    """(C, h * w): the style image's ((3, H, W) in [0, 1]) features at
+    the layer `vgg` was built for, computed once. The image is normalized
+    outside the extractor and inside it, as the reference does."""
+    with torch.no_grad():
+        feats = vgg(vgg.normalize(image))[vgg.layer_names[0]][0]
+    return feats.reshape(feats.shape[0], -1)
+
+
 def main(argv=None):
     parser = make_parser()
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
@@ -139,63 +150,32 @@ def main(argv=None):
                      f"iteration_{scene.loaded_iter}", "clusters.pt"),
         state.params.xyz.shape[0], args.segment_ids, state.aux.alive)
 
-    # the style image's features, computed once; normalized outside the
-    # extractor and inside it, as the reference does
     vgg = make_vgg16_extractor([FX_KEY], args.vgg_weights, device=device)
     with Image.open(args.reference_img_path) as im:
         ref = np.asarray(im.convert("RGB"), np.float32) / 255.0
-    with torch.no_grad():
-        ref_chw = torch.from_numpy(ref.transpose(2, 0, 1).copy()).to(device)
-        ref_feats = vgg(vgg.normalize(ref_chw))[FX_KEY][0]
-        ref_feats = ref_feats.reshape(ref_feats.shape[0], -1)
+    ref_feats = style_features(
+        vgg, torch.from_numpy(ref.transpose(2, 0, 1).copy()).to(device))
 
     trainer.active_sh_degree = trainer.max_sh_degree
-    train_cams = scene.get_train_cameras()
-    np_rng = np.random.default_rng(0)
-    stack = []
-    save_at = set(args.save_iterations)
-
     first_iter = args.load_iteration
-    bar = None
-    if not args.quiet:
-        try:
-            from tqdm import tqdm
 
-            bar = tqdm(range(first_iter, opt.iterations),
-                       desc="Style transfer")
-        except ImportError:
-            pass
-    # the loss EMA stays on the device; the host reads it every 10 steps
-    ema = torch.zeros((), device=device)
+    def on_iteration(trainer, iteration, metrics):
+        # anomaly detection from iteration debug_from + 1 on
+        if iteration == args.debug_from and args.debug_from > 0:
+            torch.autograd.set_detect_anomaly(True)
+
     anomaly = torch.is_anomaly_enabled()
-    if args.detect_anomaly or args.debug_from == 0:
+    if args.detect_anomaly or args.debug_from == 0 or \
+            args.debug_from == first_iter:
         torch.autograd.set_detect_anomaly(True)
     try:
-        for iteration in range(first_iter + 1, opt.iterations + 1):
-            if iteration - 1 == args.debug_from and args.debug_from > 0:
-                torch.autograd.set_detect_anomaly(True)
-            if not stack:
-                stack = list(train_cams)
-            cam = stack.pop(int(np_rng.integers(0, len(stack))))
-            trainer.state, metrics = T.style_phase_step(
-                trainer.state, cam.to_render_camera(device), ref_feats,
-                style_mask, cam.fid, trainer.lr_at(iteration),
-                trainer.bg_color, deform_net=trainer.deform_net,
-                vgg_ext=vgg, sh_degree=trainer.active_sh_degree,
-                use_deform=True, is_6dof=dataset.is_6dof, fx_key=FX_KEY,
-                raster_cfg=trainer.raster_cfg)
-            ema = torch.where(metrics["finite"],
-                              0.4 * metrics["loss"] + 0.6 * ema, ema)
-            if iteration % 10 == 0 and bar is not None:
-                bar.set_postfix({"Loss": f"{float(ema):.3f}"})
-                bar.update(10)
-            if iteration in save_at:
-                trainer.save_snapshot(iteration)
+        trainer.train_style(vgg, ref_feats, style_mask, first_iter,
+                            opt.iterations,
+                            saving_iterations=set(args.save_iterations),
+                            progress=not args.quiet,
+                            on_iteration=on_iteration)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
-        if bar is not None:
-            bar.close()
-    trainer.ema_loss = float(ema)
     print("\nTraining complete.")
     return trainer
 

@@ -22,8 +22,11 @@ Every span the port opens is named ``trase.<layer>[.<part>]``.
 ``counter(name)`` is a registry of plain host-side dicts of ints, counted
 whether tracing is on or off (an increment is a dict store):
 ``layout_launches`` (the compositor and MLP kernels' launches by
-instantiation, ops/rasterize_cuda.py) and ``cache`` (``("gt" | "masks",
-"hit" | "miss")``, the training loop's device caches).
+instantiation, ops/rasterize_cuda.py), ``cache`` (``("gt" | "masks",
+"hit" | "miss")``, the training loop's device caches), ``mask_fetch``
+(engine/loop.py) and ``nnfm`` (``(N1, N2, C)``: the NNFM's calls by the
+render's and the style's column counts and the channels,
+losses/style.py).
 
 No span or counter synchronises the device or reads a device tensor.
 """
