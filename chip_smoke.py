@@ -97,8 +97,17 @@ JSON line per phase:
                 masks at 504x672), both arms (densify stats / values-only):
                 warm-up then timed steps; checks finiteness, which fields
                 changed and one launch of each kernel per step in the
-                features-only instantiation; the smoothing map's build
-                time and the per-stage split;
+                features-only instantiation (and of the smoothing's
+                backward); the smoothing map's build and transpose time
+                and the per-stage split; then the smoothing's backward
+                (csrc/smooth_rows_bwd.cu) at the n3v benchmark's map,
+                262144 rows x 16 slots, 8 drawn, 32 features, 62144 dead
+                rows tied at the origin: equal to its plain version and
+                to itself on a second call, within 1e-5 of a float64 sum
+                (autograd's index backward's error beside it), its queued
+                ms for each hub chunk length in SMOOTH_BWD_CHUNKS beside
+                index_add_ and autograd's gather-mean backward, the bytes
+                bound, the transpose's ms and the in-degree histogram;
 7. train-cli    trase_tpu_torch.train on phase 5's dataset (with masks),
                 with densify and opacity reset inside the run, crossing
                 warm_up_3d_features into FEATURE blocks in both arms, then
@@ -309,6 +318,11 @@ N_GAUSSIANS, CAPACITY, HEIGHT, WIDTH = 100_000, 131072, 1008, 1344
 # the FEATURE step of bench.py:176-191: 8 masks at half resolution, 4096
 # sampled pixels, soft mode; smoothing on, as training runs it
 FEATURE_MASKS, FEATURE_PIXELS, SMOOTH_K = 8, 4096, 16
+# the smoothing's backward at the n3v benchmark's map: its capacity, dead
+# slots tied at the origin and features; live rows in SMOOTH_BWD_BLOBS
+# seeded blobs away from the origin; the hub chunk lengths timed
+SMOOTH_BWD_ROWS, SMOOTH_BWD_DEAD, SMOOTH_BWD_FEATURES = 262144, 62144, 32
+SMOOTH_BWD_BLOBS, SMOOTH_BWD_CHUNKS = 48, (64, 128, 256, 512, 1024)
 # the train CLI's FEATURE schedule: GAUSSIAN 1-149, FEATURE 150-199
 # (densify stats), GAUSSIAN 200-249, FEATURE 250-299 (stats to 259, then
 # values-only), GAUSSIAN 300
@@ -331,6 +345,7 @@ KERNELS = {
     "deform_mlp": ("trase_tpu_torch/csrc/deform_mlp.cu",
                    "trase_tpu/ops/mlp_pallas.py:41"),
     "mask_unpack": ("trase_tpu_torch/csrc/mask_unpack.cu", "none"),
+    "smooth_rows_bwd": ("trase_tpu_torch/csrc/smooth_rows_bwd.cu", "none"),
 }
 # k-means at scale: the bench scene's features, the cluster CLI's k
 KMEANS_K, KMEANS_ITERS = 64, 50
@@ -387,7 +402,7 @@ MESH_CLI_ITERATIONS = 60
 MESH_SLAB_KEYS = ("composite_fwd/4/0/1/1/slab", "composite_bwd/4/0/1/0/slab",
                   "reduce_pair_grads/10/slab", "composite_fwd/32/16/0/1/slab",
                   "composite_bwd/32/16/0/0/slab",
-                  "reduce_pair_grads/38/slab")
+                  "reduce_pair_grads/38/slab", "smooth_rows_bwd")
 # the interop tools: synthetic Neu3D videos (tests/test_converters.py's
 # size), label-map objects per image, the converted scene's train run
 CONVERT_SIZE, CONVERT_CAMS, CONVERT_FRAMES = (64, 96), 4, 4
@@ -1364,8 +1379,8 @@ def compare_mlp(label, net, xyz, t, timed, parent=None):
 
 
 def counts():
-    """The launches since reset_counts by kernel; the mask unpack's only
-    where it ran."""
+    """The launches since reset_counts by kernel; the mask unpack's and
+    the smoothing backward's only where they ran."""
     from trase_tpu_torch.ops import rasterize_cuda as RC
 
     totals = dict.fromkeys(("composite_fwd", "composite_bwd",
@@ -1379,6 +1394,11 @@ def compositor(n):
     """Launch counts of a training path: each compositor kernel n times."""
     return dict.fromkeys(("composite_fwd", "composite_bwd",
                           "reduce_pair_grads"), n)
+
+
+def smoothing(n):
+    """Launch counts of n FEATURE steps' smoothing backward (none at 0)."""
+    return {"smooth_rows_bwd": n} if n else {}
 
 
 def layout_counts():
@@ -2784,7 +2804,8 @@ def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
     from trase_tpu_torch.config import OptimizationParams
     from trase_tpu_torch.engine import trainer as TT
     from trase_tpu_torch.losses.contrastive import sample_pixels_and_masks
-    from trase_tpu_torch.ops.knn import build_feature_smooth_map, smooth_slots
+    from trase_tpu_torch.ops.knn import (build_feature_smooth_map,
+                                         smooth_slots, transpose_smooth_map)
     from trase_tpu_torch.parallel import sharded as S
     from trase_tpu_torch.parallel.world import close_world, init_world
 
@@ -2805,7 +2826,8 @@ def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
     masks, valid = feature_masks(dev)
     init = train_state(params, aux, net)
     with torch.no_grad():
-        smooth_map = build_feature_smooth_map(init.params.xyz, SMOOTH_K)
+        smooth_map = transpose_smooth_map(
+            build_feature_smooth_map(init.params.xyz, SMOOTH_K))
     gen = torch.Generator(device=dev).manual_seed(4)
     sample = sample_pixels_and_masks(gen, masks, valid, FEATURE_PIXELS,
                                      FEATURE_MASKS)
@@ -2916,7 +2938,7 @@ def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
             "composite_bwd/4/0/1/0/slab": gs,
             "reduce_pair_grads/10/slab": gs,
             "composite_fwd/32/16/0/1/slab": fs,
-            "reduce_pair_grads/38/slab": fs}
+            "reduce_pair_grads/38/slab": fs, "smooth_rows_bwd": fs}
     got = {k: layouts.get(k, 0) for k in want}
     bwd_f = layouts.get("composite_bwd/32/16/0/0/slab", 0) + layouts.get(
         "composite_bwd/32/16/0/1/slab", 0)
@@ -3354,6 +3376,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     # 9. kernels
     emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                       slab_rows, mio["mask_unpack"],
+                      feature["smooth_rows_bwd"],
                       time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3594,8 +3617,8 @@ def convert_phase(root, src, seg, it, sid, dev) -> dict:
         "6", "--device", dev.type, "--quiet"])
     out["train_s"] = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
-    assert launches == dict(compositor(CONVERT_ITERATIONS), deform_mlp=0), \
-        launches
+    assert launches == dict(compositor(CONVERT_ITERATIONS), deform_mlp=0,
+                            **smoothing(trainer.feature_calls)), launches
     assert 0 < trainer.feature_calls < CONVERT_ITERATIONS, \
         trainer.feature_calls
     psnr = float(trainer.evaluate(CONVERT_ITERATIONS))
@@ -3636,14 +3659,15 @@ def convert_phase(root, src, seg, it, sid, dev) -> dict:
 
 
 def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                 slab_rows, mu, seconds):
+                 slab_rows, mu, sb, seconds):
     """The kernels line: one object per kernel with its headline numbers
     (the GAUSSIAN layout, as in earlier runs) and one variant per
     instantiation, with its launches summed over the paths' counts; the
     slab mode's variants (the mesh phase) carry each slab's time beside
     the whole image's, their sum, and the slabs' summed bound. The mask
     unpack (`mu`, mask_unpack_check's row) counts the mask-io phase's
-    training runs' launches."""
+    training runs' launches, the smoothing's backward (`sb`,
+    smooth_bwd_check's row) every path's."""
     def launched(key):  # over every path (the FEATURE step's per arm)
         flat = [c for lc in layouts.values()
                 for c in (lc.values() if "densify_stats" in lc else [lc])]
@@ -3803,6 +3827,15 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
         bound_ms=mu["bound_ms"], bound_by=mu["bound_by"], library_ms=None,
         shape=mu["shape"], m_max=mu["m_max"],
         bits_upload_ms=mu["bits_upload_ms"]))
+    entries.append(dict(
+        name="smooth_rows_bwd", launches=launched("smooth_rows_bwd"),
+        max_rel_err=sb["max_rel_err"], ms=sb["ms"],
+        ms_repeats=sb["ms_repeats"], ms_by_chunk=sb["ms_by_chunk"],
+        plain_ms=sb["plain_ms"], bound_ms=sb["bound_ms"],
+        bound_by=sb["bound_by"], library_ms=sb["index_add_ms"],
+        library="index_add_ of the drawn rows",
+        autograd_ms=sb["autograd_ms"], rows=sb["rows"],
+        max_in_degree=sb["max_in_degree"]))
     for e in entries:
         e["route"] = "cuda"
         e["source"], e["replaces"] = KERNELS[e["name"]]
@@ -4100,12 +4133,14 @@ def feature_step_fn(init, cam, net, cfg, dev, stats, carry=True):
     call's state; without, every call starts from `init`."""
     from trase_tpu_torch.config import OptimizationParams
     from trase_tpu_torch.engine import trainer as TT
-    from trase_tpu_torch.ops.knn import build_feature_smooth_map
+    from trase_tpu_torch.ops.knn import (build_feature_smooth_map,
+                                         transpose_smooth_map)
 
     lr_at = TT.make_learning_rate_schedules(OptimizationParams())
     masks, valid = feature_masks(dev)
     with torch.no_grad():
-        smooth_map = build_feature_smooth_map(init.params.xyz, SMOOTH_K)
+        smooth_map = transpose_smooth_map(
+            build_feature_smooth_map(init.params.xyz, SMOOTH_K))
     gen = torch.Generator(device=dev).manual_seed(1)
     bg = torch.zeros(3, device=dev)
     box = {"state": init, "i": 0}
@@ -4126,6 +4161,107 @@ def feature_step_fn(init, cam, net, cfg, dev, stats, carry=True):
 
     step.box = box
     return step
+
+
+def smooth_bwd_check(dev) -> dict:
+    """The smoothing's backward (csrc/smooth_rows_bwd.cu) at the n3v
+    benchmark's map (SMOOTH_BWD_ROWS x SMOOTH_K slots, half of them drawn,
+    SMOOTH_BWD_FEATURES features; SMOOTH_BWD_DEAD dead rows tied at the
+    origin, whose neighbours are hubs) on a seeded cotangent: equal to
+    smooth_rows_bwd_plain and to a second call, within 1e-5 (of the
+    largest magnitude) of the same sums in float64, with autograd's
+    gather-mean backward's error beside it; one counted launch a call. Its
+    queued ms for each hub chunk length (SMOOTH_BWD_CHUNKS) beside
+    index_add_ of the drawn rows (queued) and autograd's backward of the
+    gather-mean (host-paced), the plain version's ms, the bytes
+    bound (each input and output byte once), the transpose's ms and the
+    map's in-degree histogram."""
+    from trase_tpu_torch.ops import knn as K
+    from trase_tpu_torch.ops import rasterize_cuda as RC
+
+    n, dead, f = SMOOTH_BWD_ROWS, SMOOTH_BWD_DEAD, SMOOTH_BWD_FEATURES
+    live = n - dead
+    g = torch.Generator(device=dev).manual_seed(23)
+    lo = torch.tensor([-3.0, -3.0, 2.0], device=dev)
+    centres = lo + 6.0 * torch.rand((SMOOTH_BWD_BLOBS, 3), generator=g,
+                                    device=dev)
+    xyz = torch.zeros((n, 3), device=dev)
+    xyz[:live] = centres[torch.randint(0, SMOOTH_BWD_BLOBS, (live,),
+                                       generator=g, device=dev)] \
+        + 0.3 * torch.randn((live, 3), generator=g, device=dev)
+    with torch.no_grad():
+        idx = K.build_feature_smooth_map(xyz, SMOOTH_K)
+    del xyz
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smap = K.transpose_smooth_map(idx)
+    torch.cuda.synchronize()
+    transpose_ms = (time.perf_counter() - t0) * 1e3
+    slots = K.smooth_slots(SMOOTH_K, generator=g)
+    n_sel = slots.numel()
+    cot = torch.randn((n, f), generator=g, device=dev)
+
+    def kernel(m=smap):
+        return K.smooth_rows_bwd(cot, m, slots)
+
+    before = RC.LAYOUT_LAUNCHES.get(("smooth_rows_bwd",), 0)
+    got, again = kernel(), kernel()
+    assert RC.LAYOUT_LAUNCHES[("smooth_rows_bwd",)] == before + 2
+    assert torch.equal(got, again), "smooth_rows_bwd differs between calls"
+    plain = K.smooth_rows_bwd_plain(cot, smap, slots)
+    assert torch.equal(got, plain), "smooth_rows_bwd differs from plain"
+    sel = idx[:, slots]
+    normed = torch.zeros((n, f), device=dev, requires_grad=True)
+    gathered = normed[sel].mean(dim=1)
+
+    def autograd_bwd():
+        return torch.autograd.grad(gathered, normed, cot, retain_graph=True)[0]
+
+    exact = torch.zeros((n, f), dtype=torch.float64, device=dev).index_add_(
+        0, sel.reshape(-1), cot.double().repeat_interleave(n_sel, 0)) / n_sel
+    scale = float(exact.abs().max())
+    err = float((got.double() - exact).abs().max()) / scale
+    autograd_err = float((autograd_bwd().double() - exact).abs().max()) \
+        / scale
+    assert err <= 1e-5, (err, autograd_err)
+    del got, again, plain, exact
+    maps = {c: (smap if c == smap.chunk else K.transpose_smooth_map(
+        idx, chunk=c)) for c in SMOOTH_BWD_CHUNKS}
+    src = (cot / n_sel).repeat_interleave(n_sel, 0)
+    flat = sel.reshape(-1)
+    reps = repeated_ms({
+        **{f"chunk_{c}": (lambda m=m: kernel(m)) for c, m in maps.items()},
+        "index_add": lambda: torch.zeros((n, f), device=dev).index_add_(
+            0, flat, src)})
+    del src
+    deg = (smap.rev_ptr[1:] - smap.rev_ptr[:-1]).long()
+    edges = (0, 1, 9, 17, 33, 65, 257, 4097, 2 ** 31)
+    hist = {f"{a}-{b - 1}": int(((deg >= a) & (deg < b)).sum())
+            for a, b in zip(edges[:-1], edges[1:])}
+    entries = n * SMOOTH_K
+    moved = {"g": n * f * 4, "rev_ptr": (n + 1) * 4, "rev_src": entries * 4,
+             "rev_slot": entries, "grad": n * f * 4,
+             "chunks": smap.part_begin.numel() * (8 + 2 * f * 4)
+             + smap.hub_rows.numel() * 8}
+    main = reps[f"chunk_{smap.chunk}"]
+    return {"rows": n, "dead": dead, "slots": SMOOTH_K, "drawn": n_sel,
+            "features": f, "chunk": smap.chunk,
+            "max_in_degree": smap.max_in_degree,
+            "hub_rows": smap.hub_rows.numel(),
+            "hub_chunks": smap.part_begin.numel(),
+            "in_degree_hist": hist, "equal_to_plain": True,
+            "bit_identical_relaunch": True, "max_rel_err": err,
+            "autograd_max_rel_err": autograd_err, "ms": main["median"],
+            "ms_repeats": main,
+            "ms_by_chunk": {c: reps[f"chunk_{c}"]["median"]
+                            for c in SMOOTH_BWD_CHUNKS},
+            "index_add_ms": reps["index_add"]["median"],
+            "autograd_ms": cuda_ms(autograd_bwd, 5),
+            "plain_ms": cuda_ms(lambda: K.smooth_rows_bwd_plain(
+                cot, smap, slots), 2),
+            "bound_ms": sum(moved.values()) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": moved,
+            "gathered_rows": int(sel.numel()), "transpose_ms": transpose_ms}
 
 
 def changed_fields(old, new) -> list:
@@ -4149,17 +4285,22 @@ def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
     per step, in the features-only packed instantiation: values-only in
     the second arm), checked (finite; only the features, their Adam
     state and, with stats, the densification accumulators change) and
-    timed; then steps from the initial state split by stage."""
-    from trase_tpu_torch.ops.knn import build_feature_smooth_map
+    timed; then steps from the initial state split by stage, and the
+    smoothing's backward at the benchmark's map (smooth_bwd_check)."""
+    from trase_tpu_torch.ops.knn import (build_feature_smooth_map,
+                                         transpose_smooth_map)
 
     init = train_state(params, aux, net)
     xyz = init.params.xyz
     with torch.no_grad():
         smooth_ms = cuda_ms(lambda: build_feature_smooth_map(xyz, SMOOTH_K),
                             3)
+        nmap = build_feature_smooth_map(xyz, SMOOTH_K)
+        transpose_ms = cuda_ms(lambda: transpose_smooth_map(nmap), 3)
     out = {"masks": [FEATURE_MASKS, HEIGHT // 2, WIDTH // 2],
            "sampled_pixels": FEATURE_PIXELS, "smooth_k": SMOOTH_K,
            "contrastive_mode": "soft", "smooth_map_ms": smooth_ms,
+           "smooth_transpose_ms": transpose_ms,
            "launches": {}, "layouts": {}, "arms": {}}
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     for stats in (True, False):
@@ -4173,10 +4314,11 @@ def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
         launches, layouts = counts(), layout_counts()
-        assert launches == dict(compositor(n_steps), deform_mlp=0), launches
+        assert launches == dict(compositor(n_steps), deform_mlp=0,
+                                **smoothing(n_steps)), launches
         want = {"composite_fwd/32/16/0/1": n_steps,
                 f"composite_bwd/32/16/0/{int(not stats)}": n_steps,
-                "reduce_pair_grads/38": n_steps}
+                "reduce_pair_grads/38": n_steps, "smooth_rows_bwd": n_steps}
         assert layouts == want, (arm, layouts)
         metrics = first + ms
         assert all(bool(m["finite"]) for m in metrics), arm
@@ -4215,6 +4357,8 @@ def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
             k: sum(sp[k] for sp in splits[1:]) / (len(splits) - 1)
             for k in splits[-1]}
     out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del init, xyz, nmap
+    out["smooth_rows_bwd"] = smooth_bwd_check(dev)
     return out
 
 
@@ -4266,9 +4410,10 @@ def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
         TT.feature_phase_step = feature
     seconds = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
-    assert launches == dict(compositor(it), deform_mlp=0), launches
     block = CLI_INTERVAL + 1
     n_feature = 2 * block
+    assert launches == dict(compositor(it), deform_mlp=0,
+                            **smoothing(n_feature)), launches
     n_stats = block + CLI_DENSIFY_UNTIL - (CLI_FEATURE_FROM + 2 * block)
     assert events["feature"] == [True] * n_stats + [False] * (
         n_feature - n_stats), events["feature"]
@@ -4478,7 +4623,8 @@ def resume_phase(root, dev) -> dict:
     assert seen["loaded_run"]["feature_gen_device"] == dev.type
     evaluated = 10  # views 5, 10, ..., 25 of each split, at 2M
     assert launches == dict(compositor(m), deform_mlp=0,
-                            composite_fwd=m + evaluated), launches
+                            composite_fwd=m + evaluated,
+                            **smoothing(tr_b.feature_calls)), launches
     assert tr_b.step_calls + tr_b.feature_calls == m
     psnr_a, psnr_b = tr_a.best_psnr, tr_b.best_psnr
     assert 10.0 < psnr_a < 60.0, psnr_a

@@ -1,14 +1,15 @@
 """The CUDA kernels (trase_tpu_torch/csrc/composite_fwd.cu, composite_bwd.cu,
-deform_mlp.cu, mask_unpack.cu) against their plain versions on the card: every
+deform_mlp.cu, mask_unpack.cu, smooth_rows_bwd.cu) against their plain
+versions on the card: every
 forward instantiation bit for bit and every backward instantiation on
 scenes built for their edges (long tiles, warps that stop far apart,
 empty tiles, early stops, ragged image sides), the compositor's
 gradients under autograd, the reduce at both widths, the fused deform
 MLP, the viewer's frames, composition and web server, the style step
 through the kernels against the same step through their plain versions,
-LPIPS, the mask unpack against native.unpack_masks_padded and the training
-loop's mask miss (bits uploaded and unpacked, no synchronising call), on
-the card.
+LPIPS, the mask unpack against native.unpack_masks_padded, the training
+loop's mask miss (bits uploaded and unpacked, no synchronising call) and
+the feature smoothing's backward at the benchmark's map, on the card.
 Imports no jax, so it runs on the machine with the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1114,3 +1115,40 @@ def test_mask_miss_on_card_is_bits_without_sync(tmp_path):
         assert torch.equal(masks.cpu(), torch.from_numpy(ref.masks))
         assert torch.equal(valid.cpu(), torch.from_numpy(ref.valid))
         assert tr._masks_for(cam) is got[cams.index(cam)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draw", ["all", "8-of-16"])
+def test_smooth_rows_bwd_matches_plain_on_card(draw):
+    """The smoothing's backward at the n3v benchmark's map (262144 rows x
+    16 slots, 32 features, 62144 dead rows tied at the origin: hubs split
+    into chunks) equal to its plain version on the card, bit-identical on
+    a second call, one counted launch a call; through autograd as
+    smooth_rows' gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.ops import knn as TK
+
+    n, dead, k, f = 262144, 62144, 16, 32
+    g = torch.Generator(device="cuda").manual_seed(11)
+    xyz = torch.zeros((n, 3), device="cuda")
+    xyz[:n - dead] = 2.0 * torch.randn((n - dead, 3), generator=g,
+                                       device="cuda") + 5.0
+    smap = TK.transpose_smooth_map(TK.build_feature_smooth_map(xyz, k))
+    assert smap.hub_rows.numel() > 0 and smap.max_in_degree >= dead
+    slots = None if draw == "all" else torch.randperm(
+        k, generator=g, device="cuda")[:k // 2]
+    cot = torch.randn((n, f), generator=g, device="cuda")
+    key = ("smooth_rows_bwd",)
+    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    got = TK.smooth_rows_bwd(cot, smap, slots)
+    again = TK.smooth_rows_bwd(cot, smap, slots)
+    assert TRC.LAYOUT_LAUNCHES[key] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, TK.smooth_rows_bwd_plain(cot, smap, slots))
+    normed = torch.randn((n, f), generator=g,
+                         device="cuda").requires_grad_(True)
+    out = TK.smooth_rows(normed, smap, slots)
+    grad, = torch.autograd.grad(out, normed, cot)
+    assert TRC.LAYOUT_LAUNCHES[key] == before + 3
+    assert torch.equal(grad, got)

@@ -16,8 +16,11 @@ its spans wrapped from outside and the profiler's ATen ops):
   step per iteration (the twin of ``loop_host_ms.train``), the step's
   parts, the fetch's wait and upload per iteration, a mask decode, the
   cache counter's hit shares over the window, the mask_fetch counter's
-  misses and bytes by path (bits or float32), and the nnfm counter's
-  calls by size (a style cell: its step's parts include ``.vgg``);
+  misses and bytes by path (bits or float32), the nnfm counter's calls
+  by size (a style cell: its step's parts include ``.vgg``), the kernels'
+  launches by instantiation (``layout_launches``; the smoothing backward's
+  per step) and the smoothing maps transposed, with the largest in-degree
+  seen (``smooth_map``);
 - with --trace 1, the profiled stretch's idle device time put down to the
   innermost ``trase.`` span whose time covers each gap's middle
   (``idle_by_span``), the share of it inside ``trase.step``, and the idle
@@ -61,7 +64,7 @@ def parse_args(argv=None):
     return ap.parse_known_args(argv)
 
 
-COUNTERS = ("cache", "mask_fetch", "nnfm")
+COUNTERS = ("cache", "mask_fetch", "nnfm", "layout_launches", "smooth_map")
 
 
 def _counter_delta(name: str, before: dict) -> dict:
@@ -70,14 +73,20 @@ def _counter_delta(name: str, before: dict) -> dict:
             if now[k] != before.get(k, 0)}
 
 
-def read_window(spans: list, cache: dict, mask_fetch: dict,
-                nnfm: dict) -> dict:
-    """What the window's spans, the cache counter, the mask_fetch counter
-    and the nnfm counter read."""
+def read_window(spans: list, cache: dict, mask_fetch: dict, nnfm: dict,
+                launches: dict, smooth_map: dict) -> dict:
+    """What the window's spans and the counters read (each counter's
+    change over the window; the smooth_map counter's largest in-degree as
+    it stands)."""
     s = trace.summarize(spans)
+    biggest = trace.counter("smooth_map").get(("max_in_degree",))
+    smooth_map = {k: v for k, v in smooth_map.items() if k != "max_in_degree"}
+    if biggest is not None:
+        smooth_map["max_in_degree"] = biggest
+    counters = {"cache": cache, "mask_fetch": mask_fetch, "nnfm": nnfm,
+                "layout_launches": launches, "smooth_map": smooth_map}
     if "trase.step" not in s or "trase.iteration" not in s:
-        return {"spans": s, "cache": cache, "mask_fetch": mask_fetch,
-                "nnfm": nnfm}
+        return {"spans": s, **counters}
     steps, its = s["trase.step"]["count"], s["trase.iteration"]["count"]
 
     def per(name, n):
@@ -106,9 +115,9 @@ def read_window(spans: list, cache: dict, mask_fetch: dict,
             if "trase.loop.fetch.upload" in s and miss:
                 out[f"{kind}_upload_ms_per_miss"] = (
                     s["trase.loop.fetch.upload"]["total_ms"] / miss)
-    out["cache"] = cache
-    out["mask_fetch"] = mask_fetch
-    out["nnfm"] = nnfm
+    if "smooth_rows_bwd" in launches:
+        out["smooth_rows_bwd_per_step"] = launches["smooth_rows_bwd"] / steps
+    out.update(counters)
     out["spans"] = s
     return out
 
@@ -137,8 +146,12 @@ def _union(intervals: list) -> list:
 
 def read_stretch(prof: dict) -> dict:
     """The profiled stretch's idle time by innermost trase. span, inside
-    trase.step, and outside any host op (profiler microseconds)."""
+    trase.step, and outside any host op (profiler microseconds), and the
+    device time of each kernel by name, longest first."""
     gaps = _gaps(prof["device"])
+    by_kernel: dict = {}
+    for a, b, name in prof["device"]:
+        by_kernel[name[:96]] = by_kernel.get(name[:96], 0.0) + (b - a) * 1e-6
     spans = sorted(h for h in prof["host"] if h[2].startswith("trase."))
     starts = [h[0] for h in spans]
     host = _union(prof["host"])
@@ -164,7 +177,9 @@ def read_stretch(prof: dict) -> dict:
                                     / idle if idle else None),
             "idle_in_step_share": 100.0 * in_step / idle if idle else None,
             "idle_outside_any_op_s": outside_any,
-            "annotations": len(spans)}
+            "annotations": len(spans),
+            "device_s_by_kernel": sorted(by_kernel.items(),
+                                         key=lambda kv: -kv[1])}
 
 
 def sync_check(torch, advance, first_iter: int, n: int):

@@ -105,7 +105,8 @@ from ..models import gaussians as G
 from ..models.deform import flax_variables, init_deform, make_deform_network
 from ..models.gaussians_io import load_checkpoint, save_checkpoint
 from ..native import rgba_to_rgb_f32
-from ..ops.knn import build_feature_smooth_map, smooth_features
+from ..ops.knn import (build_feature_smooth_map, smooth_features,
+                       transpose_smooth_map)
 from ..ops.mask_unpack import unpack_masks
 from ..ops.rasterize import RasterConfig
 from ..renderer import render
@@ -369,10 +370,14 @@ class Trainer:
         return masks, valid
 
     def _get_smooth_map(self):
+        """The FEATURE steps' SmoothMap: the KNN map of the current xyz and
+        its transpose, rebuilt where the map was marked stale."""
         if self._smooth_dirty or self._smooth_map is None:
             with torch.no_grad():
-                self._smooth_map = build_feature_smooth_map(
-                    self.state.params.xyz, max(int(self.opt.smooth_K), 1))
+                self._smooth_map = transpose_smooth_map(
+                    build_feature_smooth_map(
+                        self.state.params.xyz,
+                        max(int(self.opt.smooth_K), 1)))
             self._smooth_dirty = False
         return self._smooth_map
 

@@ -322,7 +322,7 @@ def feature_phase_step(
     fid: float,
     lrs: LearningRates,
     bg_color: torch.Tensor,
-    smooth_map: torch.Tensor | None,  # (C, K) neighbour map
+    smooth_map,  # (C, K) neighbour map or its ops.knn.SmoothMap
     *,
     deform_net: DeformNetwork,
     sh_degree: int,

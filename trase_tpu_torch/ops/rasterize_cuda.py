@@ -38,8 +38,9 @@ range of every tile.
 ``composite_slab`` is the slab entry of ``rasterize_tiled``.
 
 ``build_library`` builds every csrc/*.cu source, the fused deform MLP's
-(ops/mlp_cuda.py) and the mask unpack's (ops/mask_unpack.py) included, and
-``LAYOUT_LAUNCHES`` counts every kernel's launches.
+(ops/mlp_cuda.py), the mask unpack's (ops/mask_unpack.py) and the feature
+smoothing's backward (ops/knn.py) included, and ``LAYOUT_LAUNCHES`` counts
+every kernel's launches.
 """
 from __future__ import annotations
 
@@ -78,7 +79,7 @@ SUPPORTED = frozenset({(4, 0, True), (36, 0, True), (36, 16, True),
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("composite_fwd", "composite_bwd", "deform_mlp",
-                        "mask_unpack")}
+                        "mask_unpack", "smooth_rows_bwd")}
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
@@ -89,7 +90,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
 # for the compositor kernels, (kernel, words) for the reduce and
 # ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py), ("mask_unpack",)
-# for the mask stack's unpack (ops/mask_unpack.py); a launch given
+# for the mask stack's unpack (ops/mask_unpack.py), ("smooth_rows_bwd",) for
+# the feature smoothing's backward (ops/knn.py, both passes); a launch given
 # a tile range (slab mode) adds "slab" to its key. The port's counter
 # "layout_launches" (utils/trace.py).
 LAYOUT_LAUNCHES: dict = trace.counter("layout_launches")
@@ -638,6 +640,13 @@ _ARGTYPES = {
     "mask_unpack": ("trase_unpack_masks",
                     [ctypes.c_void_p] + [ctypes.c_int64] * 3
                     + [ctypes.c_void_p] * 2),
+    "smooth_rows_bwd": ("trase_smooth_rows_bwd",
+                        [ctypes.c_void_p] + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+                        + [ctypes.c_void_p] * 3),
 }
 
 

@@ -46,7 +46,7 @@ from ..losses.contrastive import (cosine_gram,
                                   features_correspondence_matrix_hwc)
 from ..models import gaussians as G
 from ..ops import rasterize_cuda as RC
-from ..ops.knn import smooth_rows, smooth_slots
+from ..ops.knn import neighbour_map, smooth_rows, smooth_slots
 from ..ops.projection import ProjectedGaussians
 from ..ops.rasterize import RasterConfig
 from ..renderer import project_view, render_outputs
@@ -204,9 +204,10 @@ def world_render(world: World):
     Feature smoothing runs on the rows: each rank normalizes its features,
     the normalized table is all-gathered, each rank averages its rows'
     neighbours (`smooth_map` holds this rank's rows of the neighbour map,
-    in global slot indices) and normalizes again, and the rows are
-    gathered for compositing. (trase_tpu's sharded FEATURE step leaves out
-    that second normalization: ROADMAP.md, Queue 3.)"""
+    in global slot indices, or their SmoothMap into the gathered rows) and
+    normalizes again, and the rows are gathered for compositing.
+    (trase_tpu's sharded FEATURE step leaves out that second
+    normalization: ROADMAP.md, Queue 3.)"""
     def fn(camera, params, aux_alive, bg_color, d_xyz=0.0, d_rotation=0.0,
            d_scaling=0.0, *, is_6dof=False, sh_degree=3,
            norm_gaussian_features=True, smooth_map=None, smooth_perm=None,
@@ -221,8 +222,8 @@ def world_render(world: World):
         if with_features:
             rows = params.gaussian_features
             if smooth_map is not None:
-                slots = smooth_slots(smooth_map.shape[1], smooth_perm,
-                                     smooth_generator)
+                slots = smooth_slots(neighbour_map(smooth_map).shape[1],
+                                     smooth_perm, smooth_generator)
                 rows = smooth_rows(gather_rows(_unit_rows(rows), world),
                                    smooth_map, slots)
             if norm_gaussian_features:

@@ -29,7 +29,7 @@ import torch.distributed as dist
 
 from ..engine.loop import MAX_NEW_PER_DENSIFY, Trainer
 from ..models import gaussians as G
-from ..ops.knn import knn
+from ..ops.knn import knn, transpose_smooth_map
 from .sharded import (
     interleave_rows,
     make_sharded_densify,
@@ -169,12 +169,15 @@ class ShardedTrainer(Trainer):
     def _get_smooth_map(self):
         """This rank's rows of the neighbour map: the KNN of its xyz among
         the gathered xyz, in global slot indices (the global map's block,
-        up to the order of equal distances)."""
+        up to the order of equal distances), with its transpose into the
+        gathered rows (a SmoothMap)."""
         if self._smooth_dirty or self._smooth_map is None:
             with torch.no_grad():
                 xyz = self.state.params.xyz
-                self._smooth_map = knn(xyz, all_gather(xyz, self.world),
-                                       max(int(self.opt.smooth_K), 1))[1]
+                every = all_gather(xyz, self.world)
+                self._smooth_map = transpose_smooth_map(
+                    knn(xyz, every, max(int(self.opt.smooth_K), 1))[1],
+                    every.shape[0])
             self._smooth_dirty = False
         return self._smooth_map
 

@@ -150,7 +150,7 @@ def render(
     override_color: torch.Tensor | None = None,
     mask: torch.Tensor | None = None,
     norm_gaussian_features: bool = True,
-    smooth_map: torch.Tensor | None = None,
+    smooth_map=None,
     smooth_perm: torch.Tensor | None = None,
     smooth_generator: torch.Generator | None = None,
     mean2d_offset=None,
@@ -168,8 +168,9 @@ def render(
     keep-mask (False = removed, reference `render(mask=...)`);
     `mean2d_offset`: (C, 2) zeros whose gradient is the densification
     signal (added to the projected means before binning); `smooth_map`:
-    (C, K) neighbour indices to enable feature smoothing, over the
-    neighbour slots `smooth_perm` or, without it, a permutation drawn
+    (C, K) neighbour indices or their ops.knn.SmoothMap (the map with
+    its transpose, which the gradient walks) to enable feature smoothing,
+    over the neighbour slots `smooth_perm` or, without it, a permutation drawn
     from `smooth_generator` (see ops.knn.smooth_features).
 
     `with_color=False` (requires with_features) composites only the

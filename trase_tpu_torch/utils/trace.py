@@ -24,7 +24,9 @@ whether tracing is on or off (an increment is a dict store):
 ``layout_launches`` (the compositor and MLP kernels' launches by
 instantiation, ops/rasterize_cuda.py), ``cache`` (``("gt" | "masks",
 "hit" | "miss")``, the training loop's device caches), ``mask_fetch``
-(engine/loop.py) and ``nnfm`` (``(N1, N2, C)``: the NNFM's calls by the
+(engine/loop.py), ``smooth_map`` (``("transpose",)``: the smoothing maps
+transposed, ``("max_in_degree",)``: the largest in-degree among them,
+ops/knn.py) and ``nnfm`` (``(N1, N2, C)``: the NNFM's calls by the
 render's and the style's column counts and the channels,
 losses/style.py).
 
