@@ -277,10 +277,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
+# the H100's published peaks and the least time of counted work, as the
+# benchmark computes them
+from port_bench.counts.bounds import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S,
+                                      HBM_BYTES_PER_S, bound, mlp_bound)
+
 # forward kernel vs plain: the same expressions in the same order, built
 # with -fmad=false: image, log T and stop index bit for bit
 FWD_TOL = 0.0
@@ -495,9 +496,9 @@ def repeated_ms(fns: dict, timer=queued_ms) -> dict:
 
 def cuda_tool(name: str) -> str:
     """A CUDA toolkit binary beside the nvcc that builds the kernels."""
-    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops import cuda_lib as CL
 
-    return os.path.join(os.path.dirname(RC._nvcc()), name)
+    return os.path.join(os.path.dirname(CL.nvcc()), name)
 
 
 def fwd_sass(lib: str, save: bool = True) -> dict:
@@ -565,22 +566,25 @@ def start_nvcc(name: str, source: str):
     """nvcc on a kernel source from outside the package (an earlier
     commit's, or a variant), started now into BUILD_DIR/variants/;
     finish_nvcc waits for it."""
-    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops import cuda_lib as CL
 
-    out_dir = os.path.join(RC.BUILD_DIR, "variants")
+    out_dir = os.path.join(CL.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     cu = os.path.join(out_dir, f"{name}.cu")
     with open(cu, "w") as f:
         f.write(source)
     so = os.path.join(out_dir, f"{name}.so")
-    return subprocess.Popen([RC._nvcc(), *RC.NVCC_FLAGS, "-o", so, cu],
+    return subprocess.Popen([CL.nvcc(), *CL.NVCC_FLAGS, "-o", so, cu],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True), so
 
 
-def finish_nvcc(build, fn: str, argtypes):
-    """(ctypes library with `fn` typed, path, ptxas lines) of a
-    start_nvcc build, or (None, path, lines) if nvcc failed."""
+def finish_nvcc(build, signatures: dict):
+    """(ctypes library with the entry points of `signatures` typed, as
+    cuda_lib.load types them, path, ptxas lines) of a start_nvcc build, or
+    (None, path, lines) if nvcc failed."""
+    from trase_tpu_torch.ops import cuda_lib as CL
+
     proc, so = build
     log, _ = proc.communicate()
     lines = [ln.strip() for ln in log.splitlines()
@@ -588,17 +592,12 @@ def finish_nvcc(build, fn: str, argtypes):
                                        "setmaxnreg"))]
     if proc.returncode:
         return None, so, lines
-    lib = ctypes.CDLL(so)
-    getattr(lib, fn).argtypes = argtypes
-    getattr(lib, fn).restype = ctypes.c_int
-    return lib, so, lines
+    return CL.load(so, signatures), so, lines
 
 
 def parent_mlp(lib, fw, emb):
     """The first deform_mlp design's launch (PARENT_MLP_ARGTYPES) on
     packed weights (pack_fused_weights): its outputs; not counted."""
-    from trase_tpu_torch.ops import rasterize_cuda as RC
-
     n = emb.shape[0]
     outs = [torch.empty((n, c), dtype=torch.float32, device=emb.device)
             for c in (3, 4, 3)]
@@ -606,7 +605,7 @@ def parent_mlp(lib, fw, emb):
         emb.data_ptr(), n, fw.in_dim, fw.w0.shape[1], fw.w0.data_ptr(),
         fw.ws_in.data_ptr(), fw.w_hidden.data_ptr(), fw.bias.data_ptr(),
         fw.wh.data_ptr(), fw.bh.data_ptr(), *[o.data_ptr() for o in outs],
-        RC._stream(emb.device))
+        torch.cuda.current_stream(emb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"parent deform_mlp launch failed: {rc}")
     return tuple(outs)
@@ -1229,36 +1228,6 @@ def compare_bwd(label, proj, feats, H, W, cfg, timed, pack=False,
     return rows
 
 
-def bound(prefix, nbytes, ops):
-    """The least time for `nbytes` of traffic and `ops` f32 operations
-    on the card, and which of the two bounds it."""
-    pre = f"{prefix}_" if prefix else ""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOPS_PER_S * 1e3
-    return {f"{pre}bound_ms": max(bytes_ms, ops_ms),
-            f"{pre}bound_by": "bytes" if bytes_ms >= ops_ms
-            else "operations"}
-
-
-def mlp_bound(n, in_dim, kin):
-    """The fused MLP's least time at n rows: bytes (emb read, the three
-    heads written, the packed weights read once) over the memory rate;
-    operations (the hidden stack's multiply-adds at the bf16 tensor-core
-    peak, the float32 head's at the float32 peak, on separate units)."""
-    hidden = in_dim * 256 + 4 * 256 * 256 + (in_dim + 256) * 256 \
-        + 2 * 256 * 256
-    head = 256 * 10
-    nbytes = (4 * n * in_dim + 4 * n * 10
-              + 2 * (2 * 256 * kin + 7 * 256 * 256)
-              + 4 * (8 * 256 + 256 * 10 + 10))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(2 * n * hidden / BF16_FLOPS_PER_S,
-                 2 * n * head / F32_FLOPS_PER_S) * 1e3
-    return {"bytes": nbytes, "flops": 2 * n * (hidden + head),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-
-
 def cublas_chain(w):
     """The library yardstick for the fused MLP (timed here, never called
     by the port): the same chain as 11 PyTorch calls through cuBLAS, 8 bf16
@@ -1381,11 +1350,11 @@ def compare_mlp(label, net, xyz, t, timed, parent=None):
 def counts():
     """The launches since reset_counts by kernel; the mask unpack's and
     the smoothing backward's only where they ran."""
-    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops import cuda_lib as CL
 
     totals = dict.fromkeys(("composite_fwd", "composite_bwd",
                             "reduce_pair_grads", "deform_mlp"), 0)
-    for key, n in RC.LAYOUT_LAUNCHES.items():
+    for key, n in CL.LAYOUT_LAUNCHES.items():
         totals[key[0]] = totals.get(key[0], 0) + n
     return totals
 
@@ -1405,16 +1374,16 @@ def layout_counts():
     """The launches since reset_counts by instantiation, as strings:
     kernel/n_val/n_packed/with_color/(residuals or values_only) and
     reduce_pair_grads/words."""
-    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops import cuda_lib as CL
 
     return {"/".join(str(int(x) if isinstance(x, bool) else x) for x in k):
-            v for k, v in sorted(RC.LAYOUT_LAUNCHES.items(), key=str)}
+            v for k, v in sorted(CL.LAYOUT_LAUNCHES.items(), key=str)}
 
 
 def reset_counts():
-    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops import cuda_lib as CL
 
-    RC.LAYOUT_LAUNCHES.clear()
+    CL.LAYOUT_LAUNCHES.clear()
 
 
 class StageTimer:
@@ -1867,8 +1836,8 @@ def mask_unpack_check(dev) -> dict:
     the bits' upload from page-locked memory, the plain version's ms and
     the bound (the float32 stack written and the bits read at
     HBM_BYTES_PER_S)."""
+    from trase_tpu_torch.ops import cuda_lib as CL
     from trase_tpu_torch.ops import mask_unpack as MU
-    from trase_tpu_torch.ops import rasterize_cuda as RC
 
     n, h, w = MASK_UNPACK_SHAPE
     m_max = MASK_UNPACK_M_MAX
@@ -1877,10 +1846,10 @@ def mask_unpack_check(dev) -> dict:
     host = torch.from_numpy(packed).pin_memory() if dev.type == "cuda" \
         else torch.from_numpy(packed)
     bits = host.to(dev)
-    before = RC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
+    before = CL.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
     got = MU.unpack_masks(bits, n, h, w, m_max)
     if dev.type == "cuda":
-        assert RC.LAYOUT_LAUNCHES[("mask_unpack",)] == before + 1
+        assert CL.LAYOUT_LAUNCHES[("mask_unpack",)] == before + 1
     ref = MU.unpack_masks_plain(bits, n, h, w, m_max)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert torch.equal(got, ref), "mask_unpack differs from its plain version"
@@ -1913,7 +1882,7 @@ def mask_io_phase(root, dev):
     from trase_tpu_torch.data import masks as DM
     from trase_tpu_torch.data.synthetic import write_synthetic_dataset
     from trase_tpu_torch.engine import loop as TL
-    from trase_tpu_torch.ops import rasterize_cuda as RC
+    from trase_tpu_torch.ops import cuda_lib as CL
 
     t0 = time.perf_counter()
     assert native.available(), "native/trase_io.cpp did not build"
@@ -2018,7 +1987,7 @@ def mask_io_phase(root, dev):
         waits.clear()
         inline.clear()
         fetch = dict(TL.MASK_FETCH)
-        unpacks = RC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
+        unpacks = CL.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
         DM.MaskPrefetcher.get, TL.load_stack = timed_get, timed_load
         TL.MASK_CACHE_SIZE = TL.MASK_CACHE_CAP = 1
         if arm == "inline":
@@ -2044,7 +2013,7 @@ def mask_io_phase(root, dev):
         assert tr._prefetcher is None
         fetch = {f"{k[0]}.{k[1]}": TL.MASK_FETCH[k] - fetch.get(k, 0)
                  for k in TL.MASK_FETCH if TL.MASK_FETCH[k] != fetch.get(k, 0)}
-        unpacks = RC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0) - unpacks
+        unpacks = CL.LAYOUT_LAUNCHES.get(("mask_unpack",), 0) - unpacks
         # every miss of a native file goes up as bits, one unpack each
         assert fetch.get("bits.miss", 0) > 0 and "float32.miss" not in fetch, \
             fetch
@@ -2575,6 +2544,7 @@ def slab_compare(label, proj, feats, H, W, cfg, pack, with_color):
     whole-image backward's bit for bit, and the slabs' payload gradients
     summed against the whole image's within SLAB_SUM_TOL; then each slab's
     kernels and the whole image's timed in interleaved queued rounds."""
+    from trase_tpu_torch.ops import cuda_lib as CL
     from trase_tpu_torch.ops import rasterize_cuda as RC
     from trase_tpu_torch.ops.rasterize import _tile_grid
 
@@ -2599,7 +2569,7 @@ def slab_compare(label, proj, feats, H, W, cfg, pack, with_color):
     fpay = RC.reduce_pair_grads(fpair, inv, ci.tile_start, n)
     total = torch.zeros_like(fpay)
     slabs, per_slab, bad = [], [], []
-    lib = RC._library("composite_bwd")
+    lib = CL.library("composite_bwd", RC.BWD_SIGNATURES)
 
     def per_gaussian(dpair, sl):
         """The whole image's reduce kernel over the slab's pair range
@@ -3017,6 +2987,7 @@ def main(argv=None) -> int:
 def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     from trase_tpu_torch.models import gaussians as G
     from trase_tpu_torch.models.deform import init_deform, make_deform_network
+    from trase_tpu_torch.ops import cuda_lib as CL
     from trase_tpu_torch.ops import rasterize_cuda as RC
     from trase_tpu_torch.ops.rasterize import RasterConfig
     from trase_tpu_torch.ops.rasterize_ref import rasterize_reference
@@ -3034,7 +3005,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     if mlp_parent:
         with open(mlp_parent) as f:
             parent_build = start_nvcc("deform_mlp_parent", f.read())
-    libs = RC.build_library()
+    libs = CL.build_library()
     for name, (lib, seconds, log) in libs.items():
         emit({"phase": "build", "source": name, "library": os.path.relpath(lib),
               "seconds": seconds,
@@ -3043,8 +3014,8 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
                                                  "wgmma", "setmaxnreg"))]})
     parent = None
     if parent_build:
-        parent, so, lines = finish_nvcc(parent_build, "trase_deform_mlp",
-                                        PARENT_MLP_ARGTYPES)
+        parent, so, lines = finish_nvcc(
+            parent_build, {"trase_deform_mlp": PARENT_MLP_ARGTYPES})
         emit({"phase": "build", "source": mlp_parent, "ptxas": lines,
               "res_usage": res_usage(so) if parent else None})
         assert parent is not None, f"{mlp_parent} did not build"
@@ -4176,8 +4147,8 @@ def smooth_bwd_check(dev) -> dict:
     gather-mean (host-paced), the plain version's ms, the bytes
     bound (each input and output byte once), the transpose's ms and the
     map's in-degree histogram."""
+    from trase_tpu_torch.ops import cuda_lib as CL
     from trase_tpu_torch.ops import knn as K
-    from trase_tpu_torch.ops import rasterize_cuda as RC
 
     n, dead, f = SMOOTH_BWD_ROWS, SMOOTH_BWD_DEAD, SMOOTH_BWD_FEATURES
     live = n - dead
@@ -4204,9 +4175,9 @@ def smooth_bwd_check(dev) -> dict:
     def kernel(m=smap):
         return K.smooth_rows_bwd(cot, m, slots)
 
-    before = RC.LAYOUT_LAUNCHES.get(("smooth_rows_bwd",), 0)
+    before = CL.LAYOUT_LAUNCHES.get(("smooth_rows_bwd",), 0)
     got, again = kernel(), kernel()
-    assert RC.LAYOUT_LAUNCHES[("smooth_rows_bwd",)] == before + 2
+    assert CL.LAYOUT_LAUNCHES[("smooth_rows_bwd",)] == before + 2
     assert torch.equal(got, again), "smooth_rows_bwd differs between calls"
     plain = K.smooth_rows_bwd_plain(cot, smap, slots)
     assert torch.equal(got, plain), "smooth_rows_bwd differs from plain"

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from trase_tpu_torch.ops import cuda_lib as CL
 from trase_tpu_torch.ops import projection as TP
 from trase_tpu_torch.ops import rasterize as TR
 from trase_tpu_torch.ops import rasterize_cuda as TRC
@@ -74,13 +75,13 @@ def test_cuda_backward_matches_plain():
                     ).cuda()
     first = torch.empty_like(logt)
     keys = (("composite_bwd", 4, 0, True, False), ("reduce_pair_grads", 10))
-    before = [TRC.LAYOUT_LAUNCHES.get(k, 0) for k in keys]
+    before = [CL.LAYOUT_LAUNCHES.get(k, 0) for k in keys]
     dpair = TRC.composite_bwd(*args, g, logt, stop, logt_first=first)
     inv = TRC.inverse_pairs(ci.sorted_pid)
     n = ci.payload.shape[0]
     dpay = TRC.reduce_pair_grads(dpair, inv, ci.tile_start, n)
     torch.cuda.synchronize()
-    assert [TRC.LAYOUT_LAUNCHES[k] for k in keys] == [b + 1 for b in before]
+    assert [CL.LAYOUT_LAUNCHES[k] for k in keys] == [b + 1 for b in before]
     stats = {}
     ref_pair = TRC.composite_bwd_plain(*args, g, logt, stop, stats=stats)
     nv = int(ci.tile_start[-1])
@@ -287,11 +288,11 @@ def test_forward_instantiations_match_plain(scene, layout):
                                          with_color)
     args = (payload, ci.sorted_gauss, ci.tile_start, H, W, n_val, n_packed)
     key = ("composite_fwd", n_val, n_packed, with_color, residuals)
-    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    before = CL.LAYOUT_LAUNCHES.get(key, 0)
     got = TRC.composite_fwd(*args, with_color=with_color,
                             residuals=residuals)
     torch.cuda.synchronize()
-    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
+    assert CL.LAYOUT_LAUNCHES[key] == before + 1
     ref = TRC.composite_plain(*args, with_color=with_color,
                               residuals=residuals)
     if residuals:
@@ -407,10 +408,10 @@ def test_reduce_matches_plain_bitwise(words, k):
     tile_start = torch.tensor([0, (2 * n * k) // 3], dtype=torch.int32,
                               device="cuda")
     key = ("reduce_pair_grads", words)
-    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    before = CL.LAYOUT_LAUNCHES.get(key, 0)
     got = TRC.reduce_pair_grads(dpair, inv, tile_start, n)
     torch.cuda.synchronize()
-    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
+    assert CL.LAYOUT_LAUNCHES[key] == before + 1
     assert torch.equal(got, TRC.reduce_pair_grads_plain(dpair, inv,
                                                         tile_start, n))
 
@@ -454,10 +455,10 @@ def test_deform_mlp_matches_plain(n, model_type):
 
     net, xyz, t, emb = _mlp_inputs(n, model_type)
     key = ("deform_mlp",)
-    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    before = CL.LAYOUT_LAUNCHES.get(key, 0)
     got = deform_step(net, xyz, t, fused=True)
     torch.cuda.synchronize()
-    assert TRC.LAYOUT_LAUNCHES[key] == before + 1
+    assert CL.LAYOUT_LAUNCHES[key] == before + 1
     ref = TM.fused_deform_mlp_plain(net, emb)
     for a, b in zip(ref, got):
         assert b.shape == a.shape and bool(torch.isfinite(b).all())
@@ -542,9 +543,9 @@ def test_fast_gt_matches_oracle_on_card(tmp_path, n_times):
 
     kw = dict(n_train=6, n_test=3, image_size=64, n_times=n_times,
               device="cuda")
-    TRC.LAYOUT_LAUNCHES.clear()
+    CL.LAYOUT_LAUNCHES.clear()
     write_synthetic_dataset(str(tmp_path / "fast"), fast_gt=True, **kw)
-    fwd = sum(v for k, v in TRC.LAYOUT_LAUNCHES.items()
+    fwd = sum(v for k, v in CL.LAYOUT_LAUNCHES.items()
               if k[0] == "composite_fwd")
     write_synthetic_dataset(str(tmp_path / "oracle"), **kw)
     fast, oracle = (_synthetic_views(str(tmp_path / n))
@@ -692,9 +693,9 @@ def test_viewer_frames_on_card():
     tol = {"Segmentation": 2e-4, "Rendered Features": 2e-4, "Depth": 2e-3}
     for mode in MODES:
         key = ("composite_fwd", 4, 0, True, False)
-        before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+        before = CL.LAYOUT_LAUNCHES.get(key, 0)
         img = card.render_frame(mode)
-        assert TRC.LAYOUT_LAUNCHES[key] == before + 1, mode
+        assert CL.LAYOUT_LAUNCHES[key] == before + 1, mode
         assert img.shape == (3, 120, 160) and np.isfinite(img).all()
         if mode in tol:
             np.testing.assert_allclose(img, cpu.render_frame(mode),
@@ -872,10 +873,10 @@ def test_style_step_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     state, step, rows = _style_case("cuda")
-    TRC.LAYOUT_LAUNCHES.clear()
+    CL.LAYOUT_LAUNCHES.clear()
     new, m = step(state)
     torch.cuda.synchronize()
-    assert TRC.LAYOUT_LAUNCHES == {("composite_fwd", 4, 0, True, True): 1,
+    assert CL.LAYOUT_LAUNCHES == {("composite_fwd", 4, 0, True, True): 1,
                                    ("composite_bwd", 4, 0, True, False): 1,
                                    ("reduce_pair_grads", 10): 1}
     with _PlainKernels():
@@ -1054,9 +1055,9 @@ def test_mask_unpack_matches_native(n, h, w, m_max):
 
     rng = np.random.default_rng(n + h)
     packed = rng.integers(0, 256, -(-n * h * w // 8), dtype=np.uint8)
-    before = TRC.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
+    before = CL.LAYOUT_LAUNCHES.get(("mask_unpack",), 0)
     got = MU.unpack_masks(torch.from_numpy(packed).cuda(), n, h, w, m_max)
-    assert TRC.LAYOUT_LAUNCHES[("mask_unpack",)] == before + 1
+    assert CL.LAYOUT_LAUNCHES[("mask_unpack",)] == before + 1
     ref = torch.from_numpy(native.unpack_masks_padded(packed, n, h, w, m_max))
     assert got.shape == (m_max, h, w) and got.dtype == torch.float32
     assert torch.equal(got.cpu(), ref)
@@ -1140,15 +1141,15 @@ def test_smooth_rows_bwd_matches_plain_on_card(draw):
         k, generator=g, device="cuda")[:k // 2]
     cot = torch.randn((n, f), generator=g, device="cuda")
     key = ("smooth_rows_bwd",)
-    before = TRC.LAYOUT_LAUNCHES.get(key, 0)
+    before = CL.LAYOUT_LAUNCHES.get(key, 0)
     got = TK.smooth_rows_bwd(cot, smap, slots)
     again = TK.smooth_rows_bwd(cot, smap, slots)
-    assert TRC.LAYOUT_LAUNCHES[key] == before + 2
+    assert CL.LAYOUT_LAUNCHES[key] == before + 2
     assert torch.equal(got, again)
     assert torch.equal(got, TK.smooth_rows_bwd_plain(cot, smap, slots))
     normed = torch.randn((n, f), generator=g,
                          device="cuda").requires_grad_(True)
     out = TK.smooth_rows(normed, smap, slots)
     grad, = torch.autograd.grad(out, normed, cot)
-    assert TRC.LAYOUT_LAUNCHES[key] == before + 3
+    assert CL.LAYOUT_LAUNCHES[key] == before + 3
     assert torch.equal(grad, got)

@@ -23,7 +23,7 @@ from trase_tpu.renderer import make_render_camera as j_camera
 from trase_tpu_torch.engine import trainer as TT
 from trase_tpu_torch.losses.contrastive import PixelSample
 from trase_tpu_torch.models import deform as TD
-from trase_tpu_torch.ops.knn import SMOOTH_DROPOUT
+from trase_tpu_torch.ops.knn import SMOOTH_DROPOUT, transpose_smooth_map
 from trase_tpu_torch.ops.rasterize import RasterConfig as TRasterConfig
 from trase_tpu_torch.renderer import make_render_camera as t_camera
 
@@ -72,12 +72,33 @@ def feature_inputs(use_deform):
                 sample=sample, perm=perm, lrs=lrs, use_deform=use_deform)
 
 
+def step_kw(inp, mode, stats):
+    return dict(sh_degree=1, use_deform=inp["use_deform"], is_6dof=False,
+                contrastive_mode=mode, rfn=1.0, positive_th=0.75,
+                negative_th=0.5, num_sampled_pixels=P, num_sampled_masks=3,
+                with_densify_stats=stats)
+
+
+def port_step(inp, lrs, kw):
+    """The port's step on the inputs' state: (new state, metrics), and
+    the state it started from."""
+    s = inp["sample"]
+    tstate = TT.train_state_from_numpy(np_tree(inp["jstate"]), "cpu")
+    return TT.feature_phase_step(
+        tstate, inp["tcam"], t32(inp["masks"]), torch.from_numpy(
+            inp["valid"]), 0.4, lrs, torch.zeros(3),
+        transpose_smooth_map(torch.from_numpy(inp["smooth_map"]).long()),
+        deform_net=TD.make_deform_network(device="cpu"),
+        raster_cfg=TRasterConfig(pairs_per_gaussian=16),
+        sample=PixelSample(torch.from_numpy(np.asarray(s.pixel_idx)).long(),
+                           torch.from_numpy(np.asarray(s.pixel_valid)),
+                           torch.from_numpy(np.asarray(s.mask_sel))),
+        smooth_perm=torch.from_numpy(inp["perm"]).long(), **kw), tstate
+
+
 def run_both(inp, mode, stats, monkeypatch):
     """(JAX new state, metrics), (port new state, metrics)."""
-    kw = dict(sh_degree=1, use_deform=inp["use_deform"], is_6dof=False,
-              contrastive_mode=mode, rfn=1.0, positive_th=0.75,
-              negative_th=0.5, num_sampled_pixels=P, num_sampled_masks=3,
-              with_densify_stats=stats)
+    kw = step_kw(inp, mode, stats)
     monkeypatch.setattr(JR, "default_backend", lambda: "pallas_interpret")
     step = jax.jit(functools.partial(
         JT._feature_phase_body, deform_net=inp["net"], image_height=H,
@@ -88,18 +109,7 @@ def run_both(inp, mode, stats, monkeypatch):
                     jnp.asarray(inp["masks"]), jnp.asarray(inp["valid"]),
                     jnp.float32(0.4), jax.random.PRNGKey(7), inp["lrs"],
                     jnp.zeros(3), jnp.asarray(inp["smooth_map"]))
-    s = inp["sample"]
-    tstate = TT.train_state_from_numpy(np_tree(inp["jstate"]), "cpu")
-    tnew, tm = TT.feature_phase_step(
-        tstate, inp["tcam"], t32(inp["masks"]), torch.from_numpy(
-            inp["valid"]), 0.4, TT.LearningRates(*inp["lrs"]),
-        torch.zeros(3), torch.from_numpy(inp["smooth_map"]).long(),
-        deform_net=TD.make_deform_network(device="cpu"),
-        raster_cfg=TRasterConfig(pairs_per_gaussian=16),
-        sample=PixelSample(torch.from_numpy(np.asarray(s.pixel_idx)).long(),
-                           torch.from_numpy(np.asarray(s.pixel_valid)),
-                           torch.from_numpy(np.asarray(s.mask_sel))),
-        smooth_perm=torch.from_numpy(inp["perm"]).long(), **kw)
+    (tnew, tm), _ = port_step(inp, TT.LearningRates(*inp["lrs"]), kw)
     return (jnew, jm), (tnew, tm)
 
 
@@ -164,3 +174,19 @@ def test_feature_step_soft_mode_band(monkeypatch):
     assert frac > 0.99, frac
     assert np.abs(f_t - np.asarray(inp["jstate"].params.gaussian_features)
                   ).max() > 0
+
+
+@pytest.mark.parametrize("with_densify_stats", [True, False])
+def test_nan_guard_skips_the_feature_step(with_densify_stats):
+    """A NaN learning rate for gaussian_features turns the update
+    non-finite: the step leaves every float tensor of the state as it
+    was, on the device flag alone, with and without the densification
+    statistics."""
+    inp = feature_inputs(use_deform=False)
+    lrs = TT.LearningRates(*inp["lrs"])._replace(
+        gaussian_features=float("nan"))
+    (new, m), old = port_step(inp, lrs,
+                              step_kw(inp, "soft", with_densify_stats))
+    assert not bool(m["finite"])
+    for a, b in zip(TT.float_tensors(new), TT.float_tensors(old)):
+        assert torch.equal(a, b)

@@ -95,6 +95,37 @@ def test_import_leaves_jax_unloaded():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_cuda_libraries_have_one_home():
+    """ops/cuda_lib.py's SOURCES names every file in csrc/, no module
+    under ops/ other than cuda_lib.py calls ctypes.CDLL, and the kernel
+    wrappers beside the compositor (knn, mask_unpack, mlp_cuda) do not
+    import rasterize_cuda."""
+    from trase_tpu_torch.ops import cuda_lib
+
+    pkg = os.path.join(ROOT, "trase_tpu_torch")
+    assert sorted(os.path.relpath(p, pkg)
+                  for p in cuda_lib.SOURCES.values()) == sorted(
+        os.path.join("csrc", f) for f in os.listdir(os.path.join(pkg,
+                                                                 "csrc")))
+    ops = os.path.join(pkg, "ops")
+    for name in sorted(os.listdir(ops)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(ops, name)) as f:
+            tree = ast.parse(f.read(), name)
+        calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                 and getattr(n.func, "attr", getattr(n.func, "id", None))
+                 == "CDLL"]
+        assert bool(calls) == (name == "cuda_lib.py"), name
+        imports = {a.name for n in ast.walk(tree)
+                   if isinstance(n, (ast.Import, ast.ImportFrom))
+                   for a in n.names} | {
+            n.module or "" for n in ast.walk(tree)
+            if isinstance(n, ast.ImportFrom)}
+        if name in ("knn.py", "mask_unpack.py", "mlp_cuda.py"):
+            assert not any("rasterize_cuda" in i for i in imports), name
+
+
 def test_tf32_off():
     import trase_tpu_torch  # noqa: F401
 

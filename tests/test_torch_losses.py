@@ -176,15 +176,17 @@ def test_smooth_features_match():
             JK.smooth_features(x, jnp.asarray(nmap), jkey) * w))(
                 jnp.asarray(f))
         x = torch.from_numpy(f).requires_grad_(True)
-        out = TK.smooth_features(x, torch.from_numpy(nmap), perm=tperm)
+        out = TK.smooth_features(
+            x, TK.transpose_smooth_map(torch.from_numpy(nmap)), perm=tperm)
         g, = torch.autograd.grad((out * torch.from_numpy(w)).sum(), x)
         np.testing.assert_allclose(out.detach().numpy(), np.asarray(
             JK.smooth_features(jnp.asarray(f), jnp.asarray(nmap), jkey)),
             atol=1e-6)
         np.testing.assert_allclose(g.numpy(), np.asarray(rg), atol=1e-6)
     gen = torch.Generator().manual_seed(0)
-    own = TK.smooth_features(torch.from_numpy(f), torch.from_numpy(nmap),
-                             generator=gen)
+    own = TK.smooth_features(
+        torch.from_numpy(f), TK.transpose_smooth_map(torch.from_numpy(nmap)),
+        generator=gen)
     assert own.shape == (50, 32) and torch.isfinite(own).all()
 
 

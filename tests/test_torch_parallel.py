@@ -29,7 +29,8 @@ from trase_tpu.renderer import make_render_camera as j_camera
 from trase_tpu_torch.engine import trainer as TT
 from trase_tpu_torch.losses.contrastive import PixelSample
 from trase_tpu_torch.models import gaussians as TG
-from trase_tpu_torch.ops.knn import build_feature_smooth_map
+from trase_tpu_torch.ops.knn import (build_feature_smooth_map,
+                                     transpose_smooth_map)
 from trase_tpu_torch.parallel import sharded as TS
 from trase_tpu_torch.parallel.world import World
 from trase_tpu_torch.renderer import render
@@ -140,7 +141,8 @@ def single(inp):
         new, m = TT.feature_phase_step(
             state, cam, torch.tensor(inp["masks"]),
             torch.tensor(inp["mask_valid"]), FID, lrs, bg,
-            torch.tensor(inp["smooth_map"]) if smooth else None,
+            transpose_smooth_map(torch.tensor(inp["smooth_map"]))
+            if smooth else None,
             deform_net=net, raster_cfg=cfg, with_densify_stats=stats,
             sample=sample, smooth_perm=torch.tensor(inp["smooth_perm"]),
             **FEAT_KW)
@@ -419,7 +421,8 @@ def single_feature_loss(inp) -> float:
     _, m = TT.feature_phase_step(
         state, TW.camera(inp["camera"]), torch.tensor(inp["masks"]),
         torch.tensor(inp["mask_valid"]), FID, TW.lrs(LR),
-        torch.tensor(inp["bg"]), torch.tensor(inp["smooth_map"]),
+        torch.tensor(inp["bg"]),
+        transpose_smooth_map(torch.tensor(inp["smooth_map"])),
         deform_net=TW.net(), raster_cfg=TW.raster_cfg(inp["raster"]),
         sample=PixelSample(*[torch.tensor(x) for x in inp["sample"]]),
         smooth_perm=torch.tensor(inp["smooth_perm"]), **FEAT_KW)

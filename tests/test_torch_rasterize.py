@@ -41,7 +41,9 @@ def torch_proj(jproj):
 
 
 def torch_cfg(cfg):
-    return TR.RasterConfig(*cfg)
+    """trase_tpu's RasterConfig -> the port's, field by field by name."""
+    return TR.RasterConfig(**{k: getattr(cfg, k)
+                              for k in TR.RasterConfig._fields})
 
 
 def jax_tile_ranges(layout, num_tiles):

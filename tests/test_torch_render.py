@@ -22,6 +22,7 @@ from trase_tpu.renderer import make_render_camera as j_camera
 from trase_tpu.renderer import render as j_render
 
 from trase_tpu_torch.models import gaussians as TG
+from trase_tpu_torch.ops.knn import transpose_smooth_map
 from trase_tpu_torch.ops.rasterize import RasterConfig as TRasterConfig
 from trase_tpu_torch.renderer import make_render_camera as t_camera
 from trase_tpu_torch.renderer import render as t_render
@@ -267,7 +268,7 @@ def test_render_features_only_smoothed(values_only):
     got = t_render(tcam, tp._replace(gaussian_features=feats), ta.alive,
                    torch.zeros(3), sh_degree=1, mean2d_offset=off,
                    with_color=False, grad_values_only=values_only,
-                   smooth_map=torch.from_numpy(nmap),
+                   smooth_map=transpose_smooth_map(torch.from_numpy(nmap)),
                    smooth_perm=torch.from_numpy(perm),
                    raster_cfg=TRasterConfig(pairs_per_gaussian=16))
     assert "render" not in got and "depth" not in got

@@ -124,19 +124,21 @@ def test_transpose_refuses_rows_outside():
 
 
 def test_bare_map_and_smooth_map_agree():
-    """smooth_features over the bare map (transposed inside smooth_rows,
-    counted by the smooth_map counter) and over its SmoothMap: the same
-    values and gradients bit for bit; without a gradient no transpose."""
+    """smooth_features over two SmoothMaps of one map, each transpose
+    counted by the smooth_map counter: the same values and gradients bit
+    for bit, and the gradient-free values; smooth_features itself never
+    transposes."""
     idx = _knn_map(400, 120)
     f = torch.from_numpy(np.random.default_rng(5).normal(size=(400, 32))
                          .astype(np.float32))
     perm = torch.tensor([3, 0, 7, 12, 9, 1, 15, 6])
+    smap = TK.transpose_smooth_map(idx)
     before = TK.SMOOTH_MAP.get(("transpose",), 0)
     with torch.no_grad():
-        plain = TK.smooth_features(f, idx, perm=perm)
+        plain = TK.smooth_features(f, smap, perm=perm)
     assert TK.SMOOTH_MAP.get(("transpose",), 0) == before
     outs = []
-    for m in (idx, TK.transpose_smooth_map(idx)):
+    for m in (TK.transpose_smooth_map(idx), TK.transpose_smooth_map(idx)):
         x = f.clone().requires_grad_(True)
         out = TK.smooth_features(x, m, perm=perm)
         outs.append((out, torch.autograd.grad(out.square().sum(), x)[0]))

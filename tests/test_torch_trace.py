@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from trase_tpu_torch.data import masks as TM  # noqa: E402
 from trase_tpu_torch.engine import loop as TL  # noqa: E402
-from trase_tpu_torch.ops import rasterize_cuda as TRC  # noqa: E402
+from trase_tpu_torch.ops import cuda_lib  # noqa: E402
 from trase_tpu_torch.utils import trace  # noqa: E402
 
 torch.set_num_threads(2)
@@ -118,7 +118,7 @@ def test_spans_are_profiler_annotations(on, tmp_path):
 
 
 def test_layout_launches_is_the_counter():
-    assert TRC.LAYOUT_LAUNCHES is trace.counter("layout_launches")
+    assert cuda_lib.LAYOUT_LAUNCHES is trace.counter("layout_launches")
     assert TL.CACHE_COUNTS is trace.counter("cache")
 
 

@@ -152,7 +152,7 @@ def test_seg_eval_matches_trase_tpu(scene64, tmp_path, monkeypatch):
     tds = TModelParams(source_path=scene64, model_path=tdir, eval=True,
                        is_blender=True)
     tscene = TScene(tds, shuffle=False, device="cpu")
-    tcfg = TRasterConfig(pairs_per_gaussian=8, max_per_tile=1024)
+    tcfg = TRasterConfig(pairs_per_gaussian=8)
     ttr = TTrainer(tds, TOptimizationParams(), None, tscene, raster_cfg=tcfg,
                    device="cpu")
     tp, ta = TG.params_from_numpy(np_tree(jtr.state.params),

@@ -24,6 +24,7 @@ from trase_tpu_torch.engine import trainer as T
 from trase_tpu_torch.losses.contrastive import PixelSample
 from trase_tpu_torch.models import gaussians as G
 from trase_tpu_torch.models.deform import make_deform_network
+from trase_tpu_torch.ops.knn import transpose_smooth_map
 from trase_tpu_torch.ops.rasterize import RasterConfig
 from trase_tpu_torch.parallel import sharded as S
 from trase_tpu_torch.parallel.world import close_world, init_world
@@ -129,9 +130,10 @@ def sharded_steps(world, inp):
     sample = PixelSample(*[torch.tensor(x) for x in inp["sample"]])
     fstep = S.make_sharded_feature_step(world, net(), **inp["feat_kw"],
                                         raster_cfg=cfg)
-    smap = torch.tensor(inp["smooth_map"])
-    n = smap.shape[0] // world.size
-    smap = smap[world.rank * n:(world.rank + 1) * n]
+    every = torch.tensor(inp["smooth_map"])
+    n = every.shape[0] // world.size
+    smap = transpose_smooth_map(every[world.rank * n:(world.rank + 1) * n],
+                                every.shape[0])
     for name, smooth, stats in (("smooth", True, True),
                                 ("plain", False, True),
                                 ("values_only", False, False)):

@@ -22,6 +22,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
+from trase_tpu_torch.ops import cuda_lib as CL  # noqa: E402
 from trase_tpu_torch.ops import rasterize_cuda as RC  # noqa: E402
 from trase_tpu_torch.ops.rasterize import RasterConfig  # noqa: E402
 
@@ -36,10 +37,9 @@ LAYOUTS = ((False, True, False, False), (True, True, False, False),
 def build_variants(sources: dict) -> dict:
     """{name: ctypes library} of each source, built in parallel."""
     builds = {name: CS.start_nvcc(name, src) for name, src in sources.items()}
-    fn, argtypes = RC._ARGTYPES["composite_fwd"]
     libs = {}
     for name, b in builds.items():
-        lib, so, lines = CS.finish_nvcc(b, fn, argtypes)
+        lib, so, lines = CS.finish_nvcc(b, RC.FWD_SIGNATURES)
         CS.emit({"variant": name, "built": lib is not None, "ptxas": lines})
         if lib is None:
             continue
@@ -57,11 +57,11 @@ def main(argv=None):
     a = ap.parse_args(argv)
     dev = torch.device("cuda")
     print(CS.nvidia_smi(), flush=True)
-    libs = RC.build_library()
+    libs = CL.build_library()
     sass = CS.fwd_sass(libs["composite_fwd"][0])
     CS.emit({"fwd-sass": {"/".join(str(int(x)) for x in k): v
                           for k, v in sorted(sass.items())}})
-    with open(RC.SOURCES["composite_fwd"]) as f:
+    with open(CL.SOURCES["composite_fwd"]) as f:
         src = f.read()
     sources = {}
     if a.parent:
@@ -73,7 +73,8 @@ def main(argv=None):
             assert old in s, old
             s = s.replace(old, new)
         sources[name] = s
-    vlibs = {"repo": RC._library("composite_fwd"), **build_variants(sources)}
+    vlibs = {"repo": CL.library("composite_fwd", RC.FWD_SIGNATURES),
+             **build_variants(sources)}
 
     from trase_tpu_torch.models import gaussians as G
     from trase_tpu_torch.models.deform import init_deform, make_deform_network
@@ -105,7 +106,7 @@ def main(argv=None):
                 fns, errs = {}, {}
                 for name, lib in vlibs.items():
                     def fn(lib=lib):
-                        RC._LIBS["composite_fwd"] = lib
+                        CL.LIBS["composite_fwd"] = lib
                         return RC.composite_fwd(*args[:3], H, W, *args[3:],
                                                 **kw)
                     got = fn()
@@ -123,7 +124,7 @@ def main(argv=None):
                 bad = {k: e for k, e in errs.items() if any(e)}
                 assert not bad, f"variants disagree with plain: {bad}"
     finally:
-        RC._LIBS["composite_fwd"] = vlibs["repo"]
+        CL.LIBS["composite_fwd"] = vlibs["repo"]
 
 
 if __name__ == "__main__":

@@ -31,8 +31,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
+from trase_tpu_torch.ops import cuda_lib as CL  # noqa: E402
 from trase_tpu_torch.ops import mlp_cuda as M  # noqa: E402
-from trase_tpu_torch.ops import rasterize_cuda as RC  # noqa: E402
 
 
 def main(argv=None):
@@ -44,7 +44,7 @@ def main(argv=None):
     a = ap.parse_args(argv)
     dev = torch.device("cuda")
     print(CS.nvidia_smi(), flush=True)
-    with open(RC.SOURCES["deform_mlp"]) as f:
+    with open(CL.SOURCES["deform_mlp"]) as f:
         src = f.read()
     builds = {}
     if a.parent:
@@ -64,17 +64,17 @@ def main(argv=None):
             assert old in s, old
             s = s.replace(old, new)
         builds[name] = CS.start_nvcc(name, s)
-    path, _, log = RC.build_library(["deform_mlp"])["deform_mlp"]
+    path, _, log = CL.build_library(["deform_mlp"])["deform_mlp"]
     CS.emit({"variant": "repo", "ptxas": [
         ln.strip() for ln in log.splitlines()
         if any(w in ln for w in ("registers", "spill", "wgmma",
                                  "setmaxnreg"))], "res_usage":
         CS.res_usage(path)})
-    repo_fn, repo_args = RC._ARGTYPES["deform_mlp"]
-    libs = {"repo": RC._library("deform_mlp")}
+    libs = {"repo": CL.library("deform_mlp", M.SIGNATURES)}
     for name, b in builds.items():
-        args = CS.PARENT_MLP_ARGTYPES if name == "parent" else repo_args
-        lib, so, lines = CS.finish_nvcc(b, repo_fn, args)
+        lib, so, lines = CS.finish_nvcc(b, {
+            "trase_deform_mlp": CS.PARENT_MLP_ARGTYPES} if name == "parent"
+            else M.SIGNATURES)
         CS.emit({"variant": name, "ptxas": lines,
                  "res_usage": CS.res_usage(so) if lib else None})
         if lib is not None:
@@ -105,7 +105,7 @@ def main(argv=None):
                         return CS.parent_mlp(lib, w, emb)
                 else:
                     def fn(lib=lib):
-                        RC._LIBS["deform_mlp"] = lib
+                        CL.LIBS["deform_mlp"] = lib
                         return M.deform_mlp_cuda(dw, emb)
                 got, again = fn(), fn()
                 torch.cuda.synchronize()
@@ -134,7 +134,7 @@ def main(argv=None):
                         > CS.MLP_TOL or not e["relaunch_identical"])}
             assert not bad, f"builds disagree with plain: {bad}"
     finally:
-        RC._LIBS["deform_mlp"] = libs["repo"]
+        CL.LIBS["deform_mlp"] = libs["repo"]
 
 
 if __name__ == "__main__":

@@ -817,8 +817,9 @@ class Trainer:
             with torch.no_grad():
                 smoothed = smooth_features(
                     p.gaussian_features.to(self.device),
-                    build_feature_smooth_map(p.xyz.to(self.device),
-                                             max(int(self.opt.smooth_K), 1)))
+                    transpose_smooth_map(build_feature_smooth_map(
+                        p.xyz.to(self.device),
+                        max(int(self.opt.smooth_K), 1))))
         self.scene.save(iteration, self.state.params, self.state.aux.alive,
                         smoothed_features=smoothed)
         deform_dir = os.path.join(self.args.model_path, "deform",

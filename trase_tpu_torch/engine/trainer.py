@@ -17,11 +17,13 @@ through the hand-written CUDA backward (ops/rasterize_cuda.py) on the
 card.
 
 The state is a NamedTuple of tensors and the step is functional: it
-returns a new state and leaves its input alone. The NaN guard commits
-the new state only where every tensor of it is finite (a ``torch.where``
-on a device flag, no host sync), so a non-finite step is one skipped
-step. The deform net is a module whose weights live in the state as a
-list in flax order (Dense_i kernel in nn.Linear's (out, in) layout, then
+returns a new state and leaves its input alone. The three steps share
+their update tail (``_update``): Adam, the densification statistics and
+the NaN guard, which commits the leaves the step wrote only where the
+loss and the state's tensors are finite (a ``torch.where`` on a device
+flag, no host sync), so a non-finite step is one skipped step. The
+deform net is a module whose weights live in the state as a list in
+flax order (Dense_i kernel in nn.Linear's (out, in) layout, then
 its bias); the step runs the module on them with
 ``torch.func.functional_call``. Its hidden stack runs in bf16, as
 trase_tpu's does by default.
@@ -152,30 +154,53 @@ def _all_finite(tensors) -> torch.Tensor:
     return torch.stack([torch.isfinite(x).all() for x in tensors]).all()
 
 
-def _commit(finite: torch.Tensor, new: TrainState,
-            old: TrainState) -> TrainState:
-    """`new` where `finite`, else `old`, tensor by tensor (on the
-    device: no host sync)."""
-    def w(n, o):
-        return torch.where(finite, n, o)
-
-    def adam(n, o):
-        return AdamState(w(n.mu, o.mu), w(n.nu, o.nu), w(n.step, o.step))
-
-    return TrainState(
-        params=G.GaussianParams(*[w(n, o) for n, o in zip(new.params,
-                                                          old.params)]),
-        aux=G.GaussianAux(*[w(n, o) for n, o in zip(new.aux, old.aux)]),
-        opt=G.GaussianOptState(*[adam(n, o) for n, o in zip(new.opt,
-                                                            old.opt)]),
-        deform=[w(n, o) for n, o in zip(new.deform, old.deform)],
-        deform_opt=[adam(n, o) for n, o in zip(new.deform_opt,
-                                               old.deform_opt)],
-    )
-
-
 def _same(x):
     return x
+
+
+def _update(state: TrainState, lrs: LearningRates, grads: dict, row_mask,
+            loss: torch.Tensor, agree: Callable = _same, *,
+            deform_grads=None, densify=None, guard_deform: bool = False):
+    """The steps' shared tail -> (new state, finite). Adam on each field
+    of `grads` (field name -> gradient) at its rate in `lrs`, the rows
+    outside `row_mask` frozen, and, given `deform_grads`, on the deform
+    tensors at lrs.deform; the densification statistics of `densify`,
+    (g_off, visible, radii, H, W), over the visible alive rows. The NaN
+    guard's flag `finite`: the loss and every gaussian table, float aux
+    tensor and Adam moment of the new state are finite (with
+    `guard_deform`, the deform tensors and their moments too), made the
+    same on every rank by `agree`. Each leaf the step wrote is committed
+    where it holds (on the device: no host sync); the others are the
+    input's own."""
+    p, aux, opt = state.params, state.aux, state.opt
+    fields, moments = {}, {}
+    for name, g in grads.items():
+        fields[name], moments[name] = adam_update(
+            getattr(p, name), g, getattr(opt, name), getattr(lrs, name),
+            row_mask=row_mask)
+    new = state._replace(params=p._replace(**fields),
+                         opt=opt._replace(**moments))
+    if deform_grads is not None:
+        deform, deform_opt = adam_update_list(
+            state.deform, deform_grads, state.deform_opt, lrs.deform)
+        new = new._replace(deform=deform, deform_opt=deform_opt)
+    if densify is not None:
+        g_off, visible, radii, h, w = densify
+        new = new._replace(aux=G.add_densification_stats(
+            aux, g_off, visible & aux.alive, radii, h, w))
+    checked = float_tensors(new if guard_deform else new._replace(
+        deform=[], deform_opt=[]))
+    finite = agree(torch.isfinite(loss.detach()) & _all_finite(checked))
+
+    def keep(n, o):
+        if n is o:  # not written
+            return o
+        if isinstance(n, torch.Tensor):
+            return torch.where(finite, n, o)
+        parts = [keep(a, b) for a, b in zip(n, o)]
+        return parts if isinstance(n, list) else type(n)(*parts)
+
+    return keep(new, state), finite
 
 
 def feature_gram(feats_acc: torch.Tensor, sample: PixelSample, hm: int,
@@ -287,27 +312,13 @@ def gaussian_phase_step(
                      for x, g in zip(inputs, grads)]
 
         with trace.span("trase.step.adam"), torch.no_grad():
-            new_fields, new_opt_fields = {}, {}
-            for name, g in zip(TRAINED, grads):
-                new_fields[name], new_opt_fields[name] = adam_update(
-                    getattr(p, name), g, getattr(state.opt, name),
-                    getattr(lrs, name), row_mask=aux.alive)
-            new_params = p._replace(**new_fields)
-            new_opt = state.opt._replace(**new_opt_fields)
-            if use_deform:
-                new_deform, new_deform_opt = adam_update_list(
-                    state.deform, ranks.sum_grads(grads[len(TRAINED):-1]),
-                    state.deform_opt, lrs.deform)
-            else:
-                new_deform, new_deform_opt = state.deform, state.deform_opt
-            new_aux = G.add_densification_stats(
-                aux, grads[-1], out["visibility_filter"] & aux.alive,
-                out["radii"], camera.image_height, camera.image_width)
-            new = TrainState(new_params, new_aux, new_opt, new_deform,
-                             new_deform_opt)
-            finite = ranks.agree(torch.isfinite(loss.detach()) & _all_finite(
-                float_tensors(new)))
-            new_state = _commit(finite, new, state)
+            new_state, finite = _update(
+                state, lrs, dict(zip(TRAINED, grads)), aux.alive, loss,
+                ranks.agree, guard_deform=True,
+                deform_grads=(ranks.sum_grads(grads[len(TRAINED):-1])
+                              if use_deform else None),
+                densify=(grads[-1], out["visibility_filter"], out["radii"],
+                         camera.image_height, camera.image_width))
         metrics = {"loss": loss.detach(), "l1": ll1.detach(),
                    "finite": finite, "overflow": out["overflow"],
                    "overflow_half": out["overflow_half"]}
@@ -322,7 +333,7 @@ def feature_phase_step(
     fid: float,
     lrs: LearningRates,
     bg_color: torch.Tensor,
-    smooth_map,  # (C, K) neighbour map or its ops.knn.SmoothMap
+    smooth_map,  # ops.knn.SmoothMap of the (C, K) neighbour map, or None
     *,
     deform_net: DeformNetwork,
     sh_degree: int,
@@ -411,33 +422,12 @@ def feature_phase_step(
 
             pos_sim = mean_sim(pair & (C == 1))
             neg_sim = mean_sim(pair & (C == 0))
-            new_feat, new_feat_opt = adam_update(
-                p.gaussian_features, grads[0], state.opt.gaussian_features,
-                lrs.gaussian_features, row_mask=aux.alive)
-            new_params = p._replace(gaussian_features=new_feat)
-            new_opt = state.opt._replace(gaussian_features=new_feat_opt)
-            new_aux = aux
-            if with_densify_stats:
-                new_aux = G.add_densification_stats(
-                    aux, grads[1], out["visibility_filter"] & aux.alive,
-                    out["radii"], camera.image_height, camera.image_width)
-            checked = (list(new_params)
-                       + [x for x in new_aux if x.is_floating_point()]
-                       + [t for s in new_opt for t in (s.mu, s.nu)])
-            finite = ranks.agree(torch.isfinite(loss.detach())
-                                 & _all_finite(checked))
-
-            def w(n, o):
-                return torch.where(finite, n, o)
-
-            new_state = state._replace(
-                params=p._replace(gaussian_features=w(new_feat,
-                                                      p.gaussian_features)),
-                opt=state.opt._replace(gaussian_features=AdamState(
-                    *[w(n, o) for n, o in zip(new_feat_opt,
-                                              state.opt.gaussian_features)])),
-                aux=G.GaussianAux(*[w(n, o) for n, o in zip(new_aux, aux)])
-                if with_densify_stats else aux)
+            new_state, finite = _update(
+                state, lrs, {"gaussian_features": grads[0]}, aux.alive, loss,
+                ranks.agree,
+                densify=(grads[1], out["visibility_filter"], out["radii"],
+                         camera.image_height, camera.image_width)
+                if with_densify_stats else None)
         metrics = {"loss": loss.detach(), "finite": finite,
                    "rfn": rf_norm.detach(), "pos_sim": pos_sim,
                    "neg_sim": neg_sim, "overflow": out["overflow"],
@@ -514,25 +504,11 @@ def style_phase_step(
                                                             off])
 
         with trace.span("trase.step.adam"), torch.no_grad():
-            row_mask = aux.alive & style_mask
-            new_dc, opt_dc = adam_update(
-                p.features_dc, g_dc, state.opt.features_dc, lrs.features_dc,
-                row_mask=row_mask)
-            new_rest, opt_rest = adam_update(
-                p.features_rest, g_rest, state.opt.features_rest,
-                lrs.features_rest, row_mask=row_mask)
-            new_params = p._replace(features_dc=new_dc, features_rest=new_rest)
-            new_opt = state.opt._replace(features_dc=opt_dc,
-                                         features_rest=opt_rest)
-            new_aux = G.add_densification_stats(
-                aux, goff, out["visibility_filter"] & aux.alive, out["radii"],
-                camera.image_height, camera.image_width)
-            checked = (list(new_params)
-                       + [x for x in new_aux if x.is_floating_point()]
-                       + [t for s in new_opt for t in (s.mu, s.nu)])
-            finite = torch.isfinite(loss.detach()) & _all_finite(checked)
-            new_state = _commit(finite, state._replace(
-                params=new_params, aux=new_aux, opt=new_opt), state)
+            new_state, finite = _update(
+                state, lrs, {"features_dc": g_dc, "features_rest": g_rest},
+                aux.alive & style_mask, loss,
+                densify=(goff, out["visibility_filter"], out["radii"],
+                         camera.image_height, camera.image_width))
         return new_state, {"loss": loss.detach(), "finite": finite}
 
 

@@ -15,18 +15,20 @@ into chunks whose sums are added in chunk order: deterministic, no atomics.
 ``smooth_rows_bwd`` launches ``csrc/smooth_rows_bwd.cu`` on CUDA tensors and
 takes ``smooth_rows_bwd_plain``, the same sums in the same order, on CPU
 tensors; neither falls back to the other. Launches are counted in
-``rasterize_cuda.LAYOUT_LAUNCHES`` under ``("smooth_rows_bwd",)``; the
-counter ``smooth_map`` holds the transposes built (``("transpose",)``) and
-the largest in-degree seen (``("max_in_degree",)``).
+``cuda_lib.LAYOUT_LAUNCHES`` under ``("smooth_rows_bwd",)``; the counter
+``smooth_map`` holds the transposes built (``("transpose",)``: the FEATURE
+steps' maps and each snapshot's) and the largest in-degree seen
+(``("max_in_degree",)``).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..utils import trace
-from . import rasterize_cuda as RC
+from . import cuda_lib
 
 # share of the neighbour slots a FEATURE step's smoothing averages over
 # (trase_tpu's loop passes smooth_dropout=0.5)
@@ -36,6 +38,11 @@ SMOOTH_DROPOUT = 0.5
 # 0.132 and 0.145 ms at 64, 128, 256, 512 and 1024
 SMOOTH_CHUNK = 512
 SMOOTH_MAP: dict = trace.counter("smooth_map")
+# the C entry point of csrc/smooth_rows_bwd.cu
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {"trase_smooth_rows_bwd": [_P] + [_I] * 2 + [_P] * 3 + [_I]
+              + [_P] * 2 + [_I] + [_P] * 2 + [_I] + [_P, _I, ctypes.c_float]
+              + [_P] * 3}
 
 
 def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
@@ -88,11 +95,6 @@ class SmoothMap(NamedTuple):
     max_in_degree: int
 
 
-def neighbour_map(smooth_map) -> torch.Tensor:
-    """The (C, K) neighbour map of a SmoothMap, or the map itself."""
-    return smooth_map.idx if isinstance(smooth_map, SmoothMap) else smooth_map
-
-
 def transpose_smooth_map(idx: torch.Tensor, n_dst: int | None = None,
                          chunk: int = SMOOTH_CHUNK) -> SmoothMap:
     """The SmoothMap of a (C, K) neighbour map into `n_dst` rows (C by
@@ -137,7 +139,7 @@ def transpose_smooth_map(idx: torch.Tensor, n_dst: int | None = None,
                      hub_part_ptr.to(i32), chunk, max_in_degree)
 
 
-def smooth_features(features: torch.Tensor, neighbor_idx,
+def smooth_features(features: torch.Tensor, smooth_map: SmoothMap,
                     perm: torch.Tensor | None = None,
                     generator: torch.Generator | None = None
                     ) -> torch.Tensor:
@@ -149,13 +151,13 @@ def smooth_features(features: torch.Tensor, neighbor_idx,
     from `generator`, else every slot. trase_tpu draws
     the permutation from a jax key; a test passes that one as `perm`.
 
-    features: (N, F); neighbor_idx: the (N, K) map or its SmoothMap.
+    features: (N, F); smooth_map: the SmoothMap of an (N, K) map.
     Returns (N, F)."""
     # safe norm: dead slots are all-zero
     normed = features / torch.sqrt(
         torch.sum(features * features, dim=-1, keepdim=True) + 1e-12)
-    return smooth_rows(normed, neighbor_idx, smooth_slots(
-        neighbour_map(neighbor_idx).shape[1], perm, generator))
+    return smooth_rows(normed, smooth_map, smooth_slots(
+        smooth_map.idx.shape[1], perm, generator))
 
 
 def smooth_slots(k: int, perm: torch.Tensor | None = None,
@@ -170,19 +172,15 @@ def smooth_slots(k: int, perm: torch.Tensor | None = None,
     return perm
 
 
-def smooth_rows(normed: torch.Tensor, smooth_map,
+def smooth_rows(normed: torch.Tensor, smooth_map: SmoothMap,
                 slots: torch.Tensor | None) -> torch.Tensor:
     """Each row of the neighbour map's mean of the `normed` rows it names,
-    over the distinct neighbour `slots` (None: every slot). `smooth_map`:
-    the (C, K) map or its SmoothMap; where a gradient is wanted, a bare
-    map is transposed here (into normed's rows), once per call."""
-    idx = neighbour_map(smooth_map)
+    over the distinct neighbour `slots` (None: every slot); the gradient
+    walks the map's transpose, which `smooth_map` carries."""
     if slots is not None:
-        slots = slots.to(idx.device)
+        slots = slots.to(smooth_map.idx.device)
     if not (torch.is_grad_enabled() and normed.requires_grad):
-        return _gather_mean(normed, idx, slots)
-    if not isinstance(smooth_map, SmoothMap):
-        smooth_map = transpose_smooth_map(idx, normed.shape[0])
+        return _gather_mean(normed, smooth_map.idx, slots)
     n_dst = smooth_map.rev_ptr.numel() - 1
     if n_dst != normed.shape[0]:
         raise ValueError(f"the map's transpose has {n_dst} rows, normed "
@@ -233,9 +231,9 @@ def smooth_rows_bwd(g: torch.Tensor, smooth_map: SmoothMap,
         return smooth_rows_bwd_plain(g, smooth_map, slots)
     _check_bwd(g, smooth_map)
     m = smooth_map
-    RC._require_cuda("smooth_rows_bwd", "smooth_rows_bwd_plain", g=g,
-                     rev_ptr=m.rev_ptr, rev_src=m.rev_src,
-                     rev_slot=m.rev_slot)
+    cuda_lib.require_cuda("smooth_rows_bwd", "smooth_rows_bwd_plain", g=g,
+                          rev_ptr=m.rev_ptr, rev_src=m.rev_src,
+                          rev_slot=m.rev_slot)
     dev = g.device
     k, f = m.idx.shape[1], g.shape[1]
     n_dst = m.rev_ptr.numel() - 1
@@ -244,19 +242,12 @@ def smooth_rows_bwd(g: torch.Tensor, smooth_map: SmoothMap,
     grad = torch.empty((n_dst, f), dtype=torch.float32, device=dev)
     partial = torch.empty((m.part_begin.numel(), f), dtype=torch.float32,
                           device=dev)
-    lib = RC._library("smooth_rows_bwd")
-    with torch.cuda.device(dev):
-        rc = lib.trase_smooth_rows_bwd(
-            g.data_ptr(), n_dst, f, m.rev_ptr.data_ptr(),
-            m.rev_src.data_ptr(), m.rev_slot.data_ptr(), m.chunk,
-            m.part_begin.data_ptr(), m.part_end.data_ptr(),
-            m.part_begin.numel(), m.hub_rows.data_ptr(),
-            m.hub_part_ptr.data_ptr(), m.hub_rows.numel(),
-            None if on is None else on.data_ptr(), k, float(n_sel),
-            partial.data_ptr(), grad.data_ptr(), RC._stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"smooth_rows_bwd launch failed: cudaError {rc}")
-    RC._count_layout(("smooth_rows_bwd",))
+    cuda_lib.launch(
+        cuda_lib.library("smooth_rows_bwd", SIGNATURES).trase_smooth_rows_bwd,
+        ("smooth_rows_bwd",), dev, g, n_dst, f, m.rev_ptr, m.rev_src,
+        m.rev_slot, m.chunk, m.part_begin, m.part_end, m.part_begin.numel(),
+        m.hub_rows, m.hub_part_ptr, m.hub_rows.numel(), on, k, float(n_sel),
+        partial, grad)
     return grad
 
 

@@ -8,14 +8,20 @@ expands them here on its device (engine/loop.py: ``_upload_masks``).
 
 ``unpack_masks`` launches the kernel on CUDA tensors and takes
 ``unpack_masks_plain`` on CPU tensors; neither falls back to the other.
-Launches are counted in ``rasterize_cuda.LAYOUT_LAUNCHES`` under the key
+Launches are counted in ``cuda_lib.LAYOUT_LAUNCHES`` under the key
 ``("mask_unpack",)``.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from . import rasterize_cuda as RC
+from . import cuda_lib
+
+# the C entry point of csrc/mask_unpack.cu
+SIGNATURES = {"trase_unpack_masks": [ctypes.c_void_p] + [ctypes.c_int64] * 3
+              + [ctypes.c_void_p] * 2}
 
 
 def _check(bits: torch.Tensor, n: int, h: int, w: int, m_max: int):
@@ -37,16 +43,11 @@ def unpack_masks(bits: torch.Tensor, n: int, h: int, w: int,
     if bits.device.type == "cpu":
         return unpack_masks_plain(bits, n, h, w, m_max)
     _check(bits, n, h, w, m_max)
-    RC._require_cuda("mask_unpack", "unpack_masks_plain", bits=bits)
-    dev = bits.device
-    out = torch.empty((m_max, h, w), dtype=torch.float32, device=dev)
-    lib = RC._library("mask_unpack")
-    with torch.cuda.device(dev):
-        rc = lib.trase_unpack_masks(bits.data_ptr(), n, h * w, m_max,
-                                    out.data_ptr(), RC._stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"mask_unpack launch failed: cudaError {rc}")
-    RC._count_layout(("mask_unpack",))
+    cuda_lib.require_cuda("mask_unpack", "unpack_masks_plain", bits=bits)
+    out = torch.empty((m_max, h, w), dtype=torch.float32, device=bits.device)
+    cuda_lib.launch(
+        cuda_lib.library("mask_unpack", SIGNATURES).trase_unpack_masks,
+        ("mask_unpack",), bits.device, bits, n, h * w, m_max, out)
     return out
 
 

@@ -16,16 +16,17 @@ caches that on the network until a parameter changes.
 anything else; ``fused_deform_mlp_plain`` is the same function in plain
 PyTorch (float32 products of the bf16-rounded operands, TF32 off), the
 CPU path. Neither falls back to the other. Launches are counted in
-``rasterize_cuda.LAYOUT_LAUNCHES`` under the key ``("deform_mlp",)``.
+``cuda_lib.LAYOUT_LAUNCHES`` under the key ``("deform_mlp",)``.
 """
 from __future__ import annotations
 
+import ctypes
 import weakref
 from typing import NamedTuple
 
 import torch
 
-from . import rasterize_cuda as RC
+from . import cuda_lib
 
 HIDDEN = 7  # W1..W4, Ws_h, W6, W7
 # the kernel's weight chunks: 256 output rows x CHUNK_K inputs, bf16, in
@@ -33,6 +34,9 @@ HIDDEN = 7  # W1..W4, Ws_h, W6, W7
 # row % 8); the input's K padded to KIN
 WIDTH, CHUNK_K, KIN = 256, 64, 128
 N_CHUNKS = 2 * (KIN // CHUNK_K) + HIDDEN * (WIDTH // CHUNK_K)  # 32
+# the C entry point of csrc/deform_mlp.cu
+SIGNATURES = {"trase_deform_mlp": [ctypes.c_void_p] + [ctypes.c_int] * 2
+              + [ctypes.c_void_p] * 8}
 
 
 def fused_available(model) -> bool:
@@ -193,8 +197,8 @@ def deform_mlp_cuda(weights: DeviceWeights, emb: torch.Tensor):
     deform_mlp_plain returns them. Raises for CPU tensors, for shapes the
     kernel does not take and when the launch fails."""
     w = weights
-    RC._require_cuda("deform_mlp", "deform_mlp_plain", emb=emb,
-                     chunks=w.chunks, bias=w.bias, wh=w.wh, bh=w.bh)
+    cuda_lib.require_cuda("deform_mlp", "deform_mlp_plain", emb=emb,
+                          chunks=w.chunks, bias=w.bias, wh=w.wh, bh=w.bh)
     n = emb.shape[0]
     if emb.dtype != torch.float32 or emb.dim() != 2 or \
             emb.shape[1] != w.in_dim:
@@ -210,19 +214,13 @@ def deform_mlp_cuda(weights: DeviceWeights, emb: torch.Tensor):
                              "device_layout writes)")
     if n == 0:
         raise ValueError("emb has no rows")
-    lib = RC._library("deform_mlp")
-    dev = emb.device
-    outs = [torch.empty((n, c), dtype=torch.float32, device=dev)
-            for c in (3, 4, 3)]
-    with torch.cuda.device(dev):
-        rc = lib.trase_deform_mlp(
-            emb.data_ptr(), n, w.in_dim, w.chunks.data_ptr(),
-            w.bias.data_ptr(), w.wh.data_ptr(), w.bh.data_ptr(),
-            *[o.data_ptr() for o in outs], RC._stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"deform_mlp launch failed: cudaError {rc}")
-    RC._count_layout(("deform_mlp",))
-    return tuple(outs)
+    outs = tuple(torch.empty((n, c), dtype=torch.float32, device=emb.device)
+                 for c in (3, 4, 3))
+    cuda_lib.launch(
+        cuda_lib.library("deform_mlp", SIGNATURES).trase_deform_mlp,
+        ("deform_mlp",), emb.device, emb, n, w.in_dim, w.chunks, w.bias, w.wh,
+        w.bh, *outs)
+    return outs
 
 
 def fused_deform_mlp(model, emb: torch.Tensor):

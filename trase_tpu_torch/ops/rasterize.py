@@ -1,7 +1,7 @@
 """Rasterizer configuration and the per-gaussian tile-rect math.
 
-Counterpart of trase_tpu/ops/rasterize.py:42-132: ``RasterConfig`` (same
-fields and defaults), the tile grid, the covered tile rectangle (CUDA
+Counterpart of trase_tpu/ops/rasterize.py:42-132: ``RasterConfig`` (the
+fields the tiled compositor reads, with the same defaults), the tile grid, the covered tile rectangle (CUDA
 getRect semantics over the exact-support AABB) and the aspect-balanced
 clamp of oversized rects to the K-pair budget. Integer math is int32 and
 the clamp's sqrt is float32, as in JAX, so both packages choose the same
@@ -21,20 +21,16 @@ TILE = 16
 
 
 class RasterConfig(NamedTuple):
-    """Rasterizer capacities and switches (trase_tpu field for field)."""
+    """Rasterizer capacities and switches: trase_tpu's, less the dense
+    backend's per-tile capacities (the tiled compositor bins every pair)."""
 
     # Per-gaussian (tile, gaussian) pair budget. Rects larger than this
     # shrink to an aspect-balanced sub-rect around the projected mean
     # (dropped count reported as `overflow`).
     pairs_per_gaussian: int = 8
-    # Dense-backend capacities: kept so configs stay interchangeable;
-    # the tiled compositor composites every binned pair.
-    max_per_tile: int = 1024
-    tile_batch: int = 32
     # Drop (gaussian, tile) pairs whose best-case alpha over the tile is
     # below the 1/255 cutoff (exact: the compositor zeroes them anyway).
     alpha_cull: bool = False
-    tile_group: int = 16  # unused; kept so saved configs stay loadable
     # Composite an even feature count at bf16 precision (round to
     # nearest even); geometry, rgb and depth stay float32.
     pack_features: bool = True

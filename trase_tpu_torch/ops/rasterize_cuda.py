@@ -37,25 +37,20 @@ slabs' payload gradients sum to the whole image's. The whole image is the
 range of every tile.
 ``composite_slab`` is the slab entry of ``rasterize_tiled``.
 
-``build_library`` builds every csrc/*.cu source, the fused deform MLP's
-(ops/mlp_cuda.py), the mask unpack's (ops/mask_unpack.py) and the feature
-smoothing's backward (ops/knn.py) included, and ``LAYOUT_LAUNCHES`` counts
-every kernel's launches.
+The kernels' libraries are built, loaded and launched, and their launches
+counted, by ops/cuda_lib.py; ``FWD_SIGNATURES`` and ``BWD_SIGNATURES`` are
+their C entry points.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..utils import trace
+from . import cuda_lib
 from .projection import ProjectedGaussians
 from .rasterize import TILE, RasterConfig, _tile_grid, _tile_rects, clamp_rect_to_budget
 from .rasterize_ref import ALPHA_EPS, ALPHA_MAX, T_EPS
@@ -76,27 +71,16 @@ LOG_T_EPS = float(np.log(T_EPS))
 SUPPORTED = frozenset({(4, 0, True), (36, 0, True), (36, 16, True),
                        (32, 0, False), (32, 16, False)})
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("composite_fwd", "composite_bwd", "deform_mlp",
-                        "mask_unpack", "smooth_rows_bwd")}
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
-
-# Kernel launches made by the wrappers (the CUDA path only), by
-# instantiation: one is added where each kernel is launched, nowhere else.
-# Keys are (kernel, n_val, n_packed, with_color, residuals or values_only)
-# for the compositor kernels, (kernel, words) for the reduce and
-# ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py), ("mask_unpack",)
-# for the mask stack's unpack (ops/mask_unpack.py), ("smooth_rows_bwd",) for
-# the feature smoothing's backward (ops/knn.py, both passes); a launch given
-# a tile range (slab mode) adds "slab" to its key. The port's counter
-# "layout_launches" (utils/trace.py).
-LAYOUT_LAUNCHES: dict = trace.counter("layout_launches")
-
-_LIBS: dict = {}
+# the C entry points of csrc/composite_fwd.cu and composite_bwd.cu
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FWD_SIGNATURES = {"trase_composite_fwd": [_P] * 3 + [_I] * 8 + [_F] * 3
+                  + [_P] * 4}
+BWD_SIGNATURES = {
+    "trase_composite_bwd": [_P] * 3 + [_I] * 9 + [_P] * 3 + [_F] * 2
+    + [_P] * 3,
+    "trase_reduce_pair_grads": [_P] * 4 + [_I] * 3 + [_P] * 2,
+    "trase_reduce_slab_pairs": [_P] * 5 + [_I] * 3 + [_P] * 2,
+}
 
 
 # ------------------------------------------------------------ binning
@@ -575,119 +559,6 @@ def reduce_pair_grads_plain(dpair: torch.Tensor, inv: torch.Tensor,
     return acc
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    home = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if nvcc is None and os.path.exists(home):
-        nvcc = home
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                           "trase_tpu_torch/csrc at first use")
-    return nvcc
-
-
-def _library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-
-
-def build_library(names=None) -> dict:
-    """Compile the csrc/*.cu sources for sm_90a into BUILD_DIR, one nvcc
-    per source, all started together; each library's name carries its
-    source's hash, so a library is built once per source content.
-    Returns {name: (library path, build seconds, nvcc output)}; seconds
-    and output are 0 and "" for a library that was already built."""
-    names = tuple(SOURCES) if names is None else tuple(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    result, running = {}, {}
-    for name in names:
-        path = _library_path(name)
-        if os.path.exists(path):
-            result[name] = (path, 0.0, "")
-            continue
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, path, tmp, time.perf_counter())
-    failed = []
-    for name, (proc, path, tmp, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, path)
-        result[name] = (path, seconds, log)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return result
-
-
-_ARGTYPES = {
-    "composite_fwd": ("trase_composite_fwd",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4),
-    "composite_bwd": ("trase_composite_bwd",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                      + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
-                      + [ctypes.c_void_p] * 3),
-    "deform_mlp": ("trase_deform_mlp",
-                   [ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 8),
-    "mask_unpack": ("trase_unpack_masks",
-                    [ctypes.c_void_p] + [ctypes.c_int64] * 3
-                    + [ctypes.c_void_p] * 2),
-    "smooth_rows_bwd": ("trase_smooth_rows_bwd",
-                        [ctypes.c_void_p] + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
-                        + [ctypes.c_void_p] * 3),
-}
-
-
-def _library(name: str):
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = build_library([name])[name][0]
-        lib = ctypes.CDLL(path)
-        fn_name, argtypes = _ARGTYPES[name]
-        getattr(lib, fn_name).argtypes = argtypes
-        getattr(lib, fn_name).restype = ctypes.c_int
-        if name == "composite_bwd":
-            lib.trase_reduce_pair_grads.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * 2)
-            lib.trase_reduce_pair_grads.restype = ctypes.c_int
-            lib.trase_reduce_slab_pairs.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * 2)
-            lib.trase_reduce_slab_pairs.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
-
-
-def _require_cuda(name: str, plain: str, **tensors):
-    for tname, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} takes CUDA tensors; the CPU path is "
-                             f"{plain}")
-        if not t.is_contiguous():
-            raise ValueError(f"{tname} must be contiguous")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _count_layout(key):
-    trace.bump(LAYOUT_LAUNCHES, key)
-
-
 def _slab_key(key, t_hi):
     return key + ("slab",) if t_hi is not None else key
 
@@ -702,8 +573,9 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     composite_plain returns them, for the whole image or the slab of tiles
     [t_lo, t_hi). Raises for CPU tensors, for value layouts without a
     kernel instantiation and when the launch fails."""
-    _require_cuda("composite_fwd", "composite_plain", payload=payload,
-                  sorted_gauss=sorted_gauss, tile_start=tile_start)
+    cuda_lib.require_cuda("composite_fwd", "composite_plain",
+                          payload=payload, sorted_gauss=sorted_gauss,
+                          tile_start=tile_start)
     layout = (n_val, n_packed, with_color)
     if layout not in SUPPORTED:
         raise ValueError(f"no kernel instantiation for (n_val, n_packed, "
@@ -714,7 +586,6 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
         raise ValueError("payload must be 8-byte aligned (the kernel copies "
                          "rows 8 bytes at a time)")
     hi, row0, rows = tile_range(th, tw, image_height, t_lo, t_hi)
-    lib = _library("composite_fwd")
     dev = payload.device
     out = torch.empty((rows, image_width, 1 + n_val),
                       dtype=torch.float32, device=dev)
@@ -724,17 +595,12 @@ def composite_fwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
                                device=dev)
         res_stop = torch.empty((hi - t_lo) * PIX, dtype=torch.int32,
                                device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.trase_composite_fwd(
-            payload.data_ptr(), sorted_gauss.data_ptr(),
-            tile_start[t_lo:].data_ptr(), hi - t_lo, tw, row0 // TILE, rows,
-            image_width, n_val, n_packed, int(with_color), LOG_ALPHA_MAX,
-            LOG_ALPHA_EPS, LOG_T_EPS, out.data_ptr(),
-            None if res_logt is None else res_logt.data_ptr(),
-            None if res_stop is None else res_stop.data_ptr(), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"composite_fwd launch failed: cudaError {rc}")
-    _count_layout(_slab_key(("composite_fwd", *layout, residuals), t_hi))
+    cuda_lib.launch(
+        cuda_lib.library("composite_fwd", FWD_SIGNATURES).trase_composite_fwd,
+        _slab_key(("composite_fwd", *layout, residuals), t_hi), dev, payload,
+        sorted_gauss, tile_start[t_lo:], hi - t_lo, tw, row0 // TILE, rows,
+        image_width, n_val, n_packed, int(with_color), LOG_ALPHA_MAX,
+        LOG_ALPHA_EPS, LOG_T_EPS, out, res_logt, res_stop)
     if residuals:
         return out, res_logt, res_stop
     return out
@@ -757,9 +623,10 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     `logt_first` (256 float32 per tile of the range), the kernel also
     writes each pixel's log T reconstructed back to its tile's first pair.
     With `values_only`, the geometry columns are exact zeros."""
-    _require_cuda("composite_bwd", "composite_bwd_plain", payload=payload,
-                  sorted_gauss=sorted_gauss, tile_start=tile_start,
-                  grad_out=grad_out, res_logt=res_logt, res_stop=res_stop)
+    cuda_lib.require_cuda("composite_bwd", "composite_bwd_plain",
+                          payload=payload, sorted_gauss=sorted_gauss,
+                          tile_start=tile_start, grad_out=grad_out,
+                          res_logt=res_logt, res_stop=res_stop)
     layout = (n_val, n_packed, with_color)
     if layout not in SUPPORTED:
         raise ValueError(f"no backward instantiation for (n_val, n_packed, "
@@ -775,23 +642,16 @@ def composite_bwd(payload: torch.Tensor, sorted_gauss: torch.Tensor,
     if res_logt.shape != ((hi - t_lo) * PIX,) or \
             res_stop.dtype != torch.int32:
         raise ValueError("residuals must be (tiles * 256,) float32 / int32")
-    lib = _library("composite_bwd")
     dev = payload.device
     dpair = torch.empty((sorted_gauss.shape[0], GEOM_COLS + n_val),
                         dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.trase_composite_bwd(
-            payload.data_ptr(), sorted_gauss.data_ptr(),
-            tile_start[t_lo:].data_ptr(), hi - t_lo, tw, row0 // TILE, rows,
-            image_width, n_val, n_packed, int(with_color), int(values_only),
-            grad_out.data_ptr(), res_logt.data_ptr(),
-            res_stop.data_ptr(), LOG_ALPHA_MAX, LOG_ALPHA_EPS,
-            dpair.data_ptr(),
-            None if logt_first is None else logt_first.data_ptr(),
-            _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"composite_bwd launch failed: cudaError {rc}")
-    _count_layout(_slab_key(("composite_bwd", *layout, values_only), t_hi))
+    cuda_lib.launch(
+        cuda_lib.library("composite_bwd", BWD_SIGNATURES).trase_composite_bwd,
+        _slab_key(("composite_bwd", *layout, values_only), t_hi), dev,
+        payload, sorted_gauss, tile_start[t_lo:], hi - t_lo, tw, row0 // TILE,
+        rows, image_width, n_val, n_packed, int(with_color), int(values_only),
+        grad_out, res_logt, res_stop, LOG_ALPHA_MAX, LOG_ALPHA_EPS, dpair,
+        logt_first)
     return dpair
 
 
@@ -805,13 +665,13 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
     of the whole image, or of the slab of tiles [t_lo, t_hi), where the
     slab's own pairs are walked (reduce_slab_pairs_kernel, which takes the
     sorted pairs' gaussians, `sorted_gauss`)."""
-    _require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
-                  dpair=dpair, inv=inv, tile_start=tile_start)
+    cuda_lib.require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
+                          dpair=dpair, inv=inv, tile_start=tile_start)
     if t_hi is not None:
         if sorted_gauss is None:
             raise ValueError("a slab's reduce takes sorted_gauss")
-        _require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
-                      sorted_gauss=sorted_gauss)
+        cuda_lib.require_cuda("reduce_pair_grads", "reduce_pair_grads_plain",
+                              sorted_gauss=sorted_gauss)
         if sorted_gauss.dtype != torch.int32 or \
                 sorted_gauss.shape != inv.shape:
             raise ValueError("sorted_gauss must be int32, one per pair")
@@ -829,23 +689,16 @@ def reduce_pair_grads(dpair: torch.Tensor, inv: torch.Tensor,
     if words % 2 or words > 64:
         raise ValueError(f"the reduce kernel sums rows of an even number of "
                          f"words up to 64 (float2 lanes), not {words}")
-    lib = _library("composite_bwd")
-    dev = dpair.device
-    out = torch.empty((n, words), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        if t_hi is None:
-            rc = lib.trase_reduce_pair_grads(
-                dpair.data_ptr(), inv.data_ptr(), tile_start.data_ptr(),
-                tile_start[hi:].data_ptr(), n, inv.shape[0] // n, words,
-                out.data_ptr(), _stream(dev))
-        else:
-            rc = lib.trase_reduce_slab_pairs(
-                dpair.data_ptr(), sorted_gauss.data_ptr(), inv.data_ptr(),
-                tile_start[t_lo:].data_ptr(), tile_start[hi:].data_ptr(), n,
-                inv.shape[0] // n, words, out.data_ptr(), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"reduce_pair_grads launch failed: cudaError {rc}")
-    _count_layout(_slab_key(("reduce_pair_grads", words), t_hi))
+    lib = cuda_lib.library("composite_bwd", BWD_SIGNATURES)
+    out = torch.empty((n, words), dtype=torch.float32, device=dpair.device)
+    if t_hi is None:
+        entry, args = lib.trase_reduce_pair_grads, (dpair, inv, tile_start)
+    else:
+        entry, args = lib.trase_reduce_slab_pairs, (
+            dpair, sorted_gauss, inv, tile_start[t_lo:])
+    cuda_lib.launch(entry, _slab_key(("reduce_pair_grads", words), t_hi),
+                    dpair.device, *args, tile_start[hi:], n,
+                    inv.shape[0] // n, words, out)
     return out
 
 

@@ -46,7 +46,7 @@ from ..losses.contrastive import (cosine_gram,
                                   features_correspondence_matrix_hwc)
 from ..models import gaussians as G
 from ..ops import rasterize_cuda as RC
-from ..ops.knn import neighbour_map, smooth_rows, smooth_slots
+from ..ops.knn import smooth_rows, smooth_slots
 from ..ops.projection import ProjectedGaussians
 from ..ops.rasterize import RasterConfig
 from ..renderer import project_view, render_outputs
@@ -203,8 +203,8 @@ def world_render(world: World):
     output keys, with `radii` and `visibility_filter` this rank's rows.
     Feature smoothing runs on the rows: each rank normalizes its features,
     the normalized table is all-gathered, each rank averages its rows'
-    neighbours (`smooth_map` holds this rank's rows of the neighbour map,
-    in global slot indices, or their SmoothMap into the gathered rows) and
+    neighbours (`smooth_map`: the SmoothMap of this rank's rows of the
+    neighbour map, in global slot indices, into the gathered rows) and
     normalizes again, and the rows are gathered for compositing.
     (trase_tpu's sharded FEATURE step leaves out that second
     normalization: ROADMAP.md, Queue 3.)"""
@@ -222,7 +222,7 @@ def world_render(world: World):
         if with_features:
             rows = params.gaussian_features
             if smooth_map is not None:
-                slots = smooth_slots(neighbour_map(smooth_map).shape[1],
+                slots = smooth_slots(smooth_map.idx.shape[1],
                                      smooth_perm, smooth_generator)
                 rows = smooth_rows(gather_rows(_unit_rows(rows), world),
                                    smooth_map, slots)
@@ -319,8 +319,9 @@ def make_sharded_feature_step(world: World, deform_net, **kw):
     feature_phase_step over the world, with its keywords and contract:
     step(state, camera, sam_masks, mask_valid, fid, lrs, bg_color,
     smooth_map, *, with_densify_stats, generator, sample, smooth_perm) ->
-    (new local state, metrics replicated). `smooth_map` holds this rank's
-    rows of the neighbour map in global slot indices; `generator` must
+    (new local state, metrics replicated). `smooth_map` is the SmoothMap
+    of this rank's rows of the neighbour map, in global slot indices, into
+    the gathered rows; `generator` must
     draw the same numbers on every rank (it does when seeded alike), so
     the pixel sample and the smoothing slots are the same everywhere."""
     return functools.partial(T.feature_phase_step, deform_net=deform_net,

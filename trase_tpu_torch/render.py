@@ -110,7 +110,6 @@ def render_sets(args):
     bg = torch.tensor([1.0, 1.0, 1.0] if white else [0.0, 0.0, 0.0],
                       dtype=torch.float32, device=device)
     cfg = RasterConfig(pairs_per_gaussian=args.pairs_per_gaussian,
-                       max_per_tile=args.max_per_tile,
                        pack_features=args.pack_features)
     feats = params.gaussian_features
     feats_np = feats.cpu().numpy()
@@ -328,7 +327,10 @@ def main(argv=None):
     parser.add_argument("--multithread_save", action="store_true",
                         default=False)
     parser.add_argument("--pack_features", action="store_true")
-    parser.add_argument("--max_per_tile", type=int, default=1024)
+    parser.add_argument("--max_per_tile", type=int, default=1024,
+                        help="the root CLI's per-tile capacity, accepted; "
+                             "the tiled compositor bins every pair, so "
+                             "the value goes nowhere")
     parser.add_argument("--pairs_per_gaussian", type=int, default=8)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the card, default) or cpu")

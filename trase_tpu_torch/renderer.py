@@ -168,8 +168,8 @@ def render(
     keep-mask (False = removed, reference `render(mask=...)`);
     `mean2d_offset`: (C, 2) zeros whose gradient is the densification
     signal (added to the projected means before binning); `smooth_map`:
-    (C, K) neighbour indices or their ops.knn.SmoothMap (the map with
-    its transpose, which the gradient walks) to enable feature smoothing,
+    the ops.knn.SmoothMap of (C, K) neighbour indices (the map with its
+    transpose, which the gradient walks) to enable feature smoothing,
     over the neighbour slots `smooth_perm` or, without it, a permutation drawn
     from `smooth_generator` (see ops.knn.smooth_features).
 

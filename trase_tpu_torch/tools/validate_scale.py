@@ -297,6 +297,8 @@ def make_parser() -> argparse.ArgumentParser:
                     help="densify until at least this many alive "
                          "gaussians (0 = just run the schedule)")
     ap.add_argument("--pairs_per_gaussian", type=int, default=8)
+    # the root tool's per-tile capacity, accepted: the tiled compositor
+    # bins every pair, so the value goes nowhere
     ap.add_argument("--max_per_tile", type=int, default=1024)
     ap.add_argument("--pack_features", action="store_true",
                     help="bf16-paired feature payload (quality "
@@ -375,7 +377,6 @@ def _raster_cfg(args):
     from ..ops.rasterize import RasterConfig
 
     return RasterConfig(pairs_per_gaussian=args.pairs_per_gaussian,
-                        max_per_tile=args.max_per_tile,
                         pack_features=args.pack_features)
 
 

@@ -86,9 +86,9 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--load_iteration", type=int, default=-1)
     parser.add_argument("--max_per_tile", type=int, default=1024,
-                        help="rasterizer per-tile gaussian capacity (kept "
-                             "for config parity; the tiled compositor "
-                             "composites every binned pair)")
+                        help="the root CLI's per-tile capacity, accepted; "
+                             "the tiled compositor bins every pair, so "
+                             "the value goes nowhere")
     parser.add_argument("--pairs_per_gaussian", type=int, default=8)
     parser.add_argument("--pack_features",
                         action=argparse.BooleanOptionalAction, default=True,
@@ -279,7 +279,6 @@ def train_run(args, dataset, world=None):
     scene = Scene(dataset, load_iteration=load_iter,
                   device=device if world is None else "cpu")
     raster_cfg = RasterConfig(pairs_per_gaussian=args.pairs_per_gaussian,
-                              max_per_tile=args.max_per_tile,
                               pack_features=args.pack_features)
     if world is None:
         trainer = Trainer(dataset, opt, pipe, scene, raster_cfg=raster_cfg,

@@ -21,14 +21,14 @@ Every span the port opens is named ``trase.<layer>[.<part>]``.
 
 ``counter(name)`` is a registry of plain host-side dicts of ints, counted
 whether tracing is on or off (an increment is a dict store):
-``layout_launches`` (the compositor and MLP kernels' launches by
-instantiation, ops/rasterize_cuda.py), ``cache`` (``("gt" | "masks",
+``layout_launches`` (every hand-written kernel's launches by
+instantiation, ops/cuda_lib.py), ``cache`` (``("gt" | "masks",
 "hit" | "miss")``, the training loop's device caches), ``mask_fetch``
 (engine/loop.py), ``smooth_map`` (``("transpose",)``: the smoothing maps
-transposed, ``("max_in_degree",)``: the largest in-degree among them,
-ops/knn.py) and ``nnfm`` (``(N1, N2, C)``: the NNFM's calls by the
-render's and the style's column counts and the channels,
-losses/style.py).
+transposed, the FEATURE steps' and each snapshot's; ``("max_in_degree",)``:
+the largest in-degree among them, ops/knn.py) and ``nnfm``
+(``(N1, N2, C)``: the NNFM's calls by the render's and the style's column
+counts and the channels, losses/style.py).
 
 No span or counter synchronises the device or reads a device tensor.
 """

@@ -107,8 +107,7 @@ class HeadlessViewer:
         self.sh_degree = sh_degree
         self.model_dir = model_dir
         self.loaded_iter = loaded_iter
-        self.raster_cfg = raster_cfg or RasterConfig(
-            pairs_per_gaussian=16, max_per_tile=1024, tile_batch=32)
+        self.raster_cfg = raster_cfg or RasterConfig(pairs_per_gaussian=16)
         self.bg = torch.tensor(
             [1.0, 1.0, 1.0] if white_background else [0.0, 0.0, 0.0],
             device=self.device)
