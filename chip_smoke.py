@@ -90,7 +90,11 @@ JSON line per phase:
 6. train-step   the same scene through engine.trainer.gaussian_phase_step
                 (bf16 deform stack on, lambda_dssim 0.2, gt zeros): warm-up
                 then timed steps; checks finiteness, a falling loss and
-                one launch of each kernel per step; the per-stage split;
+                one launch of each kernel per step (the update tail's two
+                kernels among them); the per-stage split; then the update
+                tail (csrc/update_tail.cu) at the step's signature: equal
+                to the plain tail bit for bit, its queued and host ms
+                beside the plain tail's, the bytes bound;
    feature-step the same scene through engine.trainer.feature_phase_step
                 (bf16 deform stack, 32 features KNN-smoothed over K=16
                 slots with dropout 0.5, soft mode, 4096 pixels, 8 seeded
@@ -347,6 +351,7 @@ KERNELS = {
                    "trase_tpu/ops/mlp_pallas.py:41"),
     "mask_unpack": ("trase_tpu_torch/csrc/mask_unpack.cu", "none"),
     "smooth_rows_bwd": ("trase_tpu_torch/csrc/smooth_rows_bwd.cu", "none"),
+    "update_tail": ("trase_tpu_torch/csrc/update_tail.cu", "none"),
 }
 # k-means at scale: the bench scene's features, the cluster CLI's k
 KMEANS_K, KMEANS_ITERS = 64, 50
@@ -423,6 +428,13 @@ MASK_CAMS, MASK_N, MASK_SIZES = 8, 32, ((504, 672), (1008, 1344))
 # host IO's training run: GAUSSIAN 1..F+1, then one FEATURE block of
 # F+1 steps (the phase machine switches once a block passes F steps)
 MASK_LOOP_SIZE, MASK_LOOP_FEATURE = 256, 16
+# the update tail's kernels (csrc/update_tail.cu), counted apart from the
+# others in a path's layouts (tail_counts): every training step launches
+# each once
+TAIL_KERNELS = ("update_tail", "update_commit")
+# the update tail at the GAUSSIAN step's signature: the Adam step count,
+# the screen-gradient and deform-gradient scales, the share of rows seen
+TAIL_STEP, TAIL_GRAD, TAIL_DEFORM_GRAD, TAIL_VISIBLE = 9000, 1e-3, 1e-2, 0.6
 # the mask unpack at the n3v-1600x1200 benchmark configuration's stack:
 # (masks, height, width) and the loop's M_max
 MASK_UNPACK_SHAPE, MASK_UNPACK_M_MAX = (64, 1200, 1600), 64
@@ -1349,14 +1361,29 @@ def compare_mlp(label, net, xyz, t, timed, parent=None):
 
 def counts():
     """The launches since reset_counts by kernel; the mask unpack's and
-    the smoothing backward's only where they ran."""
+    the smoothing backward's only where they ran; the update tail's apart
+    (tail_counts)."""
     from trase_tpu_torch.ops import cuda_lib as CL
 
     totals = dict.fromkeys(("composite_fwd", "composite_bwd",
                             "reduce_pair_grads", "deform_mlp"), 0)
     for key, n in CL.LAYOUT_LAUNCHES.items():
-        totals[key[0]] = totals.get(key[0], 0) + n
+        if key[0] not in TAIL_KERNELS:
+            totals[key[0]] = totals.get(key[0], 0) + n
     return totals
+
+
+def tail_counts(layouts: dict) -> dict:
+    """A path's update-tail launches (layout_counts' keys), by kernel: one
+    of each a training step."""
+    return {k: sum(n for key, n in layouts.items() if key.split("/")[0] == k)
+            for k in TAIL_KERNELS}
+
+
+def no_tail(layouts: dict) -> dict:
+    """A path's layouts without the update tail's launches."""
+    return {k: n for k, n in layouts.items()
+            if k.split("/")[0] not in TAIL_KERNELS}
 
 
 def compositor(n):
@@ -1426,7 +1453,7 @@ class StageTimer:
         ] + loss + [
             (RC, "composite_bwd", "composite_bwd"),
             (RC, "reduce_pair_grads", "reduce"),
-            (TT, "adam_update", "adam"), (TT, "adam_update_list", "adam"),
+            (TT, "_update", "adam"),
         ]
         self.saved = [(m, a, getattr(m, a)) for m, a, _ in self.patches]
         self.saved.append((RC, "_Composite", composite))
@@ -2268,9 +2295,10 @@ def style_phase(params, aux, cam, net, cfg, dev):
     launches, layouts = counts(), layout_counts()
     n_steps = TRAIN_WARMUP + STYLE_STEPS
     assert launches == dict(compositor(n_steps), deform_mlp=0), launches
-    assert layouts == {"composite_fwd/4/0/1/1": n_steps,
-                       "composite_bwd/4/0/1/0": n_steps,
-                       "reduce_pair_grads/10": n_steps}, layouts
+    assert no_tail(layouts) == {"composite_fwd/4/0/1/1": n_steps,
+                                "composite_bwd/4/0/1/0": n_steps,
+                                "reduce_pair_grads/10": n_steps}, layouts
+    assert tail_counts(layouts) == dict.fromkeys(TAIL_KERNELS, n_steps)
     losses = [float(x) for x in losses]
     assert all(bool(f) for f in finite), "a style step was skipped"
     assert losses[-1] < losses[0], losses
@@ -2850,7 +2878,8 @@ def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
     finally:
         close_world()
     want = {k: 1 for k in MESH_SLAB_KEYS}
-    assert step_launches == want, (step_launches, want)
+    assert no_tail(step_launches) == want, (step_launches, want)
+    assert tail_counts(step_launches) == dict.fromkeys(TAIL_KERNELS, 2)
     checks = {}
     for name, (gs, gm), (rs, rm) in (("gaussian", got_g, ref_g),
                                      ("feature", got_f, ref_f)):
@@ -3347,7 +3376,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     # 9. kernels
     emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                       slab_rows, mio["mask_unpack"],
-                      feature["smooth_rows_bwd"],
+                      feature["smooth_rows_bwd"], train["update_tail"],
                       time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3630,7 +3659,7 @@ def convert_phase(root, src, seg, it, sid, dev) -> dict:
 
 
 def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                 slab_rows, mu, sb, seconds):
+                 slab_rows, mu, sb, ut, seconds):
     """The kernels line: one object per kernel with its headline numbers
     (the GAUSSIAN layout, as in earlier runs) and one variant per
     instantiation, with its launches summed over the paths' counts; the
@@ -3638,10 +3667,12 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
     the whole image's, their sum, and the slabs' summed bound. The mask
     unpack (`mu`, mask_unpack_check's row) counts the mask-io phase's
     training runs' launches, the smoothing's backward (`sb`,
-    smooth_bwd_check's row) every path's."""
-    def launched(key):  # over every path (the FEATURE step's per arm)
-        flat = [c for lc in layouts.values()
-                for c in (lc.values() if "densify_stats" in lc else [lc])]
+    smooth_bwd_check's row) and the update tail (`ut`, update_tail_check's
+    row) every path's."""
+    flat = [c for lc in layouts.values()  # the FEATURE step's per arm
+            for c in (lc.values() if "densify_stats" in lc else [lc])]
+
+    def launched(key):  # over every path
         return sum(c.get(key, 0) for c in flat)
 
     def picked(r, prefix):  # a variant's measured times (the floors, a
@@ -3807,6 +3838,14 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
         library="index_add_ of the drawn rows",
         autograd_ms=sb["autograd_ms"], rows=sb["rows"],
         max_in_degree=sb["max_in_degree"]))
+    tails = {k: sum(tail_counts(c)[k] for c in flat) for k in TAIL_KERNELS}
+    entries.append(dict(
+        name="update_tail", launches=tails["update_tail"],
+        commit_launches=tails["update_commit"], ms=ut["ms"],
+        ms_repeats=ut["ms_repeats"], plain_ms=ut["plain_ms"],
+        host_ms=ut["host_ms"], plain_host_ms=ut["plain_host_ms"],
+        bound_ms=ut["bound_ms"], bound_by=ut["bound_by"], library_ms=None,
+        rows=ut["rows"], segments=ut["segments"]))
     for e in entries:
         e["route"] = "cuda"
         e["source"], e["replaces"] = KERNELS[e["name"]]
@@ -4028,9 +4067,10 @@ def train_step_phase(params, aux, cam, net, cfg, dev) -> dict:
     launches, layouts = counts(), layout_counts()
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     assert launches == dict(compositor(n_steps), deform_mlp=0), launches
-    assert layouts == {"composite_fwd/4/0/1/1": n_steps,
-                       "composite_bwd/4/0/1/0": n_steps,
-                       "reduce_pair_grads/10": n_steps}, layouts
+    assert no_tail(layouts) == {"composite_fwd/4/0/1/1": n_steps,
+                                "composite_bwd/4/0/1/0": n_steps,
+                                "reduce_pair_grads/10": n_steps}, layouts
+    assert tail_counts(layouts) == dict.fromkeys(TAIL_KERNELS, n_steps)
     losses = [float(x) for x in losses]
     assert all(bool(f) for f in finite), "a step was skipped as non-finite"
     state = step.box["state"]
@@ -4073,7 +4113,8 @@ def train_step_phase(params, aux, cam, net, cfg, dev) -> dict:
         torch.autograd.grad([x.sum() for x in d], dp)
 
     split["deform_fwd_bwd_alone"] = cuda_ms(deform_fb, 5)
-    return {"steps": n_steps, "timed_steps": TRAIN_STEPS, "step_ms": step_ms,
+    tail = update_tail_check(params, aux, net, dev)
+    return {"steps": n_steps, "update_tail": tail, "timed_steps": TRAIN_STEPS, "step_ms": step_ms,
             "step_ms_initial_state": fixed_ms,
             "losses": losses, "launches": launches, "layouts": layouts,
             "stage_ms": split,
@@ -4235,6 +4276,94 @@ def smooth_bwd_check(dev) -> dict:
             "gathered_rows": int(sel.numel()), "transpose_ms": transpose_ms}
 
 
+def update_tail_check(params, aux, net, dev) -> dict:
+    """The update tail (csrc/update_tail.cu) at the GAUSSIAN step's
+    signature on the bench scene: the six fields with the alive rows' mask,
+    the deform net's 22 tensors, the densification statistics and the
+    guard over the features, their moments and the loss, Adam at step
+    TAIL_STEP, seeded gradients: every leaf and the flag equal to the plain
+    tail's (_update_plain) bit for bit, one tail launch and one commit a
+    call. The queued ms of a call (its two launches) beside the plain
+    tail's, each one's host ms (enqueued behind a sleep kernel, so no
+    launch waits for the device), and the bytes bound: each byte read
+    (param, gradient, moments and row mask of the Adam segments, the
+    densify inputs, the checked tensors) and written (param and moments,
+    the three statistics) once."""
+    from trase_tpu_torch.config import OptimizationParams
+    from trase_tpu_torch.engine import trainer as TT
+
+    state = train_state(params, aux, net)
+    state = state._replace(
+        opt=type(state.opt)(*(s._replace(step=torch.full_like(
+            s.step, TAIL_STEP)) for s in state.opt)),
+        deform_opt=[s._replace(step=torch.full_like(s.step, TAIL_STEP))
+                    for s in state.deform_opt])
+    g = torch.Generator(device=dev).manual_seed(29)
+    C = state.params.xyz.shape[0]
+
+    def rnd(shape, scale):
+        return scale * torch.randn(tuple(shape), generator=g, device=dev)
+
+    kw = dict(
+        lrs=TT.make_learning_rate_schedules(OptimizationParams())(TAIL_STEP),
+        grads={k: rnd(getattr(state.params, k).shape, TAIL_GRAD)
+               for k in TT.TRAINED},
+        row_mask=state.aux.alive, loss=torch.ones((), device=dev),
+        deform_grads=[rnd(t.shape, TAIL_DEFORM_GRAD) for t in state.deform],
+        densify=(rnd((C, 2), TAIL_GRAD),
+                 torch.rand(C, generator=g, device=dev) < TAIL_VISIBLE,
+                 torch.ceil(30 * torch.rand(C, generator=g, device=dev)),
+                 HEIGHT, WIDTH), guard_deform=True)
+
+    def fused():
+        return TT._update(state, **kw)
+
+    def plain():
+        return TT._update_plain(state, **kw)
+
+    before = tail_counts(layout_counts())
+    (new, finite), (ref, ref_finite) = fused(), plain()
+    after = tail_counts(layout_counts())
+    assert {k: after[k] - before[k] for k in TAIL_KERNELS} == dict.fromkeys(
+        TAIL_KERNELS, 1), (before, after)
+    assert bool(finite) and bool(ref_finite)
+    got, want = (_flat_state(TT.train_state_to_numpy(x)) for x in (new, ref))
+    differ = [k for k in want if got[k].tobytes() != want[k].tobytes()]
+    assert not differ, f"update tail differs from plain: {differ[:8]}"
+
+    def host_ms(fn, iters=TIMING_ITERS):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    fused_ms = repeated_ms({"fused": fused})["fused"]
+    plain_ms = repeated_ms({"plain": plain}, timer=lambda fn, _: queued_ms(
+        fn, 1))["plain"]
+    adam, stats, checks = TT.tail_segments(
+        state, kw["lrs"], kw["grads"], kw["row_mask"], kw["loss"],
+        deform_grads=kw["deform_grads"], densify=kw["densify"],
+        guard_deform=True)
+    n_adam = sum(a.param.numel() for a in adam)
+    moved = {"adam_read": 16 * n_adam, "adam_written": 12 * n_adam,
+             "row_mask": C, "densify_read": C * (8 + 1 + 1 + 4 + 12),
+             "densify_written": 12 * C,
+             "checked": 4 * sum(x.numel() for x in checks)}
+    return {"rows": C, "segments": {"adam": len(adam), "densify": 1,
+                                    "check": len(checks)},
+            "adam_floats": n_adam, "equal_to_plain": True,
+            "ms": fused_ms["median"], "ms_repeats": fused_ms,
+            "plain_ms": plain_ms["median"], "plain_ms_repeats": plain_ms,
+            "host_ms": host_ms(fused), "plain_host_ms": host_ms(plain, 1),
+            "bound_ms": sum(moved.values()) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": moved}
+
+
 def changed_fields(old, new) -> list:
     """Names of the state's tensors that differ between two states."""
     out = []
@@ -4290,7 +4419,9 @@ def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
         want = {"composite_fwd/32/16/0/1": n_steps,
                 f"composite_bwd/32/16/0/{int(not stats)}": n_steps,
                 "reduce_pair_grads/38": n_steps, "smooth_rows_bwd": n_steps}
-        assert layouts == want, (arm, layouts)
+        assert no_tail(layouts) == want, (arm, layouts)
+        assert tail_counts(layouts) == dict.fromkeys(TAIL_KERNELS,
+                                                     n_steps), arm
         metrics = first + ms
         assert all(bool(m["finite"]) for m in metrics), arm
         state = step.box["state"]

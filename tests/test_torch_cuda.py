@@ -864,12 +864,16 @@ def _style_case(device):
 @pytest.mark.cuda
 def test_style_step_kernels_match_plain_on_card():
     """One style step through the kernels (one launch each of the 4-value
-    forward with residuals, its backward and the 10-word reduce) against
-    the same step through their plain versions on the card: the loss bit
-    for bit (the forward is), the colours' Adam moments within 1e-3 of
-    their scale (the backward's 256-pixel sums associate differently), the
-    colours where the gradient is clearly nonzero within 1e-3; rows
-    outside the mask and every other field unchanged."""
+    forward with residuals, its backward, the 10-word reduce and the update
+    tail's two kernels over its 20 segments: 2 fields, densify, 17
+    checked) against the same step with the compositor's three kernels
+    through their plain versions on the card (both sides run the update
+    tail's kernels, which tests/test_torch_update_tail.py holds to the
+    plain tail): the loss bit for bit (the forward is), the colours' Adam
+    moments within 1e-3 of their scale (the backward's 256-pixel sums
+    associate differently), the colours where the gradient is clearly
+    nonzero within 1e-3; rows outside the mask and every other field
+    unchanged."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     state, step, rows = _style_case("cuda")
@@ -878,7 +882,9 @@ def test_style_step_kernels_match_plain_on_card():
     torch.cuda.synchronize()
     assert CL.LAYOUT_LAUNCHES == {("composite_fwd", 4, 0, True, True): 1,
                                    ("composite_bwd", 4, 0, True, False): 1,
-                                   ("reduce_pair_grads", 10): 1}
+                                   ("reduce_pair_grads", 10): 1,
+                                   ("update_tail", 20): 1,
+                                   ("update_commit",): 1}
     with _PlainKernels():
         ref, rm = step(state)
     assert bool(m["finite"]) and float(m["loss"]) == float(rm["loss"])

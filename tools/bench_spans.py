@@ -19,8 +19,10 @@ its spans wrapped from outside and the profiler's ATen ops):
   misses and bytes by path (bits or float32), the nnfm counter's calls
   by size (a style cell: its step's parts include ``.vgg``), the kernels'
   launches by instantiation (``layout_launches``; the smoothing backward's
-  per step) and the smoothing maps transposed, with the largest in-degree
-  seen (``smooth_map``);
+  per step; the update tail's ``update_tail.<segments>`` and
+  ``update_commit``) and the smoothing maps transposed, with the largest
+  in-degree seen (``smooth_map``), and the update tail's calls by path
+  (``update_tail``: fused and plain) with the fused share;
 - with --trace 1, the profiled stretch's idle device time put down to the
   innermost ``trase.`` span whose time covers each gap's middle
   (``idle_by_span``), the share of it inside ``trase.step``, and the idle
@@ -64,7 +66,8 @@ def parse_args(argv=None):
     return ap.parse_known_args(argv)
 
 
-COUNTERS = ("cache", "mask_fetch", "nnfm", "layout_launches", "smooth_map")
+COUNTERS = ("cache", "mask_fetch", "nnfm", "layout_launches", "smooth_map",
+            "update_tail")
 
 
 def _counter_delta(name: str, before: dict) -> dict:
@@ -74,7 +77,7 @@ def _counter_delta(name: str, before: dict) -> dict:
 
 
 def read_window(spans: list, cache: dict, mask_fetch: dict, nnfm: dict,
-                launches: dict, smooth_map: dict) -> dict:
+                launches: dict, smooth_map: dict, update_tail: dict) -> dict:
     """What the window's spans and the counters read (each counter's
     change over the window; the smooth_map counter's largest in-degree as
     it stands)."""
@@ -84,7 +87,8 @@ def read_window(spans: list, cache: dict, mask_fetch: dict, nnfm: dict,
     if biggest is not None:
         smooth_map["max_in_degree"] = biggest
     counters = {"cache": cache, "mask_fetch": mask_fetch, "nnfm": nnfm,
-                "layout_launches": launches, "smooth_map": smooth_map}
+                "layout_launches": launches, "smooth_map": smooth_map,
+                "update_tail": update_tail}
     if "trase.step" not in s or "trase.iteration" not in s:
         return {"spans": s, **counters}
     steps, its = s["trase.step"]["count"], s["trase.iteration"]["count"]
@@ -117,6 +121,10 @@ def read_window(spans: list, cache: dict, mask_fetch: dict, nnfm: dict,
                     s["trase.loop.fetch.upload"]["total_ms"] / miss)
     if "smooth_rows_bwd" in launches:
         out["smooth_rows_bwd_per_step"] = launches["smooth_rows_bwd"] / steps
+    calls = sum(update_tail.values())
+    if calls:
+        out["update_tail_fused_share"] = (100.0 * update_tail.get("fused", 0)
+                                          / calls)
     out.update(counters)
     out["spans"] = s
     return out

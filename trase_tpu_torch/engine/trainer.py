@@ -20,8 +20,10 @@ The state is a NamedTuple of tensors and the step is functional: it
 returns a new state and leaves its input alone. The three steps share
 their update tail (``_update``): Adam, the densification statistics and
 the NaN guard, which commits the leaves the step wrote only where the
-loss and the state's tensors are finite (a ``torch.where`` on a device
-flag, no host sync), so a non-finite step is one skipped step. The
+loss and the state's tensors are finite (on a device flag, no host
+sync), so a non-finite step is one skipped step. On a card the tail is
+two hand-written launches (ops/update_tail.py), elsewhere plain PyTorch
+(``_update_plain``, a ``torch.where`` a leaf). The
 deform net is a module whose weights live in the state as a list in
 flax order (Dense_i kernel in nn.Linear's (out, in) layout, then
 its bias); the step runs the module on them with
@@ -53,6 +55,7 @@ from ..losses.contrastive import (
 from ..losses.image_losses import l1_loss, ssim
 from ..models import gaussians as G
 from ..models.deform import DeformNetwork
+from ..ops import update_tail as UT
 from ..ops.rasterize import RasterConfig
 from ..renderer import RenderCamera, render
 from ..utils import trace
@@ -158,6 +161,10 @@ def _same(x):
     return x
 
 
+# _update's calls by path: ("fused",) on CUDA tensors, ("plain",) else
+UPDATE_TAIL: dict = trace.counter("update_tail")
+
+
 def _update(state: TrainState, lrs: LearningRates, grads: dict, row_mask,
             loss: torch.Tensor, agree: Callable = _same, *,
             deform_grads=None, densify=None, guard_deform: bool = False):
@@ -171,7 +178,23 @@ def _update(state: TrainState, lrs: LearningRates, grads: dict, row_mask,
     `guard_deform`, the deform tensors and their moments too), made the
     same on every rank by `agree`. Each leaf the step wrote is committed
     where it holds (on the device: no host sync); the others are the
-    input's own."""
+    input's own. CUDA tensors take the hand-written tail
+    (``_update_fused``), which equals ``_update_plain`` bit for bit;
+    counted in the counter ``update_tail`` under ("fused",) or
+    ("plain",)."""
+    fused = loss.is_cuda
+    trace.bump(UPDATE_TAIL, ("fused",) if fused else ("plain",))
+    return (_update_fused if fused else _update_plain)(
+        state, lrs, grads, row_mask, loss, agree, deform_grads=deform_grads,
+        densify=densify, guard_deform=guard_deform)
+
+
+def _update_plain(state: TrainState, lrs: LearningRates, grads: dict,
+                  row_mask, loss: torch.Tensor, agree: Callable = _same, *,
+                  deform_grads=None, densify=None,
+                  guard_deform: bool = False):
+    """_update in plain PyTorch: the CPU path, and the reference that
+    the fused tail is held to on the card."""
     p, aux, opt = state.params, state.aux, state.opt
     fields, moments = {}, {}
     for name, g in grads.items():
@@ -201,6 +224,65 @@ def _update(state: TrainState, lrs: LearningRates, grads: dict, row_mask,
         return parts if isinstance(n, list) else type(n)(*parts)
 
     return keep(new, state), finite
+
+
+def tail_segments(state: TrainState, lrs: LearningRates, grads: dict,
+                  row_mask, loss: torch.Tensor, *, deform_grads=None,
+                  densify=None, guard_deform: bool = False):
+    """_update's work as the fused tail's segments -> (Adam segments,
+    densify segment or None, the tensors only checked): the fields of
+    `grads` (rows outside `row_mask` frozen) and, given `deform_grads`,
+    the deform tensors; what the guard checks and the step does not
+    write, and the loss."""
+    p, aux, opt = state.params, state.aux, state.opt
+    masked = row_mask is not None
+    adam = [UT.AdamSegment(getattr(p, k), g.contiguous(), *getattr(opt, k),
+                           getattr(lrs, k), masked) for k, g in grads.items()]
+    if deform_grads is not None:
+        adam += [UT.AdamSegment(t, g.contiguous(), *s, lrs.deform, False)
+                 for t, g, s in zip(state.deform, deform_grads,
+                                    state.deform_opt)]
+    stats = None
+    if densify is not None:
+        g_off, visible, radii, h, w = densify
+        stats = UT.DensifySegment(g_off.contiguous(), visible, aux.alive,
+                                  radii, aux.xyz_gradient_accum, aux.denom,
+                                  aux.max_radii2d, h, w)
+    written = {id(x) for a in adam for x in (a.param, a.mu, a.nu)}
+    if stats is not None:
+        written |= {id(stats.accum), id(stats.denom), id(stats.max_radii2d)}
+    guarded = float_tensors(state if guard_deform else state._replace(
+        deform=[], deform_opt=[]))
+    checks = [x for x in guarded if id(x) not in written] + [loss.detach()]
+    return adam, stats, checks
+
+
+def _update_fused(state: TrainState, lrs: LearningRates, grads: dict,
+                  row_mask, loss: torch.Tensor, agree: Callable = _same, *,
+                  deform_grads=None, densify=None,
+                  guard_deform: bool = False):
+    """_update on the card: tail_segments' segments through the fused
+    tail (ops/update_tail.py), its flag agreed, then its commit."""
+    adam, stats, checks = tail_segments(
+        state, lrs, grads, row_mask, loss, deform_grads=deform_grads,
+        densify=densify, guard_deform=guard_deform)
+    tail = UT.update_tail(adam, stats, checks, row_mask)
+    finite = agree(tail.finite)
+    UT.update_commit(tail, finite)
+    p, opt = state.params, state.opt
+    n = len(grads)
+    params = [x for x, *_ in tail.adam]
+    moments = [AdamState(*s) for _, *s in tail.adam]
+    new = state._replace(
+        params=p._replace(**dict(zip(grads, params))),
+        opt=opt._replace(**dict(zip(grads, moments))))
+    if deform_grads is not None:
+        new = new._replace(deform=params[n:], deform_opt=moments[n:])
+    if stats is not None:
+        accum, denom, max_radii2d = tail.densify
+        new = new._replace(aux=state.aux._replace(
+            xyz_gradient_accum=accum, denom=denom, max_radii2d=max_radii2d))
+    return new, finite
 
 
 def feature_gram(feats_acc: torch.Tensor, sample: PixelSample, hm: int,

@@ -36,10 +36,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ``launch``: (kernel, n_val, n_packed, with_color, residuals or
 # values_only) for the compositor (ops/rasterize_cuda.py), (kernel, words)
 # for its reduce, ("deform_mlp",) for the fused deform MLP (ops/mlp_cuda.py),
-# ("mask_unpack",) for the mask stack's unpack (ops/mask_unpack.py) and
+# ("mask_unpack",) for the mask stack's unpack (ops/mask_unpack.py),
 # ("smooth_rows_bwd",) for the feature smoothing's backward (ops/knn.py,
-# both passes); a launch given a tile range (slab mode) adds "slab" to its
-# key. The port's counter "layout_launches" (utils/trace.py).
+# both passes) and ("update_tail", segments) and ("update_commit",) for the
+# training steps' update tail (ops/update_tail.py); a launch given a tile
+# range (slab mode) adds "slab" to its key. The port's counter "layout_launches" (utils/trace.py).
 LAYOUT_LAUNCHES: dict = trace.counter("layout_launches")
 
 # source name -> its loaded library; a tool times a variant build of a

@@ -26,9 +26,11 @@ instantiation, ops/cuda_lib.py), ``cache`` (``("gt" | "masks",
 "hit" | "miss")``, the training loop's device caches), ``mask_fetch``
 (engine/loop.py), ``smooth_map`` (``("transpose",)``: the smoothing maps
 transposed, the FEATURE steps' and each snapshot's; ``("max_in_degree",)``:
-the largest in-degree among them, ops/knn.py) and ``nnfm``
+the largest in-degree among them, ops/knn.py), ``nnfm``
 (``(N1, N2, C)``: the NNFM's calls by the render's and the style's column
-counts and the channels, losses/style.py).
+counts and the channels, losses/style.py) and ``update_tail``
+(``("fused",)`` | ``("plain",)``: the steps' update tails by path,
+engine/trainer.py).
 
 No span or counter synchronises the device or reads a device tensor.
 """
