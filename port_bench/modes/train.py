@@ -21,6 +21,18 @@ the first three steps from the same inputs (regenerated from the seed):
 the first step's loss, the first gradient of every trained leaf as the
 optimizer got it (Adam's first moment after one step over 1 - beta1) and
 each leaf's change after the three steps, by the worst leaf.
+
+A cell whose limits name the densification's numbers also has its
+checked steps' densification statistics compared (``densify_stats_gap``)
+and records the first densification round of its warm-up: the state the
+round started from and the one it returned, in host memory, and the
+split samples, which the harness draws from the round's own generator as
+the round would and hands to it. After the window the plain round
+(reference/densify.py) runs on the recorded input with the same samples
+and the configuration's thresholds (``densify_rows_gap``,
+``densify_gap``). That round starts from the program's own state after
+thousands of iterations, which no reference can reach; the checked steps
+check the step that made it.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ import numpy as np
 
 from port_bench import harness as HB
 from port_bench.counts import bounds as B
+from port_bench.reference import densify as RD
 from port_bench.reference import feature_step as RF
 from port_bench.reference import plain as P
 from port_bench.reference import train_step as RS
@@ -62,6 +75,12 @@ def leaf_names(n_weights: int, regime: str = "gaussian") -> list:
         return ["gaussian_features"]
     return list(RS.FIELDS) + [f"deform.{i // 2}.{'wb'[i % 2]}"
                               for i in range(n_weights)]
+
+
+def scene_extent(cfg: dict) -> float:
+    """The scene's extent as the loop reads it (cameras_extent): 1.1 x
+    the rig's radius."""
+    return float(cfg["rig"]["radius"]) * 1.1
 
 
 def mask_dir() -> str:
@@ -104,7 +123,7 @@ def build(torch, cfg: dict, traffic: dict, seed: int, dev):
     gp = G.GaussianParams(**params)
     scene = types.SimpleNamespace(
         gaussian_params=gp, gaussian_aux=aux, spatial_lr_scale=5.0,
-        cameras_extent=float(cfg["rig"]["radius"]) * 1.1,
+        cameras_extent=scene_extent(cfg),
         get_train_cameras=lambda: cams, get_test_cameras=lambda: [])
     ds = ModelParams(sh_degree=cfg["sh_degree"], model_path="",
                      is_blender=False, is_6dof=False)
@@ -118,6 +137,13 @@ def build(torch, cfg: dict, traffic: dict, seed: int, dev):
         raise RuntimeError(f"the port's deform MLP has shapes {shapes}, the "
                            "configuration's differ")
     trainer.state = T.init_train_state(gp, aux, weights)
+    for _ in range(int(traffic.get("table_doublings", 0))):
+        # the table as the loop's capacity check grows it (Trainer._densify)
+        st = trainer.state
+        p, aux, o = G.grow_capacity(st.params, st.aux, st.opt,
+                                    2 * st.params.xyz.shape[0])
+        trainer.state = st._replace(params=p, aux=aux, opt=o)
+        params, alive = p._asdict(), aux.alive
     trainer.active_sh_degree = cfg["sh_degree"]
     if feature:
         # a FEATURE block of the schedule, as a restored phase machine
@@ -200,10 +226,12 @@ def cache_hits(run, hits: list):
 
 def call_inputs(run, args, kwargs) -> dict:
     """What the loop chose for one step call: the view, its time (and the
-    GAUSSIAN step's time jitter), the pair budget and the SH degree."""
+    GAUSSIAN step's time jitter), the pair budget, the SH degree and
+    whether the deformation MLP is on."""
     c = {"view": run.index[id(args[1])],
          "K": int(kwargs["raster_cfg"].pairs_per_gaussian),
-         "sh_degree": int(kwargs["sh_degree"])}
+         "sh_degree": int(kwargs["sh_degree"]),
+         "use_deform": bool(kwargs["use_deform"])}
     if run.regime == "feature":
         c.update(fid=float(args[4]), ast=0.0)
     else:
@@ -247,10 +275,11 @@ def trained(run, state) -> list:
 def checked_steps(torch, run, first_iter: int):
     """Drive the trainer through its first CHECKED_STEPS steps by
     ``train``, its caches filled first; returns the calls' inputs, the
-    program's readings and which steps found their view cached."""
+    program's readings (with the norms of its densification statistics
+    after the last) and which steps found their view cached."""
     tr = run.trainer
     fill_caches(run)
-    calls, losses, first, change, hits = [], [], {}, {}, []
+    calls, losses, first, change, hits, stats = [], [], {}, {}, [], {}
     names = leaf_names(len(run.weights), run.regime)
     start = ([run.params["gaussian_features"]] if run.regime == "feature"
              else [run.params[k] for k in RS.FIELDS] + run.weights)
@@ -264,34 +293,94 @@ def checked_steps(torch, run, first_iter: int):
         if it == first_iter + CHECKED_STEPS:
             change.update({n: _norm(a - b)
                            for n, a, b in zip(names, leaves, start)})
+            stats.update({k: _norm(getattr(trainer.state.aux, k))
+                          for k in RD.STATS})
 
     with recording(run, calls), cache_hits(run, hits):
         tr.opt.iterations = first_iter + CHECKED_STEPS
         tr.train(first_iter=first_iter, progress=False,
                  on_iteration=on_iteration)
     return {"calls": calls, "losses": [float(x) for x in losses],
-            "first": first, "change": change, "skipped": int(tr.skipped),
-            "cache_hits": hits}
+            "first": first, "change": change, "stats": stats,
+            "skipped": int(tr.skipped), "cache_hits": hits}
 
 
-def warm_up(run, first_iter: int, iterations: int):
+def host_state(state) -> dict:
+    """A TrainState's gaussian table, statistics and Adam moments, copied
+    to host memory, by field name."""
+    return {"params": {k: v.cpu() for k, v in state.params._asdict().items()},
+            "aux": {k: v.cpu() for k, v in state.aux._asdict().items()},
+            "moments": {k: (s.mu.cpu(), s.nu.cpu())
+                        for k, s in state.opt._asdict().items()}}
+
+
+@contextlib.contextmanager
+def densify_recording(run, record: dict, seen: list):
+    """Record in `record` the first densification round of the block
+    (``densify_step``, as the loop's ``_densify`` calls it): its iteration
+    (the one after seen[0]), the state it started from and the one it
+    returned, in host memory, and its split samples. The samples are drawn
+    here from the round's own generator, in the shape the round draws, and
+    handed to it: the generator gives the numbers it would have given
+    inside the round."""
+    import torch
+    from trase_tpu_torch.models import gaussians as G
+
+    T = run.T
+    fn = T.densify_step
+
+    def step(state, scene_extent, max_screen_size, *, cfg, max_new,
+             generator=None, samples=None):
+        if "after" in record:
+            return fn(state, scene_extent, max_screen_size, cfg=cfg,
+                      max_new=max_new, generator=generator, samples=samples)
+        if samples is None:
+            shape = G.split_sample_shape(state.params.xyz.shape[0], max_new,
+                                         cfg)
+            samples = torch.randn(shape, generator=generator,
+                                  device=generator.device).to(
+                                      state.params.xyz.device)
+        record.update(iteration=seen[0] + 1, before=host_state(state),
+                      samples=samples.cpu())
+        new, stats = fn(state, scene_extent, max_screen_size, cfg=cfg,
+                        max_new=max_new, generator=generator, samples=samples)
+        record.update(after=host_state(new),
+                      stats={k: int(v) for k, v in stats.items()})
+        return new, stats
+
+    T.densify_step = step
+    try:
+        yield
+    finally:
+        T.densify_step = fn
+
+
+def warm_up(run, first_iter: int, iterations: int,
+            densify: dict | None = None):
     """Iterations past the checked ones, the port's own pair-budget
     controller consulted after each (its checks otherwise come every 100
-    iterations), so that K is settled before the window."""
+    iterations), so that K is settled before the window; with `densify`,
+    the block's first densification round recorded in it."""
     tr = run.trainer
+    seen = [first_iter]
 
     def settle(trainer, it, metrics):
+        seen[0] = it
         trainer._handle_overflow(it, float(metrics["overflow"]),
                                  float(metrics["overflow_half"]))
 
     tr.opt.iterations = first_iter + iterations
-    tr.train(first_iter=first_iter, progress=False, on_iteration=settle)
+    with (densify_recording(run, densify, seen) if densify is not None
+          else contextlib.nullcontext()):
+        tr.train(first_iter=first_iter, progress=False, on_iteration=settle)
     return first_iter + iterations
 
 
-def window(torch, run, first_iter: int, seconds: float):
-    """``train`` until `seconds` have passed; returns (iterations,
-    seconds, per-iteration host intervals)."""
+def window(torch, run, first_iter: int, seconds: float,
+           last: int | None = None):
+    """``train`` until `seconds` have passed, or through iteration `last`
+    where that comes first; returns (iterations, seconds, per-iteration
+    host intervals)."""
     tr = run.trainer
     stamps = []
     t0 = time.perf_counter()
@@ -299,7 +388,7 @@ def window(torch, run, first_iter: int, seconds: float):
     def on_iteration(trainer, it, metrics):
         now = time.perf_counter()
         stamps.append((it, now))
-        if now - t0 >= seconds:
+        if now - t0 >= seconds or it == last:
             raise _Stop
 
     tr.opt.iterations = 1 << 40
@@ -316,12 +405,13 @@ def window(torch, run, first_iter: int, seconds: float):
 
 def stretch(torch, run, first_iter: int, n: int, trace_dir: str):
     """n iterations under the profiler; returns the profile and each
-    call's inputs with the state it started from."""
+    call's inputs with the state it started from and its live rows."""
     tr = run.trainer
     st = tr.state
     state = {k: getattr(st.params, k).clone()
              for k in RS.FIELDS + ("gaussian_features",)}
     weights = [w.clone() for w in st.deform]
+    alive = st.aux.alive.clone()
     calls = []
 
     def go():
@@ -330,7 +420,7 @@ def stretch(torch, run, first_iter: int, n: int, trace_dir: str):
 
     with recording(run, calls):
         prof = HB.profile_stretch(torch, go, trace_dir, run.dev)
-    return prof, calls, state, weights
+    return prof, calls, state, weights, alive
 
 
 def count_work(torch, cfg: dict, run, calls: list, state: dict, weights: list,
@@ -340,7 +430,7 @@ def count_work(torch, cfg: dict, run, calls: list, state: dict, weights: list,
     GAUSSIAN composites rgb + depth (4 values) and differentiates it all;
     FEATURE composites the 32 features packed two to a word and
     differentiates the values alone, and adds the sampled pixels' gram
-    and correspondence products."""
+    and correspondence products; the deform MLP's where the step ran it."""
     dev = run.dev
     dcfg = cfg["deform"]
     H, W = cfg["image_height"], cfg["image_width"]
@@ -358,10 +448,13 @@ def count_work(torch, cfg: dict, run, calls: list, state: dict, weights: list,
             view = P.View(P.world_view_matrix(v["R"], v["T"]), v["fovx"],
                           v["fovy"], H, W, dev)
             n = state["xyz"].shape[0]
-            t = torch.full((n, 1), c["fid"], device=dev) + c["ast"]
-            d = P.deform_mlp(weights, state["xyz"], t, dcfg["D"],
-                             dcfg["multires"], dcfg["t_multires"],
-                             hidden_dtype=torch.bfloat16)
+            deform = c.get("use_deform", True)
+            d = (0.0, 0.0, 0.0)
+            if deform:
+                t = torch.full((n, 1), c["fid"], device=dev) + c["ast"]
+                d = P.deform_mlp(weights, state["xyz"], t, dcfg["D"],
+                                 dcfg["multires"], dcfg["t_multires"],
+                                 hidden_dtype=torch.bfloat16)
             g = P.deformed_gaussians(state, alive, *d)
             proj = P.project(view, *g, sh_degree=c["sh_degree"])
             bins = P.bin_pairs(proj, H, W, c["K"])
@@ -377,8 +470,10 @@ def count_work(torch, cfg: dict, run, calls: list, state: dict, weights: list,
                   f"{int(proj['valid'].sum())}", file=sys.stderr)
             fwd_ms.append(B.bound("", fb, fo)["bound_ms"])
             bwd_ms.append(B.bound("", bb, bo)["bound_ms"])
-            bf16_flops += passes * 2 * n_alive * B.mlp_hidden_macs(in_dim)
-            f32_flops += passes * 2 * n_alive * 256 * 10 + fo + bo
+            if deform:
+                bf16_flops += passes * 2 * n_alive * B.mlp_hidden_macs(in_dim)
+            heads = passes * 2 * n_alive * 256 * 10 if deform else 0
+            f32_flops += heads + fo + bo
             if feature:
                 p_ = int(cfg["recipe"]["num_sampled_pixels"])
                 f32_flops += 2.0 * p_ * p_ * (n_val + cfg["masks"]["per_view"])
@@ -391,12 +486,17 @@ def count_work(torch, cfg: dict, run, calls: list, state: dict, weights: list,
 
 
 def reference_readings(torch, cfg: dict, seed: int, prog: dict, dev,
-                       dtype=None, fault: str | None = None) -> dict:
+                       dtype=None, fault: str | None = None,
+                       with_stats: bool = False) -> dict:
     """Follow the program's first steps with the reference (regenerated
-    inputs) and read the gaps."""
+    inputs) and read the gaps; `with_stats`: the densification
+    statistics' too."""
     ref = reference_run(torch, cfg, seed, prog["calls"], dev,
                         dtype or torch.float32, fault)
-    return compare(prog, ref)
+    got = compare(prog, ref)
+    if with_stats:
+        got["readings"]["densify_stats_gap"] = stats_gap(prog, ref)
+    return got
 
 
 def reference_run(torch, cfg: dict, seed: int, calls: list, dev, dtype,
@@ -432,15 +532,89 @@ def reference_run(torch, cfg: dict, seed: int, calls: list, dev, dtype,
         first, now, start = [g], [f], [params["gaussian_features"]]
     else:
         bg = torch.zeros(3, device=dev)
-        losses, (gf, gw), (p, w) = RS.run_steps(
+        losses, (gf, gw), (p, w), stats = RS.run_steps(
             params, alive, weights, steps, cfg["deform"], cfg["recipe"], bg,
             dtype, fault)
         first = [gf[k] for k in RS.FIELDS] + gw
         now = [p[k] for k in RS.FIELDS] + w
         start = [params[k] for k in RS.FIELDS] + weights
-    return {"losses": losses,
-            "first": {n: _norm(g) for n, g in zip(names, first)},
-            "change": {n: _norm(a - b) for n, a, b in zip(names, now, start)}}
+    out = {"losses": losses,
+           "first": {n: _norm(g) for n, g in zip(names, first)},
+           "change": {n: _norm(a - b) for n, a, b in zip(names, now, start)}}
+    if not feature:
+        out["stats"] = {k: _norm(v) for k, v in stats.items()}
+    return out
+
+
+def stats_gap(prog: dict, ref: dict) -> float:
+    """densify_stats_gap: by the worst of the three statistics after the
+    checked steps, |norm of the program's - the reference's| over the
+    reference's."""
+    if not prog.get("stats") or not ref.get("stats"):
+        return math.inf
+    return max(abs(prog["stats"][k] - ref["stats"][k])
+               / max(ref["stats"][k], 1e-30) for k in RD.STATS)
+
+
+def densify_inputs(cfg: dict, traffic: dict, record: dict) -> dict:
+    """The recorded round's settings: the recipe's thresholds, the
+    method's constants and the loop's budget as the traffic states them,
+    and the screen-size limit from the first opacity reset on."""
+    recipe, d = cfg["recipe"], traffic["densify"]
+    after_reset = record["iteration"] > recipe["opacity_reset_interval"]
+    return {"extent": scene_extent(cfg),
+            "max_screen_size": float(d["size_threshold"]) if after_reset
+            else 0.0,
+            "grad_threshold": float(recipe["densify_grad_threshold"]),
+            "percent_dense": float(recipe["percent_dense"]),
+            "min_opacity": float(d["min_opacity"]),
+            "split_n": int(d["split_n"]), "max_new": int(d["max_new"])}
+
+
+def on_device(tree, dev):
+    """A recorded state (nested dicts and tuples of tensors) on `dev`."""
+    if isinstance(tree, dict):
+        return {k: on_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(on_device(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def plain_round(torch, cfg: dict, traffic: dict, record: dict, dev,
+                dtype=None, fault: str | None = None) -> dict:
+    """The reference's round on the recorded input and samples; `dtype`
+    its arithmetic's precision (the control), `fault` one planted in it:
+    ``threshold_halved`` (the gradient threshold halved) or
+    ``prune_skipped`` (nothing pruned)."""
+    kw = densify_inputs(cfg, traffic, record)
+    if fault == "threshold_halved":
+        kw["grad_threshold"] /= 2.0
+    elif fault == "prune_skipped":
+        kw.update(min_opacity=0.0, max_screen_size=0.0)
+    before = on_device(record["before"], dev)
+    return RD.densify_round(before["params"], before["aux"],
+                            before["moments"],
+                            samples=record["samples"].to(dev),
+                            dtype=dtype or torch.float32, **kw)
+
+
+def densify_readings(torch, cfg: dict, traffic: dict, record: dict,
+                     dev) -> dict:
+    """The recorded round against the reference's: densify_rows_gap and
+    densify_gap (inf where no round was recorded)."""
+    if "after" not in record:
+        return {"readings": {"densify_rows_gap": math.inf,
+                             "densify_gap": math.inf},
+                "detail": {"round": "none recorded in the warm-up"}}
+    ref = plain_round(torch, cfg, traffic, record, dev)
+    got = RD.compare(on_device(record["after"], dev), ref,
+                     on_device(record["before"], dev))
+    return {"readings": got["readings"],
+            "detail": {"iteration": record["iteration"],
+                       "rows": int(record["before"]["aux"]["alive"].shape[0]),
+                       "reference": ref["counts"],
+                       "program": record["stats"],
+                       "worst": got["worst"]}}
 
 
 def compare(prog: dict, ref: dict) -> dict:
@@ -468,6 +642,42 @@ def compare(prog: dict, ref: dict) -> dict:
             "skipped_leaves": skip}
 
 
+@contextlib.contextmanager
+def kept_rounds(tr, rounds: list):
+    """Keep each densification round's iteration and counts in `rounds`
+    (the counts stay on the device until they are read)."""
+    fn = tr._densify
+
+    def densify(iteration):
+        stats = fn(iteration)
+        rounds.append((iteration, stats))
+        return stats
+
+    tr._densify = densify
+    try:
+        yield
+    finally:
+        del tr._densify
+
+
+def round_counts(rounds: list) -> list:
+    """[iteration, clones, splits, pruned, live rows after] a round."""
+    return [[i] + [int(s[k]) for k in ("n_clone", "n_split", "n_pruned",
+                                        "n_alive")] for i, s in rounds]
+
+
+def schedule(recipe: dict, start: int, end: int) -> dict:
+    """The densification rounds and opacity resets the loop's schedule
+    puts after iteration `start`, up to `end` (train.py:361-373)."""
+    its = range(start + 1, end + 1)
+    until = recipe["densify_until_iter"]
+    return {"densify_rounds": sum(
+        1 for i in its if recipe["densify_from_iter"] < i < until
+        and i % recipe["densification_interval"] == 0),
+        "opacity_resets": [i for i in its if i < until
+                           and i % recipe["opacity_reset_interval"] == 0]}
+
+
 def run(torch, ctx) -> dict:
     """One run of a training cell; returns the result and the check."""
     cfg, traffic, args = ctx.cfg, ctx.traffic, ctx.args
@@ -479,6 +689,8 @@ def run(torch, ctx) -> dict:
         marks.append(time.perf_counter())
         memory.append(HB.memory_gb(torch, ctx.device))
 
+    limits = ctx.workload["limits"]
+    record = {} if "densify_rows_gap" in limits else None
     run_ = build(torch, cfg, traffic, args.seed, ctx.device)
     mark()
     prog = checked_steps(torch, run_, first_iter)
@@ -487,7 +699,7 @@ def run(torch, ctx) -> dict:
     run_.params = run_.weights = None
     # the pair budget settles, and the caches turn over as in a long run
     it = warm_up(run_, it, int(traffic.get("warm_up_iterations",
-                                           len(run_.views))))
+                                           len(run_.views))), record)
     mark()
     setup_s = marks[-1] - ctx.t_start
     print("[port_bench] set-up: start {:.3f}, build {:.3f}, caches and "
@@ -498,23 +710,33 @@ def run(torch, ctx) -> dict:
     n_traced = int(traffic["traced_iterations"])
     before = bool(traffic.get("profile_before_window", False))
     if args.trace and before:
-        prof, calls, state, weights = stretch(torch, run_, it, n_traced,
-                                              ctx.trace_dir)
+        prof, calls, state, weights, alive = stretch(torch, run_, it,
+                                                     n_traced, ctx.trace_dir)
         it += n_traced
     skipped0 = int(tr.skipped)
 
-    spans = HB.Spans()
-    if args.trace:
-        spans.wrap(run_.T, run_.step_name, "step")
-    n_it, dt, intervals = window(torch, run_, it, args.seconds)
-    it += n_it
+    spans, rounds = HB.Spans(), []
+    capacity0 = tr.state.params.xyz.shape[0]
+    with kept_rounds(tr, rounds):
+        if args.trace:
+            spans.wrap(run_.T, run_.step_name, "step")
+            spans.wrap(tr, "_densify", "densify")
+        n_it, dt, intervals = window(torch, run_, it, args.seconds,
+                                     traffic.get("last_iteration"))
+        spans.restore()
     HB.report_rates(np.cumsum(intervals), dt, "iterations")
-    spans.restore()
     failed = int(tr.skipped) - skipped0
+    in_window = schedule(cfg["recipe"], it, it + n_it)
+    in_window.update(last_iteration=it + n_it,
+                     capacity=[capacity0, tr.state.params.xyz.shape[0]],
+                     alive_at_end=int(tr.state.aux.alive.sum()),
+                     rounds=round_counts(rounds))
+    print(f"[port_bench] in the window: {in_window}", file=sys.stderr)
+    it += n_it
     measure = None
     if args.trace and not before:
-        prof, calls, state, weights = stretch(torch, run_, it, n_traced,
-                                              ctx.trace_dir)
+        prof, calls, state, weights, alive = stretch(torch, run_, it,
+                                                     n_traced, ctx.trace_dir)
     device = HB.device_record(torch, ctx.device)
     print(f"[port_bench] device GB (held, peak) after the window: "
           f"{HB.memory_gb(torch, ctx.device)}", file=sys.stderr)
@@ -525,15 +747,15 @@ def run(torch, ctx) -> dict:
                 print(f"[port_bench] launches of {n[:60]}: "
                       f"{[round(d * 1e3, 4) for d in ds]} ms",
                       file=sys.stderr)
-        work = count_work(torch, cfg, run_, calls, state, weights,
-                          run_.alive)
+        work = count_work(torch, cfg, run_, calls, state, weights, alive)
         measure = {"iteration_s": intervals,
                    "step_s": spans.durations.get("step", []),
+                   "densify_s": spans.durations.get("densify", []),
                    "window_iterations": n_it, "window_s": dt,
                    "profile": reading, "work": work,
                    "stretch_iterations": len(calls)}
         device.update(busy_s=reading["busy_s"], window_s=reading["window_s"])
-        del state, weights, calls
+        del state, weights, alive, calls
     del run_, tr
     shutil.rmtree(mask_dir(), ignore_errors=True)
     gc.collect()
@@ -541,7 +763,13 @@ def run(torch, ctx) -> dict:
 
     cfg = dict(cfg, _traffic=traffic)
     t_check = time.perf_counter()
-    got = reference_readings(torch, cfg, args.seed, prog, ctx.device)
+    got = reference_readings(torch, cfg, args.seed, prog, ctx.device,
+                             with_stats="densify_stats_gap" in limits)
+    if record is not None:
+        rounds = densify_readings(torch, cfg, traffic, record, ctx.device)
+        got["readings"].update(rounds["readings"])
+        got["worst"]["densify"] = rounds["detail"]
+        del record
     HB.sync(torch, ctx.device)
     if prog["skipped"]:
         got["readings"]["loss_gap"] = math.inf
@@ -553,7 +781,8 @@ def run(torch, ctx) -> dict:
                          "skipped_leaves": got["skipped_leaves"],
                          "program_losses": prog["losses"],
                          "checked_cache_hits": prog["cache_hits"],
-                         "K": [c["K"] for c in prog["calls"]]}}
+                         "K": [c["K"] for c in prog["calls"]],
+                         "window": in_window}}
     if measure is not None:
         result["breakdown"] = {"device_ops": reading["device_ops"],
                                "idle_gaps": reading["idle_gaps"]}

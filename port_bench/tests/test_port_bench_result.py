@@ -172,7 +172,8 @@ def test_feature_check_fails_on_each_fault(fault, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("workload", ["hypernerf-train-gaussian",
-                                      "n3v-train-feature"])
+                                      "n3v-train-feature",
+                                      "n3v-train-densify"])
 def test_train_control_fails(workload, tmp_path, monkeypatch):
     """The reference in bfloat16, in the program's place, against the
     reference in float32."""
