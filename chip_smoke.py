@@ -253,7 +253,20 @@ JSON line per phase:
                 fused deform), of the viewer's Render mode, and a few steps
                 of phase 6, of each FEATURE arm and of the style step:
                 device busy time by kernel and the idle share;
-9. kernels      one object per kernel: launches, error against the plain
+9. project      the projection kernels (csrc/project.cu) at 131072 and
+                524288 rows of the bench camera, SH degree 3: the forward
+                bit for bit the plain version's (the colour's differing
+                elements counted), colour and gradients within 1e-6 of
+                their scale, one launch each
+                way; each kernel's queued ms and bytes bound, both paths'
+                queued and host ms, forward and under autograd (every
+                projection on the card, each render of every path, the
+                viewer's composite frames and the synthetic writer's
+                ground truth included, launches project_fwd once, and
+                project_bwd once when its geometry or colour is
+                differentiated, as in a GAUSSIAN or style step, not a
+                FEATURE step: asserted in every path);
+   kernels      one object per kernel: launches, error against the plain
                 version, times and the bound, with one variant per
                 instantiation a path launches; the mask unpack's launches
                 are the mask-io phase's training runs'.
@@ -352,6 +365,8 @@ KERNELS = {
     "mask_unpack": ("trase_tpu_torch/csrc/mask_unpack.cu", "none"),
     "smooth_rows_bwd": ("trase_tpu_torch/csrc/smooth_rows_bwd.cu", "none"),
     "update_tail": ("trase_tpu_torch/csrc/update_tail.cu", "none"),
+    "project": ("trase_tpu_torch/csrc/project.cu",
+                "none: XLA fuses trase_tpu/ops/projection.py"),
 }
 # k-means at scale: the bench scene's features, the cluster CLI's k
 KMEANS_K, KMEANS_ITERS = 64, 50
@@ -432,6 +447,15 @@ MASK_LOOP_SIZE, MASK_LOOP_FEATURE = 256, 16
 # others in a path's layouts (tail_counts): every training step launches
 # each once
 TAIL_KERNELS = ("update_tail", "update_commit")
+# the projection's kernels (csrc/project.cu), counted apart too
+# (projections): a render launches the forward once, and the backward once
+# when its geometry or colour is differentiated (a GAUSSIAN step's, not a
+# FEATURE step's)
+PROJECT_KERNELS = ("project_fwd", "project_bwd")
+# the projection kernels against their plain version at the bench scene's
+# capacity and at n3v-train-densify's grown table; the contract's share of
+# the colour's and each gradient's scale
+PROJECT_ROWS, PROJECT_TOL = (131072, 524288), 1e-6
 # the update tail at the GAUSSIAN step's signature: the Adam step count,
 # the screen-gradient and deform-gradient scales, the share of rows seen
 TAIL_STEP, TAIL_GRAD, TAIL_DEFORM_GRAD, TAIL_VISIBLE = 9000, 1e-3, 1e-2, 0.6
@@ -1361,14 +1385,14 @@ def compare_mlp(label, net, xyz, t, timed, parent=None):
 
 def counts():
     """The launches since reset_counts by kernel; the mask unpack's and
-    the smoothing backward's only where they ran; the update tail's apart
-    (tail_counts)."""
+    the smoothing backward's only where they ran; the update tail's and
+    the projection's apart (tail_counts, projections)."""
     from trase_tpu_torch.ops import cuda_lib as CL
 
     totals = dict.fromkeys(("composite_fwd", "composite_bwd",
                             "reduce_pair_grads", "deform_mlp"), 0)
     for key, n in CL.LAYOUT_LAUNCHES.items():
-        if key[0] not in TAIL_KERNELS:
+        if key[0] not in TAIL_KERNELS + PROJECT_KERNELS:
             totals[key[0]] = totals.get(key[0], 0) + n
     return totals
 
@@ -1381,9 +1405,52 @@ def tail_counts(layouts: dict) -> dict:
 
 
 def no_tail(layouts: dict) -> dict:
-    """A path's layouts without the update tail's launches."""
+    """A path's layouts without the update tail's and the projection's
+    launches."""
     return {k: n for k, n in layouts.items()
-            if k.split("/")[0] not in TAIL_KERNELS}
+            if k.split("/")[0] not in TAIL_KERNELS + PROJECT_KERNELS}
+
+
+def projections(layouts: dict, renders=None, differentiated=None) -> dict:
+    """A path's projection launches (layout_counts' keys), by kernel; with
+    `renders`, asserted to be one forward a render and one backward a
+    render whose geometry or colour is differentiated."""
+    got = {k: layouts.get(k, 0) for k in PROJECT_KERNELS}
+    if renders is not None:
+        want = dict(zip(PROJECT_KERNELS, (renders, differentiated)))
+        assert got == want, (got, want)
+    return got
+
+
+# project_cuda.project's calls on CUDA tensors since reset_counts (one a
+# render, or a synthetic ground-truth frame), counted once
+# count_project_calls has wrapped it
+PROJECT_CALLS = [0]
+
+
+def count_project_calls():
+    """Wrap project_cuda.project for the rest of the run so that its calls
+    on CUDA tensors are counted in PROJECT_CALLS (per_render reads them)."""
+    import trase_tpu_torch.ops.project_cuda as PC
+
+    project = PC.project
+
+    def counted(means3d, *a, **kw):
+        PROJECT_CALLS[0] += means3d.device.type == "cuda"
+        return project(means3d, *a, **kw)
+
+    PC.project = counted
+
+
+def per_render(layouts: dict) -> dict:
+    """projections asserted for a path that count_project_calls has
+    counted, read where `layouts` is read: one forward a call, one backward
+    a composite backward with colour (a GAUSSIAN or style step's, whose
+    projection is differentiated; a FEATURE step composites no colour)."""
+    differentiated = sum(n for k, n in layouts.items()
+                         if k.split("/")[0] == "composite_bwd"
+                         and k.split("/")[3] == "1")
+    return projections(layouts, PROJECT_CALLS[0], differentiated)
 
 
 def compositor(n):
@@ -1411,6 +1478,7 @@ def reset_counts():
     from trase_tpu_torch.ops import cuda_lib as CL
 
     CL.LAYOUT_LAUNCHES.clear()
+    PROJECT_CALLS[0] = 0
 
 
 class StageTimer:
@@ -1425,6 +1493,7 @@ class StageTimer:
     def __init__(self, feature=False, style=False):
         import trase_tpu_torch.engine.trainer as TT
         import trase_tpu_torch.losses.style as LS
+        import trase_tpu_torch.ops.project_cuda as PC
         import trase_tpu_torch.ops.rasterize_cuda as RC
         import trase_tpu_torch.renderer as RR
 
@@ -1448,7 +1517,7 @@ class StageTimer:
             loss = [(TT, "l1_loss", "loss"), (TT, "ssim", "loss")]
             head = [(TT, "apply_deform", "deform_fwd")]
         self.patches = head + [
-            (RR, "project_gaussians", "project"),
+            (PC, "project", "project"),
             (RC, "composite_inputs", "bin_payload"),
         ] + loss + [
             (RC, "composite_bwd", "composite_bwd"),
@@ -1605,7 +1674,7 @@ def viewer_phase(params, aux, n, net, dev, root, seg_dir, seg_it):
     reset_counts()
     modes = {}
     for mode in MODES:
-        before = counts()
+        before, projected_before = counts(), projections(layout_counts())
         ms = []
         for i in range(VIEWER_WARMUP + VIEWER_FRAMES):
             img = v.render_frame(mode)
@@ -1619,6 +1688,10 @@ def viewer_phase(params, aux, n, net, dev, root, seg_dir, seg_it):
         # frame for its deformation too, as trase_tpu's viewer does
         assert per == dict(composite_fwd=frames, composite_bwd=0,
                            reduce_pair_grads=0, deform_mlp=0), (mode, per)
+        proj_launch = frame_launches(projected_before,
+                                     projections(layout_counts()))
+        assert proj_launch == dict(project_fwd=frames, project_bwd=0), \
+            (mode, proj_launch)
         modes[mode] = {"frame_ms": float(np.mean(ms)), "frame_ms_all": ms,
                        "fps": 1000.0 / float(np.mean(ms)),
                        "composite_fwd_per_frame": per["composite_fwd"]
@@ -1661,12 +1734,16 @@ def viewer_phase(params, aux, n, net, dev, root, seg_dir, seg_it):
     assert n_obj == selected, (n_obj, selected)
     edit = dict(scales_bias=0.8, motion_bias=(1.5, 0.0, 0.0),
                 rotation_bias=(0.0, 0.5, 0.0))
-    before = counts()
+    before, projected_before = counts(), projections(layout_counts())
     with KernelCapture() as cap:
         comp = v.render_composite_frame(**edit)
     comp_launch = frame_launches(before, counts())
     assert comp_launch == dict(composite_fwd=1, composite_bwd=0,
                                reduce_pair_grads=0, deform_mlp=0), comp_launch
+    comp_projected = frame_launches(projected_before,
+                                    projections(layout_counts()))
+    assert comp_projected == dict(project_fwd=1, project_bwd=0), \
+        comp_projected
     row["composite_vs_plain"] = cap.plain_err()
     assert row["composite_vs_plain"] <= FWD_TOL, row["composite_vs_plain"]
     assert comp.shape == (3, HEIGHT, WIDTH) and np.isfinite(comp).all()
@@ -1708,6 +1785,7 @@ def viewer_phase(params, aux, n, net, dev, root, seg_dir, seg_it):
     v.clear_selection()
     aim(v)
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
 
     row["card_vs_cpu"] = viewer_card_vs_cpu(seg_dir, seg_it, dev)
     return row, v, launches, layouts
@@ -1853,7 +1931,9 @@ def viewer_web_phase(v, click_pixel):
     finally:
         srv.shutdown()
     assert srv._httpd is None
-    return row, counts(), layout_counts()
+    layouts = layout_counts()
+    per_render(layouts)
+    return row, counts(), layouts
 
 
 def mask_unpack_check(dev) -> dict:
@@ -2060,7 +2140,9 @@ def mask_io_phase(root, dev):
         "feature_steps"], loops
     row["loop"] = dict(loops, mask_size=f"{MASK_SIZES[0][0]}x"
                        f"{MASK_SIZES[0][1]}", image_size=MASK_LOOP_SIZE)
-    return row, counts(), layout_counts()
+    layouts = layout_counts()
+    per_render(layouts)
+    return row, counts(), layouts
 
 
 class PlainKernels:
@@ -2299,6 +2381,7 @@ def style_phase(params, aux, cam, net, cfg, dev):
                                 "composite_bwd/4/0/1/0": n_steps,
                                 "reduce_pair_grads/10": n_steps}, layouts
     assert tail_counts(layouts) == dict.fromkeys(TAIL_KERNELS, n_steps)
+    projections(layouts, n_steps, n_steps)
     losses = [float(x) for x in losses]
     assert all(bool(f) for f in finite), "a style step was skipped"
     assert losses[-1] < losses[0], losses
@@ -2409,6 +2492,7 @@ def style_cli_phase(root, src, seg, it, sid, n_train, n_test, dev):
         TT.style_phase_step = step
     seconds = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
     assert launches == dict(compositor(STYLE_CLI_ITERATIONS),
                             deform_mlp=0), launches
     assert np.isfinite(trainer.ema_loss), trainer.ema_loss
@@ -2470,6 +2554,7 @@ def lpips_phase(root, seg, bench, it, dev):
             per_view = json.load(f)[f"ours_{it}"]["LPIPS"]
         assert per_view and all(np.isfinite(v) for v in per_view.values())
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
     assert launches == dict(compositor(0), deform_mlp=0), launches
     got, want = out[f"lpips_{dev.type}"], out["lpips_cpu"]
     assert np.isfinite(got) and got > 0, got
@@ -2871,6 +2956,7 @@ def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
         got_g = peak_of(sharded_g, peak, "gaussian_sharded")
         got_f = peak_of(sharded_f, peak, "feature_sharded")
         step_launches = layout_counts()
+        projections(step_launches, 2, 1)
         ms["gaussian_sharded"] = cuda_ms(sharded_g, 5)
         ms["feature_sharded"] = cuda_ms(sharded_f, 5)
         prof = {"gaussian": profile_frames(sharded_g, frames=3),
@@ -2919,6 +3005,7 @@ def mesh_phase(params, aux, cam, net, cfg, dev, root, src):
         tr = peak_of(lambda: train_cli.main(flags + ["-m", mdl, "--mesh",
                                                      "1"]), peak, "cli_mesh1")
         launches, layouts = counts(), layout_counts()
+        per_render(layouts)
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -3023,6 +3110,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     from trase_tpu_torch.renderer import make_render_camera, render
 
     t_start = time.perf_counter()
+    count_project_calls()
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(dev)
     emit({"phase": "device", "nvidia_smi": smi, "torch_device": kind,
@@ -3177,6 +3265,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     assert launches["render"] == {"composite_fwd": calls, "composite_bwd": 0,
                                   "reduce_pair_grads": 0,
                                   "deform_mlp": 0}, launches
+    projections(layouts["render"], calls, 0)
     # the same frame through deform_step(fused=True): one deform_mlp
     # launch per frame
     reset_counts()
@@ -3195,6 +3284,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     assert launches["render_fused"] == {
         "composite_fwd": n_fused, "composite_bwd": 0, "reduce_pair_grads": 0,
         "deform_mlp": n_fused}, launches["render_fused"]
+    projections(layouts["render_fused"], n_fused, 0)
     # the same frames with the weights repacked every frame, as before
     # fused_weights cached them (not counted: a comparison)
     from trase_tpu_torch.ops import mlp_cuda as M
@@ -3257,6 +3347,7 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     png_counts = check_pngs(mdl, it, n_train, n_test)
     launches["cli"] = counts()
     layouts["cli"] = layout_counts()
+    per_render(layouts["cli"])
     assert launches["cli"]["composite_fwd"] == 2 * (n_train + n_test) + 2, \
         launches["cli"]
     assert launches["cli"]["deform_mlp"] == 0, launches["cli"]
@@ -3373,10 +3464,12 @@ def run(dev: torch.device, mlp_parent: str | None = None) -> None:
     emit({"phase": "profile", "path": "style-step",
           **profile_frames(style_step, frames=3)})
 
-    # 9. kernels
+    # 9. the projection kernels, then every kernel
+    pj = project_check(dev)
+    emit(pj)
     emit(kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
                       slab_rows, mio["mask_unpack"],
-                      feature["smooth_rows_bwd"], train["update_tail"],
+                      feature["smooth_rows_bwd"], train["update_tail"], pj,
                       time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3441,6 +3534,7 @@ def render_grad_check(params, aux, cam, net, cfg, dev):
             "reduce_pair_grads/10": 1,
             **{f"composite_bwd/{k}": 1 for k in got}}
     assert layouts == want, layouts
+    projections(layouts, 0, 0)  # projected once, before reset_counts
     t0 = time.perf_counter()
     with PlainKernels():
         ref = frame(True, True, False)
@@ -3505,6 +3599,7 @@ def scale_phase(root, dev) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
     with open(os.path.join(out, "curve.jsonl")) as f:
         lines = [json.loads(ln) for ln in f]
     assert [ln["iteration"] for ln in lines] == [SCALE_MILESTONE,
@@ -3617,6 +3712,7 @@ def convert_phase(root, src, seg, it, sid, dev) -> dict:
         "6", "--device", dev.type, "--quiet"])
     out["train_s"] = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
     assert launches == dict(compositor(CONVERT_ITERATIONS), deform_mlp=0,
                             **smoothing(trainer.feature_calls)), launches
     assert 0 < trainer.feature_calls < CONVERT_ITERATIONS, \
@@ -3659,7 +3755,7 @@ def convert_phase(root, src, seg, it, sid, dev) -> dict:
 
 
 def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
-                 slab_rows, mu, sb, ut, seconds):
+                 slab_rows, mu, sb, ut, pj, seconds):
     """The kernels line: one object per kernel with its headline numbers
     (the GAUSSIAN layout, as in earlier runs) and one variant per
     instantiation, with its launches summed over the paths' counts; the
@@ -3667,8 +3763,9 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
     the whole image's, their sum, and the slabs' summed bound. The mask
     unpack (`mu`, mask_unpack_check's row) counts the mask-io phase's
     training runs' launches, the smoothing's backward (`sb`,
-    smooth_bwd_check's row) and the update tail (`ut`, update_tail_check's
-    row) every path's."""
+    smooth_bwd_check's row), the update tail (`ut`, update_tail_check's
+    row) and the projection (`pj`, project_check's row, at the bench
+    scene's capacity) every path's."""
     flat = [c for lc in layouts.values()  # the FEATURE step's per arm
             for c in (lc.values() if "densify_stats" in lc else [lc])]
 
@@ -3846,6 +3943,17 @@ def kernel_table(rows, bwd_rows, full, kb, mlp_rows, launches, layouts,
         host_ms=ut["host_ms"], plain_host_ms=ut["plain_host_ms"],
         bound_ms=ut["bound_ms"], bound_by=ut["bound_by"], library_ms=None,
         rows=ut["rows"], segments=ut["segments"]))
+    pb = pj["by_rows"][CAPACITY]
+    entries.append(dict(
+        name="project", launches=launched("project_fwd"),
+        bwd_launches=launched("project_bwd"),
+        max_rel_err=max(max(r["gaps"].values())
+                        for r in pj["by_rows"].values()),
+        ms=pb["fwd_ms"], bwd_ms=pb["bwd_ms"], bound_ms=pb["fwd_bound_ms"],
+        bwd_bound_ms=pb["bwd_bound_ms"], bound_by=pb["bound_by"],
+        plain_ms=pb["path_ms"]["plain_fwd"],
+        plain_fwd_bwd_ms=pb["path_ms"]["plain_fwd_bwd"], library_ms=None,
+        rows=CAPACITY, by_rows=pj["by_rows"]))
     for e in entries:
         e["route"] = "cuda"
         e["source"], e["replaces"] = KERNELS[e["name"]]
@@ -3934,6 +4042,7 @@ def segment_cli_phase(root, src, mdl, it, n_train, n_test, dev) -> dict:
               "--device", dev.type])
     out["render_cli_s"] = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
     text = "text_prompt_center_objects"
     pngs, videos = {}, 0
     for split_name, nv in (("train", n_train), ("test", n_test)):
@@ -4071,6 +4180,7 @@ def train_step_phase(params, aux, cam, net, cfg, dev) -> dict:
                                 "composite_bwd/4/0/1/0": n_steps,
                                 "reduce_pair_grads/10": n_steps}, layouts
     assert tail_counts(layouts) == dict.fromkeys(TAIL_KERNELS, n_steps)
+    projections(layouts, n_steps, n_steps)
     losses = [float(x) for x in losses]
     assert all(bool(f) for f in finite), "a step was skipped as non-finite"
     state = step.box["state"]
@@ -4364,6 +4474,160 @@ def update_tail_check(params, aux, net, dev) -> dict:
             "bound_by": "bytes", "bytes": moved}
 
 
+def project_scene(n, dev, seed=31):
+    """n gaussian rows like the bench scene's (a seeded cloud 4 in front of
+    its camera, SH degree 3), with varied scales and rotations and a sixth
+    of the rows at zero opacity: means, activated scales, unit rotations,
+    opacity, features_dc, features_rest."""
+    rng = np.random.default_rng(seed)
+    means = (rng.normal(size=(n, 3)) * 1.2).astype(np.float32)
+    means[:, 2] += 4.0
+    scales = np.exp(rng.normal(-4.0, 0.7, size=(n, 3))).astype(np.float32)
+    rots = rng.normal(size=(n, 4)).astype(np.float32)
+    rots /= np.linalg.norm(rots, axis=1, keepdims=True)
+    opac = rng.uniform(0.05, 1.0, size=n).astype(np.float32)
+    opac[rng.random(n) < 1 / 6] = 0.0
+    dc = (0.5 * rng.normal(size=(n, 1, 3))).astype(np.float32)
+    rest = (0.1 * rng.normal(size=(n, 15, 3))).astype(np.float32)
+    return [torch.tensor(x, device=dev)
+            for x in (means, scales, rots, opac, dc, rest)]
+
+
+def project_check(dev) -> dict:
+    """The projection kernels (csrc/project.cu) at PROJECT_ROWS rows of the
+    bench camera, SH degree 3: the forward's mean2d, depth, conic, radius,
+    valid and extent equal to the plain version's (project_plain) bit for
+    bit, its colour and every gradient of a seeded cotangent within
+    PROJECT_TOL of their scale of the plain version's and autograd's; one
+    launch each way. Times: each kernel's queued ms (5 interleaved rounds
+    of 20 launches from prebuilt arguments) beside the bytes bound (each
+    input byte read and each output byte written once); the plain forward's
+    and forward + backward's queued ms; the host ms of a call of either
+    path, forward alone and under autograd, enqueued behind a sleep kernel
+    so that no launch waits for the device."""
+    from trase_tpu_torch.ops import project_cuda as PC
+    from trase_tpu_torch.renderer import make_render_camera
+
+    cam = make_render_camera(np.eye(3), np.zeros(3), 1.2, 0.95, HEIGHT,
+                             WIDTH, device=dev)
+    exact = ("mean2d", "depth", "conic", "radius", "valid", "extent")
+    out = {}
+    for n in PROJECT_ROWS:
+        base = project_scene(n, dev)
+        gen = torch.Generator(device=dev).manual_seed(37)
+        cots = [torch.randn(shape, generator=gen, device=dev)
+                for shape in ((n, 2), (n,), (n, 3), (n, 3))]
+
+        def leaves():
+            return ([x.clone().requires_grad_(True) for x in base]
+                    + [torch.zeros((n, 2), device=dev, requires_grad=True)])
+
+        def call(fn, ls):
+            means, scales, rots, opac, dc, rest, off = ls
+            return fn(means, scales, rots, opac, cam.buffers, HEIGHT, WIDTH,
+                      sh_degree=3, features_dc=dc, features_rest=rest,
+                      mean2d_offset=off)
+
+        def fwd_bwd(fn, ls):
+            p = call(fn, ls)
+            loss = sum((o * c).sum() for o, c in zip(
+                (p.mean2d, p.depth, p.conic, p.color), cots))
+            return p, torch.autograd.grad(loss, [ls[k] for k in
+                                                 (0, 1, 2, 4, 5, 6)])
+
+        before = projections(layout_counts())
+        (kern, kgrad), (plain, pgrad) = (fwd_bwd(fn, leaves()) for fn in
+                                         (PC.project, PC.project_plain))
+        after = projections(layout_counts())
+        assert {k: after[k] - before[k] for k in PROJECT_KERNELS} == \
+            dict.fromkeys(PROJECT_KERNELS, 1), (before, after)
+        torch.cuda.synchronize()
+
+        def bits(t):
+            t = t.detach()
+            return t if t.dtype == torch.bool else torch.where(
+                torch.isnan(t), torch.full_like(t, float("nan")),
+                t).view(torch.int32)
+
+        differ = [k for k in exact if not torch.equal(
+            bits(getattr(kern, k)), bits(getattr(plain, k)))]
+        assert not differ, f"projection forward differs: {differ}"
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        gaps = {"color": rel(kern.color.detach(), plain.color.detach())}
+        color_bits_differ = int((bits(kern.color) != bits(plain.color)).sum())
+        for name, a, b in zip(("means3d", "scales", "rots", "features_dc",
+                               "features_rest", "offset"), kgrad, pgrad):
+            gaps[name] = rel(a, b)
+        assert max(gaps.values()) <= PROJECT_TOL, gaps
+
+        # the kernels alone, from prebuilt arguments
+        ins = list(base) + [torch.zeros((n, 2), device=dev)]
+        dims = (cam.buffers, HEIGHT, WIDTH, 1.0, 16)
+
+        def f(*shape):
+            return torch.empty((n, *shape), device=dev)
+
+        outs = dict(mean2d=f(2), depth=f(), conic=f(3), radius=f(),
+                    valid=torch.empty(n, dtype=torch.bool, device=dev),
+                    extent=f(2), color=f(3))
+        fwd_args = PC._args(ins, dims, **outs)
+        grads = dict(d_means=f(3), d_scales=f(3), d_rots=f(4),
+                     d_dc=f(1, 3), d_rest=f(15, 3))
+        bwd_args = PC._args(ins, dims, **grads, **dict(zip(
+            ("g_mean2d", "g_depth", "g_conic", "g_color"), cots)))
+        bwd_args.gs_mean2d, bwd_args.gs_depth = 2, 1
+        bwd_args.gs_conic = bwd_args.gs_color = 3
+        kernel_ms = repeated_ms({
+            "fwd": lambda: PC._launch("project_fwd", fwd_args, dev),
+            "bwd": lambda: PC._launch("project_bwd", bwd_args, dev)})
+        torch.cuda.synchronize()
+        assert bits(outs["conic"]).equal(bits(kern.conic))
+        assert torch.equal(grads["d_scales"], kgrad[1])
+        paths = {"kernel": PC.project, "plain": PC.project_plain}
+        fns = {}
+        for name, fn in paths.items():
+            ls = leaves()
+
+            def fwd(fn=fn, ls=ls):
+                with torch.no_grad():
+                    return call(fn, ls)
+
+            fns[f"{name}_fwd"] = fwd
+            fns[f"{name}_fwd_bwd"] = lambda fn=fn, ls=ls: fwd_bwd(fn, ls)
+        path_ms = repeated_ms(fns, timer=lambda fn, _: queued_ms(fn, 1))
+
+        def host_ms(fn, iters=5):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            ms = (time.perf_counter() - t0) / iters * 1e3
+            torch.cuda.synchronize()
+            return ms
+
+        moved = {"fwd_read": n * (12 + 12 + 16 + 4 + 8 + 16 * 12),
+                 "fwd_written": n * (8 + 4 + 12 + 4 + 1 + 8 + 12),
+                 "bwd_read": n * (12 + 12 + 16 + 16 * 12 + 8 + 4 + 12 + 12),
+                 "bwd_written": n * (12 + 12 + 16 + 16 * 12)}
+        out[n] = {
+            "rows": n, "valid": int(kern.valid.sum()), "gaps": gaps,
+            "color_bits_differ": color_bits_differ,
+            "fwd_ms": kernel_ms["fwd"]["median"],
+            "bwd_ms": kernel_ms["bwd"]["median"], "ms_repeats": kernel_ms,
+            "fwd_bound_ms": (moved["fwd_read"] + moved["fwd_written"])
+            / HBM_BYTES_PER_S * 1e3,
+            "bwd_bound_ms": (moved["bwd_read"] + moved["bwd_written"])
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": moved,
+            "path_ms": {k: v["median"] for k, v in path_ms.items()},
+            "host_ms": {k: host_ms(fn) for k, fn in fns.items()}}
+    return {"phase": "project", "by_rows": out}
+
+
 def changed_fields(old, new) -> list:
     """Names of the state's tensors that differ between two states."""
     out = []
@@ -4422,6 +4686,8 @@ def feature_step_phase(params, aux, cam, net, cfg, dev) -> dict:
         assert no_tail(layouts) == want, (arm, layouts)
         assert tail_counts(layouts) == dict.fromkeys(TAIL_KERNELS,
                                                      n_steps), arm
+        # only the features and the screen offset train: no backward
+        projections(layouts, n_steps, 0)
         metrics = first + ms
         assert all(bool(m["finite"]) for m in metrics), arm
         state = step.box["state"]
@@ -4516,6 +4782,7 @@ def train_cli_phase(src, root, dev, n_train, n_test) -> dict:
     n_feature = 2 * block
     assert launches == dict(compositor(it), deform_mlp=0,
                             **smoothing(n_feature)), launches
+    projections(layouts, it, it - n_feature)  # FEATURE: forward alone
     n_stats = block + CLI_DENSIFY_UNTIL - (CLI_FEATURE_FROM + 2 * block)
     assert events["feature"] == [True] * n_stats + [False] * (
         n_feature - n_stats), events["feature"]
@@ -4586,6 +4853,7 @@ def synthetic_phase(root, dev) -> dict:
     torch.cuda.synchronize()
     fast_s = time.perf_counter() - t0
     launches, layouts = counts(), layout_counts()
+    per_render(layouts)
     t0 = time.perf_counter()
     write_synthetic_dataset(oracle, image_size=SYN_SIZE, fast_gt=False,
                             device=dev)
@@ -4606,6 +4874,7 @@ def synthetic_phase(root, dev) -> dict:
     big_s = time.perf_counter() - t0
     big_views = sum(SYN_BIG_VIEWS)
     big_launches = counts()
+    per_render(layout_counts())
     assert big_launches == dict(compositor(0), composite_fwd=2 * big_views,
                                 deform_mlp=0), big_launches
     from PIL import Image
@@ -4727,6 +4996,7 @@ def resume_phase(root, dev) -> dict:
     assert launches == dict(compositor(m), deform_mlp=0,
                             composite_fwd=m + evaluated,
                             **smoothing(tr_b.feature_calls)), launches
+    projections(layouts, m + evaluated, tr_b.step_calls)
     assert tr_b.step_calls + tr_b.feature_calls == m
     psnr_a, psnr_b = tr_a.best_psnr, tr_b.best_psnr
     assert 10.0 < psnr_a < 60.0, psnr_a

@@ -721,10 +721,11 @@ def test_viewer_frames_on_card():
 def test_render_composite_ragged_capacity_on_card():
     """A background of 1500 gaussians in 1531 slots plus an object of 77
     in 77 (a composite capacity of 1608), edited: one launch, the kernel's
-    output equal to composite_plain's bit for bit, the image within 2e-4
-    of the CPU's render_composite."""
+    output equal to composite_plain's bit for bit, one projection launch,
+    the image within 2e-4 of the CPU's render_composite."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from trase_tpu_torch.ops import cuda_lib as CL
     from trase_tpu_torch.ops.rasterize import RasterConfig
     from trase_tpu_torch.renderer import make_render_camera, render_composite
 
@@ -738,6 +739,7 @@ def test_render_composite_ragged_capacity_on_card():
             np.float32), device=dev) for k in (3, 4, 3)]
         cam = make_render_camera(np.eye(3), np.zeros(3), 0.9, 0.7, 90, 117,
                                  device=dev)
+        projected = CL.LAYOUT_LAUNCHES.get(("project_fwd",), 0)
         with _Capture() as cap, torch.no_grad():
             imgs[dev] = render_composite(
                 cam, bg, bga.alive, obj, obja.alive, *d,
@@ -748,6 +750,7 @@ def test_render_composite_ragged_capacity_on_card():
         if dev == "cuda":
             assert len(cap.calls) == 1 and cap.plain_err() == 0.0
             assert cap.calls[0][0][0].shape[0] == 1531 + 77
+            assert CL.LAYOUT_LAUNCHES[("project_fwd",)] == projected + 1
     assert imgs["cuda"].shape == (3, 90, 117)
     np.testing.assert_allclose(imgs["cuda"].numpy(), imgs["cpu"].numpy(),
                                atol=2e-4, rtol=0)
@@ -864,9 +867,9 @@ def _style_case(device):
 @pytest.mark.cuda
 def test_style_step_kernels_match_plain_on_card():
     """One style step through the kernels (one launch each of the 4-value
-    forward with residuals, its backward, the 10-word reduce and the update
+    forward with residuals, its backward, the 10-word reduce, the update
     tail's two kernels over its 20 segments: 2 fields, densify, 17
-    checked) against the same step with the compositor's three kernels
+    checked, and the projection's two: the colours are trained) against the same step with the compositor's three kernels
     through their plain versions on the card (both sides run the update
     tail's kernels, which tests/test_torch_update_tail.py holds to the
     plain tail): the loss bit for bit (the forward is), the colours' Adam
@@ -884,7 +887,8 @@ def test_style_step_kernels_match_plain_on_card():
                                    ("composite_bwd", 4, 0, True, False): 1,
                                    ("reduce_pair_grads", 10): 1,
                                    ("update_tail", 20): 1,
-                                   ("update_commit",): 1}
+                                   ("update_commit",): 1,
+                                   ("project_fwd",): 1, ("project_bwd",): 1}
     with _PlainKernels():
         ref, rm = step(state)
     assert bool(m["finite"]) and float(m["loss"]) == float(rm["loss"])

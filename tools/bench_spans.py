@@ -229,7 +229,7 @@ def patch(mode, opts, report: dict):
         run_.trainer.opt.iterations = first_iter + n
         run_.trainer.train(first_iter=first_iter, progress=False)
 
-    def traced_window(torch, run_, first_iter, seconds):
+    def traced_window(torch, run_, first_iter, seconds, *last):
         if opts.sync_check:
             first_iter, report["sync_check"] = sync_check(
                 torch, lambda first, n: advance(run_, first, n), first_iter,
@@ -247,7 +247,7 @@ def patch(mode, opts, report: dict):
         trace.take()
         trace.enable(bool(opts.spans))
         try:
-            out = window(torch, run_, first_iter, seconds)
+            out = window(torch, run_, first_iter, seconds, *last)
         finally:
             trace.enable(False)
         report["window"] = read_window(

@@ -94,7 +94,7 @@ def render_gt(scene: dict, t: float, R, T, fovx, fovy, h, w,
     covers the largest gaussian's tile rectangle, so no tile is dropped
     and the image is the oracle's (trase_tpu's fast GT keeps K = 8 and
     drops tiles from 256x256 on: ROADMAP.md, Queue 3)."""
-    from ..ops.projection import compute_cov3d, project_gaussians
+    from ..ops import project_cuda
     from ..ops.rasterize import RasterConfig, _tile_grid, _tile_rects
     from ..ops.rasterize_cuda import rasterize_tiled
     from ..ops.rasterize_ref import rasterize_reference
@@ -120,9 +120,8 @@ def render_gt(scene: dict, t: float, R, T, fovx, fovy, h, w,
     opac = torch.full((n,), float(scene["opacity"]), device=dev)
     bg = f32(bg)
     with torch.no_grad():
-        proj = project_gaussians(xyz, compute_cov3d(scales, rots), opac,
-                                 cam.buffers, h, w,
-                                 colors_precomp=f32(scene["rgb"]))
+        proj = project_cuda.project(xyz, scales, rots, opac, cam.buffers, h,
+                                    w, colors_precomp=f32(scene["rgb"]))
         if fast:
             count = _tile_rects(proj, *_tile_grid(h, w))[3]
             k = 1 << max(int(count.max()) - 1, 0).bit_length()

@@ -24,6 +24,10 @@ from ..utils.sh import C0, C1, C2, C3
 # compositor's alpha threshold share it (reference forward.cu's 1/255).
 ALPHA_EPS = 1.0 / 255.0
 
+# The near plane: rows at view depth <= ZNEAR are culled. project_gaussians
+# and the projection kernels (ops/project_cuda.py) both read it.
+ZNEAR = 0.2
+
 
 class CameraBuffers(NamedTuple):
     """Device-side camera parameters (0-d / small float32 tensors)."""
@@ -115,7 +119,7 @@ def project_gaussians(
     sh_coeffs: torch.Tensor | None = None,
     sh_degree: int = 0,
     colors_precomp: torch.Tensor | None = None,
-    znear: float = 0.2,
+    znear: float = ZNEAR,
 ) -> ProjectedGaussians:
     """EWA projection of N gaussians to screen space.
 

@@ -29,8 +29,9 @@ import torch
 
 from . import resolve_device
 from .models import gaussians as G
+from .ops import project_cuda
 from .ops.knn import smooth_features
-from .ops.projection import CameraBuffers, compute_cov3d, project_gaussians
+from .ops.projection import CameraBuffers
 from .ops.rasterize import RasterConfig
 from .ops.rasterize_cuda import (composite_image, composite_inputs,
                                  image_outputs, rasterize_tiled)
@@ -68,8 +69,9 @@ def camera_from_world_view(wv: np.ndarray, fovx: float, fovy: float,
     full = wv @ proj
     campos = np.linalg.inv(wv)[3, :3]
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    def t(x):  # row-major on the device, as the projection kernels read it
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=dev)
 
     buffers = CameraBuffers(
         world_view=t(wv), full_proj=t(full), campos=t(campos),
@@ -106,7 +108,8 @@ def project_view(camera: RenderCamera, params: G.GaussianParams,
     """The projection stage of `render`: deformation, opacity masked by
     `aux_alive` (and `mask`), covariance, EWA projection with SH colour
     (a zero placeholder without colour), and `mean2d_offset` added to the
-    projected means."""
+    projected means: the kernels of ops/project_cuda.py on CUDA tensors,
+    their plain version on CPU tensors."""
     H, W = camera.image_height, camera.image_width
     means3d, scales, rots = apply_deformation(
         params, d_xyz, d_rotation, d_scaling, is_6dof)
@@ -115,24 +118,16 @@ def project_view(camera: RenderCamera, params: G.GaussianParams,
     if mask is not None:
         opacity = torch.where(mask, opacity, zero)
 
-    cov3d = compute_cov3d(scales, rots, scaling_modifier)
+    colors = override_color
     if not with_color:
         # colour is never composited: a zero placeholder skips SH
-        proj = project_gaussians(
-            means3d, cov3d, opacity, camera.buffers, H, W,
-            colors_precomp=torch.zeros((means3d.shape[0], 3),
-                                       dtype=means3d.dtype,
-                                       device=means3d.device))
-    elif override_color is not None:
-        proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
-                                 H, W, colors_precomp=override_color)
-    else:
-        proj = project_gaussians(means3d, cov3d, opacity, camera.buffers,
-                                 H, W, sh_coeffs=G.get_features(params),
-                                 sh_degree=sh_degree)
-    if mean2d_offset is not None:
-        proj = proj._replace(mean2d=proj.mean2d + mean2d_offset)
-    return proj
+        colors = torch.zeros((means3d.shape[0], 3), dtype=means3d.dtype,
+                             device=means3d.device)
+    return project_cuda.project(
+        means3d, scales, rots, opacity, camera.buffers, H, W,
+        scaling_modifier=scaling_modifier, sh_degree=sh_degree,
+        features_dc=params.features_dc, features_rest=params.features_rest,
+        colors_precomp=colors, mean2d_offset=mean2d_offset)
 
 
 def render(
@@ -276,11 +271,12 @@ def render_composite(
     scales = torch.cat([G.get_scaling(bg_params), scales_d], dim=0)
     rots = torch.cat([G.get_rotation(bg_params), rots_d], dim=0)
     opacity = torch.cat([opa_b, opa_d], dim=0)
-    shs = torch.cat([G.get_features(bg_params), G.get_features(dyn_params)],
-                    dim=0)
+    dc = torch.cat([bg_params.features_dc, dyn_params.features_dc], dim=0)
+    rest = torch.cat([bg_params.features_rest, dyn_params.features_rest],
+                     dim=0)
 
-    cov3d = compute_cov3d(scales, rots, 1.0)
-    proj = project_gaussians(means, cov3d, opacity, camera.buffers, H, W,
-                             sh_coeffs=shs, sh_degree=sh_degree)
+    proj = project_cuda.project(means, scales, rots, opacity, camera.buffers,
+                                H, W, sh_degree=sh_degree, features_dc=dc,
+                                features_rest=rest)
     out = rasterize_tiled(proj, None, bg_color, H, W, raster_cfg)
     return {"render": out["render"]}
